@@ -1,0 +1,530 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``src/repro_torch``) on one CUDA card.
+
+    python3 chip_smoke.py            # every phase; exits 0 only if all pass
+    python3 chip_smoke.py --quick    # phases 1-3 at small shapes only
+
+Phases:
+  1. device: name, capability (must be 9.0), power limit, versions;
+  2. build the wire kernels from ``src/repro_torch/kernels/csrc``;
+  3. each kernel (K1-K4) against its plain PyTorch version on the card at
+     small odd shapes and at the main path's shapes, timed with CUDA
+     events (median of >= 10 runs after warm-up) beside the plain version
+     and the memory bound;
+  4. a small Algorithm 1 run (smoke config, K=3, 2 rounds, fused codec) on
+     the card against the same run on the CPU;
+  5. the main path at internlm2-1.8b's full width (depth cut to 16 of 24
+     layers, f32): (a) fused codec, K=5, 2 rounds; (b) fused int4 with
+     error feedback, K=3, 1 round; (c) leafwise codec, K=3, 1 round. The
+     kernels' launch counters are zeroed just before each and read just
+     after; each must show its kernels launched.
+Before the last line come the ``kernels`` JSON and the card's name and
+power limit as ``nvidia-smi`` gives them; the last line is
+``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
+A record of every phase goes to ``build/chip_smoke.json``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import shutil
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+RECORD = {}
+
+# f32 tolerances of the kernels against their plain versions (the JAX
+# suite's: tests/test_kernels.py)
+TOL8 = {"rtol": 1e-7, "atol": 1e-6}
+TOL41 = {"rtol": 2e-6, "atol": 2e-6}
+KERNEL_META = {
+    "wire_quantize": ("K1", "repro/kernels/quantize.py:99"),
+    "wire_dequantize": ("K2", "repro/kernels/quantize.py:125"),
+    "wire_quant_avg_dequant": ("K3", "repro/kernels/comm.py:74"),
+    "wire_quant_avg_dequant_ef": ("K4", "repro/kernels/comm.py:97"),
+}
+SOURCE = "src/repro_torch/kernels/csrc/wire.cu"
+# depth of the full-width model: 16 of internlm2-1.8b's 24 layers. The
+# wire step at K=5 holds 12 model copies (5 stacked, the 5-row flat
+# buffer, the mean, prev_avg): 12 x 5.54 GB = 66.5 GB of the card's 80.
+LAYERS = 16
+
+
+def say(phase, **kw):
+    RECORD.setdefault(phase, []).append(kw)
+    print(f"[{phase}] " + json.dumps(kw, default=str), flush=True)
+
+
+def check(cond, msg):
+    if not cond:
+        raise RuntimeError(msg)
+
+
+def run_cmd(cmd):
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True,
+                             timeout=60, check=False)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"unavailable ({e})"
+    return (res.stdout or res.stderr).strip()
+
+
+def mem_bandwidth(name):
+    """Published HBM rate of the card the device line names (bytes/s)."""
+    if "H200" in name:
+        return 4.8e12
+    if "H100" in name and "PCIe" in name:
+        return 2.0e12
+    if "H100" in name and "NVL" in name:
+        return 3.9e12
+    return 3.35e12                      # H100 SXM
+
+
+def cuda_ms(torch, fn, reps=10, warmup=2):
+    """Median milliseconds of ``fn()`` over ``reps`` CUDA-event-timed runs."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+# ---------------------------------------------------------------------------
+def phase_device(torch):
+    name = torch.cuda.get_device_name(0)
+    cap = torch.cuda.get_device_capability(0)
+    smi = run_cmd(["nvidia-smi", "--query-gpu=name,power.limit",
+                   "--format=csv,noheader"])
+    try:
+        import triton
+        triton_v = triton.__version__
+    except ImportError:
+        triton_v = None
+    nvcc = run_cmd(["nvcc", "--version"] if shutil.which("nvcc")
+                   else ["/usr/local/cuda/bin/nvcc", "--version"])
+    say("device", name=name, capability=list(cap), nvidia_smi=smi,
+        torch=torch.__version__, cuda=torch.version.cuda,
+        nvcc=nvcc.splitlines()[-1] if nvcc else nvcc, triton=triton_v,
+        count=torch.cuda.device_count())
+    check(tuple(cap) == (9, 0), f"capability {cap} is not Hopper (9, 0)")
+    return name, smi
+
+
+def phase_build():
+    from repro_torch.kernels import _build
+    t0 = time.time()
+    path = _build.build("wire")
+    _build.load("wire")
+    log = _build.BUILD_LOGS.get("wire", "(already built)")
+    say("build", seconds=round(time.time() - t0, 3),
+        library=str(path.relative_to(ROOT)),
+        ptxas=[ln for ln in log.splitlines() if "registers" in ln
+               or "spill" in ln])
+
+
+def _close(torch, got, want, tol, what, chunk=1 << 26):
+    """``allclose`` (|got - want| <= atol + rtol |want|) and the max abs
+    error, a chunk at a time: at full width one temporary of the whole
+    (K, N_pad) buffer would not fit beside the buffers compared."""
+    g, w = got.reshape(-1), want.reshape(-1)
+    err, ok = 0.0, True
+    for i in range(0, g.numel(), chunk):
+        a, b = g[i:i + chunk].float(), w[i:i + chunk].float()
+        d = (a - b).abs_()
+        err = max(err, float(d.max()))
+        ok = ok and bool((d <= tol["atol"] + tol["rtol"] * b.abs()).all())
+    check(ok, f"{what}: kernel disagrees with plain version (max abs err "
+              f"{err}, tol {tol})")
+    return err
+
+
+def phase_kernels_small(torch, dev, errs):
+    """Every kernel at small odd shapes, bits {8, 4, 1}."""
+    from repro_torch.kernels import comm, quantize as qz, ref
+    g = torch.Generator(device=dev).manual_seed(0)
+    for bits in (8, 4, 1):
+        tol = TOL8 if bits == 8 else TOL41
+        for shape in [(1000, 37), (256,), (3 * 256 + 100,), (8, 8, 8)]:
+            x = torch.randn(shape, generator=g, device=dev) * 5
+            q_k, s_k, shp = qz.quantize_blockwise_fwd(x, bits=bits)
+            q_p, s_p, _ = ref.quantize_blockwise_ref(x, bits=bits)
+            nb = q_p.shape[0]
+            check(torch.equal(q_k[:nb], q_p),
+                  f"K1 packed codes differ at {shape} bits={bits}")
+            e1 = _close(torch, s_k[:nb], s_p,
+                        {"rtol": 1e-6, "atol": 0} if bits == 1
+                        else {"rtol": 0, "atol": 0}, f"K1 scale {shape}")
+            d_k = qz.dequantize_blockwise_fwd(q_p, s_p, shp, bits=bits)
+            e2 = _close(torch, d_k, ref.dequantize_blockwise_ref(
+                q_p, s_p, shp, bits=bits), {"rtol": 0, "atol": 0},
+                f"K2 {shape}")
+            errs["wire_quantize"] = max(errs["wire_quantize"], e1)
+            errs["wire_dequantize"] = max(errs["wire_dequantize"], e2)
+        for K, n in [(1, 8 * 256), (3, 16 * 256), (5, 8 * 256 + 300)]:
+            buf = torch.randn((K, n), generator=g, device=dev) * 3
+            res = torch.randn((K, n), generator=g, device=dev) * 0.1
+            e3 = _close(torch, comm.quant_avg_dequant_fwd(buf, bits=bits),
+                        ref.quant_avg_dequant_ref(buf, bits=bits), tol,
+                        f"K3 ({K},{n}) bits={bits}")
+            m_k, r_k = comm.quant_avg_dequant_ef_fwd(buf, res.clone(),
+                                                     bits=bits)
+            m_p, r_p = ref.quant_avg_dequant_ef_ref(buf, res.clone(),
+                                                    bits=bits)
+            e4 = max(_close(torch, m_k, m_p, tol, f"K4 mean ({K},{n})"),
+                     _close(torch, r_k, r_p, tol, f"K4 residual ({K},{n})"))
+            m0, _ = comm.quant_avg_dequant_ef_fwd(buf, torch.zeros_like(buf),
+                                                  bits=bits)
+            check(torch.equal(m0, comm.quant_avg_dequant_fwd(buf, bits=bits)),
+                  "K4 with a zero residual is not K3 bit for bit")
+            errs["wire_quant_avg_dequant"] = max(
+                errs["wire_quant_avg_dequant"], e3)
+            errs["wire_quant_avg_dequant_ef"] = max(
+                errs["wire_quant_avg_dequant_ef"], e4)
+    torch.cuda.synchronize()
+    say("kernels-small", max_abs_err=errs)
+
+
+def full_cfg():
+    from repro_torch.configs import get_config
+    return get_config("internlm2-1.8b").with_(
+        n_layers=LAYERS, segments=((("gqa:dense",), LAYERS),))
+
+
+def phase_kernels_full(torch, dev, errs, bw):
+    """Each kernel at the shapes the main path gives it; times and bounds."""
+    from repro_torch.core import flatbuf
+    from repro_torch.kernels import comm, quantize as qz, ref
+    from repro_torch.models import transformer as tr
+    from repro_torch.tree import leaves_with_path, unflatten_like
+    # the main path's tree as shapes only (meta tensors hold no memory),
+    # read off a one-layer model: the layer leaves' leading dim is the
+    # depth, and the leaf order does not depend on it
+    cfg1 = full_cfg().with_(n_layers=1, segments=((("gqa:dense",), 1),))
+    one = tr.init_params(0, cfg1, torch.float32, device=dev)
+    shapes = [((LAYERS, *t.shape[1:]) if path.startswith("segments/")
+               else tuple(t.shape)) for path, t in leaves_with_path(one)]
+    meta = unflatten_like(one, [torch.empty((5, *s), device="meta")
+                                for s in shapes])
+    del one
+    g = torch.Generator(device=dev).manual_seed(1)
+    out = {}
+
+    # K3 at (5, N_pad), K4 at (3, N_pad): the flat layout of the K-stacked
+    # tree (N_pad is per participant, independent of K)
+    n_pad = flatbuf.make_layout(meta).n_pad
+    say("kernels-full", n_pad=n_pad, leaves=len(shapes))
+    for name, K, bits in (("wire_quant_avg_dequant", 5, 8),
+                          ("wire_quant_avg_dequant_ef", 3, 4)):
+        buf = torch.randn((K, n_pad), generator=g, device=dev)
+        tol = TOL8 if bits == 8 else TOL41
+        if name == "wire_quant_avg_dequant":
+            want = ref.quant_avg_dequant_ref(buf, bits=bits)  # temps first
+            got = comm.quant_avg_dequant_fwd(buf, bits=bits)
+            err = _close(torch, got, want, tol, f"K3 at ({K}, N_pad)")
+            del got, want
+            ms = cuda_ms(torch, lambda: comm.quant_avg_dequant_fwd(
+                buf, bits=bits))
+            plain = cuda_ms(torch, lambda: ref.quant_avg_dequant_ref(
+                buf, bits=bits))
+            nbytes = 4 * K * n_pad + 4 * n_pad
+        else:
+            # both update the residual in place; at (3, N_pad) one residual
+            # is 16.6 GB, so the second copy is drawn again from the same
+            # seed after the plain version's temporaries are gone
+            def residual():
+                r = torch.Generator(device=dev).manual_seed(2)
+                return torch.randn((K, n_pad), generator=r, device=dev) * .01
+            m_p, r_p = ref.quant_avg_dequant_ef_ref(buf, residual(),
+                                                    bits=bits)
+            m_k, r_k = comm.quant_avg_dequant_ef_fwd(buf, residual(),
+                                                     bits=bits)
+            err = max(_close(torch, m_k, m_p, tol, "K4 mean at (3, N_pad)"),
+                      _close(torch, r_k, r_p, tol,
+                             "K4 residual at (3, N_pad)"))
+            del m_k, m_p, r_p
+            ms = cuda_ms(torch, lambda: comm.quant_avg_dequant_ef_fwd(
+                buf, r_k, bits=bits))
+            plain = cuda_ms(torch, lambda: ref.quant_avg_dequant_ef_ref(
+                buf, r_k, bits=bits))
+            nbytes = 8 * K * n_pad + 4 * n_pad + 4 * K * n_pad
+            del r_k
+        del buf
+        torch.cuda.empty_cache()
+        out[name] = {"shape": [K, n_pad], "bits": bits, "ms": ms,
+                     "plain_ms": plain, "bytes": nbytes,
+                     "bound_ms": 1e3 * nbytes / bw}
+        errs[name] = max(errs[name], err)
+        say("kernels-full", kernel=name, **out[name], max_abs_err=err)
+
+    # K1 / K2 over the leaves of the K=3 stacked tree (leafwise codec)
+    xs = [torch.randn((3, *s), generator=g, device=dev) for s in shapes]
+    payload = []
+    e1 = e2 = 0.0
+    for x in xs:
+        q_k, s_k, shp = qz.quantize_blockwise_fwd(x, bits=8)
+        q_p, s_p, _ = ref.quantize_blockwise_ref(x, bits=8)
+        nb = q_p.shape[0]
+        check(torch.equal(q_k[:nb], q_p), f"K1 codes differ at {shp}")
+        e1 = max(e1, _close(torch, s_k[:nb], s_p, {"rtol": 0, "atol": 0},
+                            f"K1 scale at {shp}"))
+        d_k = qz.dequantize_blockwise_fwd(q_k, s_k, shp, bits=8)
+        d_p = ref.dequantize_blockwise_ref(q_k, s_k, shp, bits=8)
+        e2 = max(e2, _close(torch, d_k, d_p, {"rtol": 0, "atol": 0},
+                            f"K2 at {shp}"))
+        del q_p, s_p, d_k, d_p
+        payload.append((q_k, s_k, shp))
+    torch.cuda.empty_cache()
+    errs["wire_quantize"] = max(errs["wire_quantize"], e1)
+    errs["wire_dequantize"] = max(errs["wire_dequantize"], e2)
+    n_el = sum(x.numel() for x in xs)
+    rows = sum(q.shape[0] for q, _, _ in payload)
+    for name, kern, plain_fn, nbytes in (
+            ("wire_quantize",
+             lambda: [qz.quantize_blockwise_fwd(x, bits=8) for x in xs],
+             lambda: [ref.quantize_blockwise_ref(x, bits=8) for x in xs],
+             4 * n_el + rows * 256 + 4 * rows),
+            ("wire_dequantize",
+             lambda: [qz.dequantize_blockwise_fwd(q, s, shp, bits=8)
+                      for q, s, shp in payload],
+             lambda: [ref.dequantize_blockwise_ref(q, s, shp, bits=8)
+                      for q, s, shp in payload],
+             rows * 256 + 4 * rows + 4 * n_el)):
+        ms = cuda_ms(torch, kern)
+        plain = cuda_ms(torch, plain_fn)
+        out[name] = {"shape": f"{len(xs)} leaves of the K=3 stacked tree, "
+                              f"{n_el} values", "bits": 8, "ms": ms,
+                     "plain_ms": plain, "bytes": nbytes,
+                     "bound_ms": 1e3 * nbytes / bw}
+        say("kernels-full", kernel=name, **out[name],
+            max_abs_err=errs[name])
+    del xs, payload
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+def _learner(torch, cfg, codec, K, dev, eta0=0.05, rounds=2):
+    from repro_torch.configs.base import CoLearnConfig
+    from repro_torch.core.colearn import CoLearner
+    from repro_torch.launch.train import make_loss_fn
+    ccfg = CoLearnConfig(n_participants=K, T0=1, eta0=eta0, epsilon=0.05,
+                         max_rounds=rounds)
+    return CoLearner(ccfg, make_loss_fn(cfg), codec=codec, device=dev)
+
+
+def phase_small_round(torch, dev):
+    """Smoke config, K=3, 2 rounds, fused codec: card against CPU."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import api, flatbuf
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.train import build_data, epoch_batches_fn
+    from repro_torch.models import transformer as tr
+    from repro_torch.tree import leaves
+    cfg = get_smoke_config("internlm2-1.8b")
+    K = 3
+    data = build_data(cfg, K, 4, 16, 48, seed=0)
+    params = tr.init_params(0, cfg, torch.float32, device="cpu")
+    runs = {}
+    for d in ("cpu", dev):
+        learner = _learner(torch, cfg, api.get_codec("fused"), K, d)
+        state = learner.init(params)
+        ops.reset_launch_counts()
+        for _ in range(2):
+            state = learner.run_round(state, epoch_batches_fn(data, d, 2))
+        runs[str(d)] = (state, ops.launch_counts())
+    (cs, c_counts), (gs, g_counts) = runs["cpu"], runs[str(dev)]
+    check(c_counts["wire_quant_avg_dequant"] == 0, "CPU run launched K3")
+    check(g_counts["wire_quant_avg_dequant"] == 2,
+          f"card run launched K3 {g_counts['wire_quant_avg_dequant']} "
+          "times, not once per round")
+    worst = 0.0
+    for a, b in zip(cs["log"], gs["log"]):
+        check(a.T == b.T and a.comm_bytes == b.comm_bytes,
+              "round logs disagree on T / comm bytes")
+        for x, y in [*zip(a.local_losses, b.local_losses),
+                     (a.lr_first, b.lr_first), (a.rel_change, b.rel_change)]:
+            if math.isinf(x):
+                check(math.isinf(y), "rel_change inf on one side only")
+                continue
+            rel = abs(x - y) / max(abs(x), 1e-12)
+            worst = max(worst, rel)
+    check(worst <= 1e-4, f"card vs CPU round logs differ by {worst} (rel)")
+    buf = flatbuf.flatten(cs["params"], flatbuf.make_layout(cs["params"]))
+    live = buf.reshape(-1, 256).abs().amax(1) > 0       # not zero padding
+    quantum = float(ref.quantize_blockwise_ref(buf)[1][live].max()) / K
+    pdiff = max(float((a - b.cpu()).abs().max())
+                for a, b in zip(leaves(cs["params"]), leaves(gs["params"])))
+    check(pdiff <= quantum, f"card vs CPU params differ by {pdiff} > one "
+                            f"wire quantum {quantum}")
+    say("small-round", rounds=2, K=K, log_max_rel_diff=worst,
+        param_max_abs_diff=pdiff, wire_quantum=quantum,
+        card_launches=g_counts,
+        losses_card=[round(float(sum(l.local_losses) / len(l.local_losses)),
+                           6) for l in gs["log"]])
+
+
+def phase_main(torch, dev, label, codec, K, rounds, launches_out):
+    """One main-path run at full width; returns the launch counts."""
+    from repro_torch.data.synthetic import lm_examples
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import (build_data, epoch_batches_fn,
+                                          eval_loss)
+    from repro_torch.models import transformer as tr
+    cfg = full_cfg()
+    B, S, steps = 8, 256, 2
+    data = build_data(cfg, K, B, S, K * B * steps, seed=0)
+    ex, ey = lm_examples(99, 32, S, cfg.vocab_size)
+    learner = _learner(torch, cfg, codec, K, dev, rounds=rounds)
+    # spans: synchronised host time and the allocator's running peak
+    # around the round's two parts (the local epochs, the Eq. 2 step)
+    spans = {"epochs": [0.0, 0], "aggregate": [0.0, 0]}
+
+    def span(name, fn):
+        def run(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            spans[name][0] += time.perf_counter() - t0
+            spans[name][1] = max(spans[name][1],
+                                 torch.cuda.max_memory_allocated())
+            return out
+        return run
+    learner._epoch = span("epochs", learner._epoch)
+    learner._aggregate_fn = span("aggregate", learner._aggregate_fn)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    state = learner.init(tr.init_params(0, cfg, torch.float32, device=dev))
+    batches = epoch_batches_fn(data, dev, steps)
+    torch.cuda.synchronize()
+    mem_init = (torch.cuda.max_memory_allocated(),
+                torch.cuda.memory_allocated())
+    ops.reset_launch_counts()
+    per_round = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        state = learner.run_round(state, batches)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        log = state["log"][-1]
+        per_round.append({
+            "round": log.round, "T": log.T, "seconds": sec,
+            "tokens_per_s": K * steps * B * S * log.T / sec,
+            "local_loss": float(sum(log.local_losses)
+                                / len(log.local_losses)),
+            "rel_change": log.rel_change, "comm_MiB": log.comm_bytes / 2**20})
+    counts = ops.launch_counts()
+    ev = eval_loss(learner.shared_model(state), cfg, ex, ey, batch=8)
+    peak = torch.cuda.max_memory_allocated()
+    say("main", run=label, codec=learner.codec.name, K=K,
+        reduced=f"n_layers 24 -> {LAYERS} (K f32 model copies + the "
+                "(K, N_pad) flat buffer must fit in 80 GB)",
+        params_per_participant=tr.count_params(state["params"]) // K,
+        d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads],
+        d_ff=cfg.d_ff, vocab=cfg.vocab_size, batch=B, seq_len=S,
+        steps_per_epoch=steps, rounds=per_round, eval_loss=ev,
+        peak_mem_GB=peak / 1e9, launches=counts,
+        mem_GB={"before_init": base / 1e9,
+                "peak_through_init": mem_init[0] / 1e9,
+                "live_after_init": mem_init[1] / 1e9,
+                "peak_through_epochs": spans["epochs"][1] / 1e9,
+                "peak_through_aggregate": spans["aggregate"][1] / 1e9},
+        span_s={k: v[0] for k, v in spans.items()})
+    losses = [r["local_loss"] for r in per_round] + [ev]
+    check(all(math.isfinite(x) for x in losses), f"{label}: non-finite loss")
+    for name, n in counts.items():
+        launches_out[name] = launches_out.get(name, 0) + n
+    del state, learner
+    torch.cuda.empty_cache()
+    return per_round, counts
+
+
+# ---------------------------------------------------------------------------
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--quick", action="store_true",
+                    help="phases 1-3 at small shapes only (no result line)")
+    args = ap.parse_args(argv)
+    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+        print("chip_smoke: src/repro_torch not found beside this script",
+              file=sys.stderr)
+        return 2
+    # model-sized allocations of varying size: growable segments keep the
+    # caching allocator from stranding memory between them
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import api
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    t_start = time.time()
+    name, smi = phase_device(torch)
+    phase_build()
+    errs = {k: 0.0 for k in KERNEL_META}
+    phase_kernels_small(torch, dev, errs)
+    if args.quick:
+        return 0
+    timing = phase_kernels_full(torch, dev, errs, mem_bandwidth(name))
+    phase_small_round(torch, dev)
+
+    launches = {}
+    rounds_a, c_a = phase_main(torch, dev, "5a", api.get_codec("fused"),
+                               5, 2, launches)
+    check(c_a["wire_quant_avg_dequant"] == len(rounds_a),
+          f"5a: K3 launched {c_a['wire_quant_avg_dequant']} times for "
+          f"{len(rounds_a)} synced rounds")
+    check(rounds_a[1]["local_loss"] < rounds_a[0]["local_loss"],
+          f"5a: loss did not fall ({rounds_a[0]['local_loss']} -> "
+          f"{rounds_a[1]['local_loss']})")
+    _, c_b = phase_main(torch, dev, "5b", api.get_codec(
+        "fused", bits=4, error_feedback=True), 3, 1, launches)
+    check(c_b["wire_quant_avg_dequant_ef"] == 1, "5b: K4 not launched once")
+    _, c_c = phase_main(torch, dev, "5c", api.get_codec("leafwise"), 3, 1,
+                        launches)
+    check(c_c["wire_quantize"] > 0 and c_c["wire_dequantize"] > 0,
+          "5c: K1/K2 not launched")
+
+    kernels = []
+    for kname, (tag, replaces) in KERNEL_META.items():
+        t = timing[kname]
+        kernels.append({
+            "name": f"{kname} ({tag})", "route": "cuda", "source": SOURCE,
+            "replaces": replaces, "launches": launches[kname],
+            "max_abs_err": errs[kname], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": "bytes", "library_ms": None})
+    RECORD["kernels"] = kernels
+    RECORD["seconds"] = time.time() - t_start
+    out = ROOT / "build"
+    out.mkdir(exist_ok=True)
+    (out / "chip_smoke.json").write_text(json.dumps(RECORD, indent=1,
+                                                    default=str))
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

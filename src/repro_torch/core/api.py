@@ -1,0 +1,677 @@
+"""Round-strategy API, ported from ``repro/core/api.py``:
+WireCodec x Aggregator x RoundEngine x LRSchedule x SyncPolicy.
+
+Ported here: the codecs :class:`ExactF32`, :class:`LeafwiseIntN` /
+:class:`LeafwiseInt8` and :class:`FlatFusedIntN` / :class:`FlatFusedInt8`
+(with error feedback), the :class:`FullAverage` aggregator (uniform Eq. 2
+and example-count weights), the :class:`PythonEngine` reference loop, the
+:class:`CLR` / :class:`ELR` schedules and the :class:`ILE` / :class:`FLE`
+sync policies, with the registries and ``get_*`` resolvers.
+
+Registry names whose strategies are still to port (partial participation,
+gossip aggregators, the fused engine, warmup/cosine schedules, the
+divergence trigger) resolve to a factory that raises
+``NotImplementedError`` — never to a silent substitute. The elastic-
+membership arguments (``live=``, ``dynamic=``) and the pod mesh raise the
+same way.
+
+Aggregation runs IN PLACE on the stacked params where the codec allows
+(the exact mean, the fused flat-buffer mean): at full width another K
+model copies would not fit beside the K the participants train.
+"""
+from __future__ import annotations
+
+import abc
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core import averaging, compression, flatbuf
+from repro_torch.core import engine as engine_mod
+from repro_torch.core.schedule import clr_lr, elr_lr, relative_change
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels.quantize import DEFAULT_BLOCK, check_bits
+from repro_torch.tree import leaves, tree_map, unflatten_like
+
+
+def _not_ported(what):
+    raise NotImplementedError(f"{what} not yet ported, see ROADMAP.md")
+
+
+def participant_bytes(stacked) -> int:
+    """Raw per-participant bytes of a stacked ``(K, ...)`` params tree at
+    its native dtypes — the download side of the accounting."""
+    return sum((t.numel() // t.shape[0]) * t.element_size()
+               for t in leaves(stacked))
+
+
+def _one_participant(stacked):
+    """Slot 0 views of a stacked tree (shapes of ONE participant)."""
+    return tree_map(lambda t: t[0], stacked)
+
+
+# ---------------------------------------------------------------------------
+# WireCodec
+# ---------------------------------------------------------------------------
+class WireCodec(abc.ABC):
+    """What one participant's upload looks like on the wire.
+
+    ``decode(encode(stacked))`` is the in-sim wire emulation;
+    ``wire_bytes`` is the exact per-participant upload byte count. A
+    stateful codec (error feedback) builds its zero residual with
+    ``init_state`` and emulates the wire with ``roundtrip_ef``."""
+
+    name: str = "codec"
+
+    @property
+    def stateful(self) -> bool:
+        return False
+
+    def init_state(self, stacked):
+        return None
+
+    def roundtrip_ef(self, stacked, residual):
+        raise NotImplementedError(
+            f"codec {self.name!r} is stateless (no error feedback)")
+
+    @abc.abstractmethod
+    def encode(self, stacked):
+        """Stacked ``(K, ...)`` params tree -> wire representation."""
+
+    @abc.abstractmethod
+    def decode(self, wire):
+        """Wire representation -> stacked params tree (original dtypes)."""
+
+    def roundtrip(self, stacked):
+        return self.decode(self.encode(stacked))
+
+    @abc.abstractmethod
+    def wire_bytes(self, stacked) -> int:
+        """Exact bytes ONE participant uploads for this stacked tree."""
+
+    def make_fused_mean(self, mesh=None, axis="pod", weighted=False,
+                        stateful=False):
+        """Optional codec-owned Eq. 2 fast path; None = the aggregator
+        composes ``roundtrip`` with a generic mean."""
+        return None
+
+
+@dataclasses.dataclass(frozen=True)
+class ExactF32(WireCodec):
+    """The paper-faithful wire: parameters travel at their raw dtypes."""
+
+    name = "exact"
+
+    def encode(self, stacked):
+        return stacked
+
+    def decode(self, wire):
+        return wire
+
+    def wire_bytes(self, stacked) -> int:
+        return participant_bytes(stacked)
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafwiseIntN(WireCodec):
+    """Per-leaf blockwise quantization roundtrip at ``bits`` ∈ {8, 4, 1};
+    leaves smaller than one ``block`` bypass the codec and are billed at
+    raw size. On CUDA tensors every quantized leaf launches K1 and K2."""
+
+    block: int = DEFAULT_BLOCK
+    bits: int = 8
+    error_feedback: bool = False
+
+    def __post_init__(self):
+        check_bits(self.bits)
+
+    @property
+    def name(self):
+        tag = "leafwise" if self.bits == 8 else f"leafwise-int{self.bits}"
+        return tag + "+ef" if self.error_feedback else tag
+
+    @property
+    def stateful(self) -> bool:
+        return self.error_feedback
+
+    def init_state(self, stacked):
+        if not self.error_feedback:
+            return None
+        return tree_map(lambda t: torch.zeros(t.shape, dtype=torch.float32,
+                                              device=t.device), stacked)
+
+    def roundtrip_ef(self, stacked, residual):
+        return compression.quantize_roundtrip_ef(
+            stacked, residual, block=self.block, bits=self.bits)
+
+    def encode(self, stacked):
+        enc = []
+        for t in leaves(stacked):
+            if t.ndim == 0 or t.numel() < self.block:
+                enc.append(("raw", t, None))
+            else:
+                enc.append((f"q{self.bits}", kops.quantize_blockwise(
+                    t, block=self.block, bits=self.bits), t.dtype))
+        return (stacked, tuple(enc))
+
+    def decode(self, wire):
+        like, enc = wire
+        out = []
+        for kind, payload, dtype in enc:
+            if kind == "raw":
+                out.append(payload)
+            else:
+                q, scale, shape = payload
+                out.append(kops.dequantize_blockwise(
+                    q, scale, shape, bits=self.bits).to(dtype))
+        return unflatten_like(like, out)
+
+    def wire_bytes(self, stacked) -> int:
+        return compression.compressed_bytes(_one_participant(stacked),
+                                            block=self.block, bits=self.bits)
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafwiseInt8(LeafwiseIntN):
+    """The int8 point of :class:`LeafwiseIntN` (registry name)."""
+
+    name = "leafwise"
+
+
+@dataclasses.dataclass(frozen=True)
+class FlatFusedIntN(WireCodec):
+    """The flat-buffer wire format at ``bits`` ∈ {8, 4, 1}: one contiguous
+    ``(K, N_pad)`` buffer, every leaf on the packed-payload + per-block
+    scale format. Under :class:`FullAverage` the quantize -> average ->
+    dequantize pass is ONE kernel (K3; K4 with ``error_feedback``, whose
+    residual is one ``(K, N_pad)`` f32 buffer on the same layout)."""
+
+    block: int = DEFAULT_BLOCK
+    bits: int = 8
+    error_feedback: bool = False
+
+    def __post_init__(self):
+        check_bits(self.bits)
+
+    @property
+    def name(self):
+        tag = "fused" if self.bits == 8 else f"fused-int{self.bits}"
+        return tag + "+ef" if self.error_feedback else tag
+
+    @property
+    def stateful(self) -> bool:
+        return self.error_feedback
+
+    def init_state(self, stacked):
+        if not self.error_feedback:
+            return None
+        layout = flatbuf.make_layout(stacked, block=self.block)
+        return torch.zeros((layout.k, layout.n_pad), dtype=torch.float32,
+                           device=leaves(stacked)[0].device)
+
+    # Only the fused mean (``make_fused_mean``) is on a ported path; the
+    # standalone flat-buffer roundtrip serves the partial / gossip
+    # aggregators, which are still to port.
+    def roundtrip_ef(self, stacked, residual):
+        _not_ported("the flat codec's standalone roundtrip")
+
+    def encode(self, stacked):
+        _not_ported("the flat codec's standalone encode")
+
+    def decode(self, wire):
+        _not_ported("the flat codec's standalone decode")
+
+    def wire_bytes(self, stacked) -> int:
+        return compression.flat_compressed_bytes(stacked, block=self.block,
+                                                 bits=self.bits)
+
+    def make_fused_mean(self, mesh=None, axis="pod", weighted=False,
+                        stateful=False):
+        if stateful and not self.error_feedback:
+            raise ValueError("stateful fused mean requires error_feedback")
+        return engine_mod.make_fused_compressed_average(
+            block=self.block, bits=self.bits, mesh=mesh, axis=axis,
+            weighted=weighted, stateful=stateful)
+
+
+@dataclasses.dataclass(frozen=True)
+class FlatFusedInt8(FlatFusedIntN):
+    """The int8 point of :class:`FlatFusedIntN` (registry name)."""
+
+    name = "fused"
+
+
+# ---------------------------------------------------------------------------
+# Aggregator
+# ---------------------------------------------------------------------------
+@torch.no_grad()
+def mix_participants(stacked, weights):
+    """Apply a row-stochastic ``(K, K)`` mixing matrix over the participant
+    axis: slot k receives ``sum_j W[k, j] * w_j`` (new tensors)."""
+    W = weights.float()
+    return tree_map(lambda t: torch.einsum("kj,j...->k...", W,
+                                           t.float()).to(t.dtype), stacked)
+
+
+def normalized_weights(weights, K: int) -> np.ndarray:
+    """Validate per-participant averaging weights and return them
+    normalized to sum 1 as a length-K f64 array."""
+    w = np.asarray(weights, np.float64)
+    if w.shape != (K,):
+        raise ValueError(f"weights must have length K={K}; got {w.shape}")
+    if not np.isfinite(w).all() or (w < 0).any():
+        raise ValueError(f"weights must be finite and >= 0; got {w}")
+    if not w.sum() > 0:
+        raise ValueError("weights must not all be zero")
+    return w / w.sum()
+
+
+class Aggregator(abc.ABC):
+    """Who aggregates what: a per-round mixing matrix + byte accounting.
+    ``make_aggregate_fn(codec)`` returns ``aggregate(stacked, weights)``
+    (``aggregate(stacked, weights, residual) -> (mixed, new_residual)``
+    for a stateful codec)."""
+
+    name: str = "aggregator"
+    uses_weights: bool = True
+
+    @abc.abstractmethod
+    def mixing_matrix(self, round_index: int, K: int,
+                      live=None) -> np.ndarray:
+        """Row-stochastic (K, K) f32 matrix for this round (host-side)."""
+
+    @abc.abstractmethod
+    def make_aggregate_fn(self, codec: WireCodec, *, mesh=None,
+                          param_specs=None, axis="pod", dynamic=False):
+        """The round's aggregate function for ``codec``."""
+
+    def _make_host_aggregate_fn(self, codec):
+        if getattr(codec, "stateful", False):
+            def aggregate_ef(stacked, weights, residual):
+                rt, new_res = codec.roundtrip_ef(stacked, residual)
+                return mix_participants(rt, weights), new_res
+            return aggregate_ef
+
+        def aggregate(stacked, weights):
+            return mix_participants(codec.roundtrip(stacked), weights)
+        return aggregate
+
+    @abc.abstractmethod
+    def comm_bytes(self, codec: WireCodec, stacked, round_index: int,
+                   live=None) -> int:
+        """Per-participant wire bytes for this round (upload + download)."""
+
+    @property
+    def stateful(self) -> bool:
+        return False
+
+    def init_round_state(self, codec: WireCodec, stacked):
+        if getattr(codec, "stateful", False):
+            return codec.init_state(stacked)
+        return None
+
+
+@dataclasses.dataclass(frozen=True)
+class FullAverage(Aggregator):
+    """Paper Eq. 2: every participant uploads, the server averages, everyone
+    downloads the shared model. ``weights=None`` is the uniform mean,
+    routed through the codec's fused-mean kernel when it has one;
+    ``weights=(n_1, ..., n_K)`` is FedAvg's example-count weighting."""
+
+    weights: tuple | None = None
+    name = "full"
+
+    @property
+    def uses_weights(self):
+        return self.weights is not None
+
+    def mixing_matrix(self, round_index, K, live=None):
+        if live is not None:
+            _not_ported("elastic membership")
+        if self.weights is None:
+            return np.full((K, K), 1.0 / K, np.float32)
+        w = normalized_weights(self.weights, K)
+        return np.broadcast_to(w, (K, K)).astype(np.float32)
+
+    def make_aggregate_fn(self, codec, *, mesh=None, param_specs=None,
+                          axis="pod", dynamic=False):
+        if mesh is not None:
+            _not_ported("the pod-mesh aggregation path")
+        if dynamic:
+            _not_ported("elastic membership")
+        stateful = getattr(codec, "stateful", False)
+        if self.weights is not None:
+            fused = codec.make_fused_mean(weighted=True, stateful=stateful)
+            if fused is not None:
+                if stateful:
+                    return lambda stacked, weights, residual: fused(
+                        stacked, weights[0], residual)
+                return lambda stacked, weights: fused(stacked, weights[0])
+            return self._make_host_aggregate_fn(codec)
+        fused = codec.make_fused_mean(stateful=stateful)
+        if fused is not None:
+            if stateful:
+                return lambda stacked, weights, residual: fused(stacked,
+                                                                residual)
+            return lambda stacked, weights=None: fused(stacked)
+        if stateful:
+            def aggregate_ef(stacked, weights, residual):
+                rt, new_res = codec.roundtrip_ef(stacked, residual)
+                return averaging.average_pjit(rt), new_res
+            return aggregate_ef
+        return lambda stacked, weights=None: averaging.average_pjit(
+            codec.roundtrip(stacked))
+
+    def comm_bytes(self, codec, stacked, round_index, live=None):
+        if live is not None:
+            _not_ported("elastic membership")
+        return codec.wire_bytes(stacked) + participant_bytes(stacked)
+
+
+# ---------------------------------------------------------------------------
+# LRSchedule (Eq. 3 family)
+# ---------------------------------------------------------------------------
+class LRSchedule(abc.ABC):
+    """The per-epoch learning rate policy, evaluated on the host once per
+    epoch by the python engine."""
+
+    name: str = "schedule"
+
+    @abc.abstractmethod
+    def lr(self, round_i, epoch_j, T_i, global_epoch, total_budget):
+        """The epoch's learning rate."""
+
+
+@dataclasses.dataclass(frozen=True)
+class CLR(LRSchedule):
+    """Paper Eq. 3: η_j^i = η^i · r^(j/T_i), restarting at η^i every round."""
+
+    eta0: float = 0.01
+    decay_rate: float = 0.25
+    name = "clr"
+
+    def round_eta(self, round_i) -> float:
+        return self.eta0
+
+    def lr(self, round_i, epoch_j, T_i, global_epoch, total_budget):
+        return clr_lr(self.round_eta(round_i), self.decay_rate, epoch_j, T_i)
+
+
+@dataclasses.dataclass(frozen=True)
+class ELR(LRSchedule):
+    """The non-cyclical baseline: one exponential anneal over the run's
+    whole epoch budget, never restarting."""
+
+    eta0: float = 0.01
+    decay_rate: float = 0.25
+    name = "elr"
+
+    def lr(self, round_i, epoch_j, T_i, global_epoch, total_budget):
+        return elr_lr(self.eta0, self.decay_rate, global_epoch,
+                      max(total_budget, 1))
+
+
+# ---------------------------------------------------------------------------
+# SyncPolicy (Eq. 4 generalized)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class SyncState:
+    """Host-side per-run state owned by a :class:`SyncPolicy`: ``history``
+    logs one ``(round, rel_change, next_T)`` triple per round."""
+
+    T: int
+    history: tuple = ()
+
+
+class SyncPolicy(abc.ABC):
+    """Next round's T_i (every ported policy syncs every round)."""
+
+    name: str = "sync"
+
+    def init_state(self, T0: int) -> SyncState:
+        return SyncState(T=int(T0))
+
+    @abc.abstractmethod
+    def update(self, state: SyncState, round_i: int,
+               rel_change: float) -> SyncState:
+        """Fold the round's Eq. 4 metric into the state."""
+
+    def epochs_budget(self, T: int, round_i: int, global_epoch: int,
+                      max_rounds: int) -> int:
+        """Epochs already run plus the current T_i over the remaining
+        rounds (the ELR anneal's denominator)."""
+        return max(global_epoch + T * max(max_rounds - round_i, 1), 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class ILE(SyncPolicy):
+    """Paper Eq. 4: double T_i when the relative change of the averaged
+    model falls to <= ε; always communicates."""
+
+    epsilon: float = 0.01
+    name = "ile"
+
+    def update(self, state, round_i, rel_change):
+        T = 2 * state.T if rel_change <= self.epsilon else state.T
+        return dataclasses.replace(
+            state, T=T, history=state.history + ((round_i, rel_change, T),))
+
+
+@dataclasses.dataclass(frozen=True)
+class FLE(SyncPolicy):
+    """Fixed local epochs: T_i = T0 forever; always communicates."""
+
+    name = "fle"
+
+    def update(self, state, round_i, rel_change):
+        return dataclasses.replace(
+            state,
+            history=state.history + ((round_i, rel_change, state.T),))
+
+
+# ---------------------------------------------------------------------------
+# RoundEngine
+# ---------------------------------------------------------------------------
+class RoundEngine(abc.ABC):
+    """How a round executes: ``bind(learner)`` returns a runner with
+    ``run_round(state, epoch_batches_fn) -> state``."""
+
+    name: str = "engine"
+
+    @abc.abstractmethod
+    def bind(self, learner):
+        """Return a runner object for this learner."""
+
+
+@dataclasses.dataclass(frozen=True)
+class PythonEngine(RoundEngine):
+    """Reference path: a host loop running one local epoch at a time,
+    host-side Eq. 3 learning rates and Eq. 4 metric."""
+
+    name = "python"
+
+    def bind(self, learner):
+        return _PythonRunner(learner)
+
+
+class _PythonRunner:
+    def __init__(self, learner):
+        self.learner = learner
+        self._stateful = learner._round_stateful
+
+    def run_round(self, state, epoch_batches_fn):
+        learner = self.learner
+        i = state["round"]
+        T_i = state["ctrl"].T
+        ge0 = state["global_epoch"]
+        total = learner.epochs_budget(state)
+        lrs, losses = [], []
+        for j in range(T_i):
+            lr = float(learner.schedule.lr(i, j, T_i, ge0 + j, total))
+            lrs.append(lr)
+            batches = epoch_batches_fn(i, j)
+            _, _, l = learner._epoch(state["params"], state["opt"],
+                                     batches, lr)
+            losses.append(l)                  # (K,) stays on the device
+        weights = learner.round_weights(i, state)
+        if self._stateful:
+            averaged, new_res = learner._aggregate_fn(
+                state["params"], weights, state["residual"])
+        else:
+            averaged = learner._aggregate_fn(state["params"], weights)
+            new_res = None
+        new_avg = averaging.unstack_participant(averaged, 0)
+        rel = (float("inf") if state["prev_avg"] is None
+               else relative_change(new_avg, state["prev_avg"]))
+        fresh_opt = engine_mod.init_stacked_opt(learner.opt, averaged)
+        per_epoch = torch.stack(losses).cpu().numpy()     # one transfer
+        local = [float(np.asarray(x).mean()) for x in per_epoch]
+        return learner._finish_round(state, i, T_i, rel, local, lrs[0],
+                                     lrs[-1], averaged, fresh_opt, new_avg,
+                                     residual=new_res)
+
+
+# ---------------------------------------------------------------------------
+# registries
+# ---------------------------------------------------------------------------
+#: name -> factory(**kw) -> WireCodec (kw: block=, bits=, error_feedback=)
+CODECS: dict = {}
+#: name -> factory(**kw) -> Aggregator
+AGGREGATORS: dict = {}
+#: name -> factory(chunk=) -> RoundEngine
+ENGINES: dict = {}
+#: name -> factory(eta0=, decay_rate=) -> LRSchedule
+SCHEDULES: dict = {}
+#: name -> factory(epsilon=, delta=, cfg_epsilon=) -> SyncPolicy
+SYNC_POLICIES: dict = {}
+
+
+def register_codec(name, factory):
+    CODECS[name] = factory
+    return factory
+
+
+def register_aggregator(name, factory):
+    AGGREGATORS[name] = factory
+    return factory
+
+
+def register_engine(name, factory):
+    ENGINES[name] = factory
+    return factory
+
+
+def register_schedule(name, factory):
+    SCHEDULES[name] = factory
+    return factory
+
+
+def register_sync_policy(name, factory):
+    SYNC_POLICIES[name] = factory
+    return factory
+
+
+def _not_ported_factory(kind, name):
+    def factory(*args, **kw):
+        _not_ported(f"{kind} {name!r}")
+    return factory
+
+
+def _leafwise_codec(block=DEFAULT_BLOCK, bits=8, error_feedback=False):
+    if bits == 8 and not error_feedback:
+        return LeafwiseInt8(block=block)
+    return LeafwiseIntN(block=block, bits=bits,
+                        error_feedback=error_feedback)
+
+
+def _flat_codec(block=DEFAULT_BLOCK, bits=8, error_feedback=False):
+    if bits == 8 and not error_feedback:
+        return FlatFusedInt8(block=block)
+    return FlatFusedIntN(block=block, bits=bits,
+                         error_feedback=error_feedback)
+
+
+register_codec("exact", lambda block=DEFAULT_BLOCK, bits=8,
+               error_feedback=False: ExactF32())
+register_codec("none", CODECS["exact"])
+register_codec("leafwise", _leafwise_codec)
+register_codec("int8", _leafwise_codec)        # legacy CLI alias
+register_codec("fused", _flat_codec)
+register_codec("flat", _flat_codec)            # alias
+register_aggregator("full", FullAverage)
+for _name in ("partial", "ring", "graph", "d2"):
+    register_aggregator(_name, _not_ported_factory("aggregator", _name))
+register_engine("python", lambda chunk=32: PythonEngine())
+register_engine("fused", _not_ported_factory("engine", "fused"))
+register_schedule("clr", lambda eta0=0.01, decay_rate=0.25:
+                  CLR(eta0, decay_rate))
+register_schedule("elr", lambda eta0=0.01, decay_rate=0.25:
+                  ELR(eta0, decay_rate))
+for _name in ("warmup_clr", "warmup", "cosine"):
+    register_schedule(_name, _not_ported_factory("schedule", _name))
+register_sync_policy("ile", lambda epsilon=None, delta=None,
+                     cfg_epsilon=None:
+                     ILE(epsilon=next(e for e in (epsilon, cfg_epsilon,
+                                                  0.01) if e is not None)))
+register_sync_policy("fle", lambda epsilon=None, delta=None,
+                     cfg_epsilon=None: FLE())
+for _name in ("divtrigger", "divergence"):
+    register_sync_policy(_name, _not_ported_factory("sync policy", _name))
+
+
+def _resolve(spec, registry, default, proto, kind, **kw):
+    if spec is None:
+        return default()
+    if isinstance(spec, proto):
+        return spec
+    if isinstance(spec, str):
+        try:
+            factory = registry[spec]
+        except KeyError:
+            raise KeyError(f"unknown {kind} {spec!r}; registered: "
+                           f"{sorted(registry)}") from None
+        return factory(**kw)
+    raise TypeError(f"{kind} must be None, a registry name, or a "
+                    f"{proto.__name__}; got {spec!r}")
+
+
+def get_codec(spec=None, *, block=DEFAULT_BLOCK, bits=8,
+              error_feedback=False) -> WireCodec:
+    """None | registry name | WireCodec instance -> WireCodec."""
+    return _resolve(spec, CODECS, ExactF32, WireCodec, "codec",
+                    block=block, bits=bits, error_feedback=error_feedback)
+
+
+def get_aggregator(spec=None, **kw) -> Aggregator:
+    return _resolve(spec, AGGREGATORS, FullAverage, Aggregator,
+                    "aggregator", **kw)
+
+
+def get_engine(spec=None, *, chunk=32) -> RoundEngine:
+    return _resolve(spec, ENGINES, PythonEngine, RoundEngine, "engine",
+                    chunk=chunk)
+
+
+def get_schedule(spec=None, cfg=None, *, eta0=None,
+                 decay_rate=None) -> LRSchedule:
+    """``None`` resolves the legacy ``cfg.schedule`` string."""
+    if spec is None:
+        spec = cfg.schedule if cfg is not None else "clr"
+    if eta0 is None:
+        eta0 = cfg.eta0 if cfg is not None else 0.01
+    if decay_rate is None:
+        decay_rate = cfg.decay_rate if cfg is not None else 0.25
+    return _resolve(spec, SCHEDULES, CLR, LRSchedule, "schedule",
+                    eta0=eta0, decay_rate=decay_rate)
+
+
+def get_sync_policy(spec=None, cfg=None, *, epsilon=None,
+                    delta=None) -> SyncPolicy:
+    """``None`` resolves the legacy ``cfg.epochs_rule`` string."""
+    if spec is None:
+        spec = cfg.epochs_rule if cfg is not None else "ile"
+    return _resolve(spec, SYNC_POLICIES, ILE, SyncPolicy, "sync policy",
+                    epsilon=epsilon, delta=delta,
+                    cfg_epsilon=cfg.epsilon if cfg is not None else None)
+

@@ -1,0 +1,155 @@
+"""Algorithm 1 — the co-learning protocol, ported from
+``repro/core/colearn.py``.
+
+A ``CoLearner`` composes the strategy objects of ``core/api.py`` (codec,
+aggregator, round engine, schedule, sync policy) and drives rounds:
+T_i local epochs of SGD on each of K participants stacked on one device,
+the Eq. 2 average over the codec's wire, the Eq. 4 relative change and
+the next T_i. The params live on ``device`` (the card unless the caller
+passes ``"cpu"``) and are updated in place.
+
+Static membership only: elastic membership (churn), ragged-shard batch
+masks, shard-size-weighted partial participation and the fused engine
+are still to port (ROADMAP.md).
+"""
+from __future__ import annotations
+
+from collections.abc import Callable
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+
+from repro_torch.core import api, averaging, engine as engine_mod
+from repro_torch.device import resolve_device
+from repro_torch.optim.optimizers import get_optimizer
+from repro_torch.tree import leaves, tree_map
+
+
+@dataclass
+class RoundLog:
+    round: int
+    T: int
+    lr_first: float
+    lr_last: float
+    rel_change: float        # Eq. 4 metric
+    local_losses: list       # per local epoch: mean loss over the K slots
+    comm_bytes: int
+    synced: bool = True
+    live: int = -1           # live participants this round (K: static)
+
+
+@dataclass
+class CoLearner:
+    """K-participant co-learning loop over (codec, aggregator, engine).
+
+    ``loss_fn(params, batch) -> (loss, metrics)`` for ONE participant.
+    Each strategy argument takes an object from ``core/api.py``, a
+    registry name, or None for the paper-faithful default (exact f32
+    wire, full Eq. 2 averaging, python engine, and the ``cfg.schedule`` /
+    ``cfg.epochs_rule`` strings)."""
+    cfg: Any                                  # CoLearnConfig
+    loss_fn: Callable
+    optimizer_name: str = "sgd"
+    codec: Any = None
+    aggregator: Any = None
+    round_engine: Any = None
+    schedule: Any = None
+    sync_policy: Any = None
+    device: Any = None
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        self.codec = api.get_codec(self.codec)
+        self.aggregator = api.get_aggregator(self.aggregator)
+        self._round_stateful = (getattr(self.codec, "stateful", False)
+                                or self.aggregator.stateful)
+        self.round_engine = api.get_engine(self.round_engine)
+        self.schedule = api.get_schedule(self.schedule, self.cfg)
+        self.sync_policy = api.get_sync_policy(self.sync_policy, self.cfg)
+        self.opt = get_optimizer(self.optimizer_name)
+        self._epoch = engine_mod.make_epoch_fn(self.loss_fn, self.opt)
+        self._aggregate_fn = self.aggregator.make_aggregate_fn(self.codec)
+        self._comm_cache = None
+        self._runner = self.round_engine.bind(self)
+
+    # -- Algorithm 1 ---------------------------------------------------------
+    def init(self, params):
+        K = self.cfg.n_participants
+        self._comm_cache = None
+        params = tree_map(lambda t: t.to(self.device), params)
+        stacked = averaging.stack_participants(params, K)
+        return {"params": stacked,
+                "opt": engine_mod.init_stacked_opt(self.opt, stacked),
+                "ctrl": self.sync_policy.init_state(self.cfg.T0),
+                "round": 0, "global_epoch": 0, "prev_avg": None, "log": [],
+                "residual": self.aggregator.init_round_state(self.codec,
+                                                             stacked)}
+
+    def epochs_budget(self, state):
+        """The ELR anneal denominator for the round about to run."""
+        return self.sync_policy.epochs_budget(
+            state["ctrl"].T, state["round"], state["global_epoch"],
+            self.cfg.max_rounds)
+
+    def round_weights(self, round_index, state=None):
+        """The aggregator's (K, K) mixing matrix for this round as a device
+        tensor (None for statically-known schemes, e.g. Eq. 2)."""
+        if not self.aggregator.uses_weights:
+            return None
+        return torch.as_tensor(self.aggregator.mixing_matrix(
+            round_index, self.cfg.n_participants), dtype=torch.float32,
+            device=self.device)
+
+    def run_round(self, state, epoch_batches_fn):
+        """One communication round. ``epoch_batches_fn(round, epoch)``
+        returns the ``(K, n_batches, B, ...)`` tensors of that local epoch
+        on the learner's device; each participant sees only its own shard."""
+        return self._runner.run_round(state, epoch_batches_fn)
+
+    def _finish_round(self, state, i, T_i, rel, local_losses, lr_first,
+                      lr_last, averaged, fresh_opt, new_avg, residual=None):
+        """The one round state transition (opt state is reset, not
+        averaged: local training restarts from the shared model). The
+        comm bill depends on shapes only, so it is priced once per
+        learner."""
+        state["params"], state["opt"] = averaged, fresh_opt
+        state["prev_avg"] = new_avg
+        if residual is not None:
+            state["residual"] = residual
+        state["ctrl"] = self.sync_policy.update(state["ctrl"], i, rel)
+        state["global_epoch"] += T_i
+        if self._comm_cache is None:
+            self._comm_cache = self.aggregator.comm_bytes(
+                self.codec, state["params"], i)
+        state["round"] = i + 1
+        state["log"].append(RoundLog(i, T_i, lr_first, lr_last, rel,
+                                     local_losses, self._comm_cache,
+                                     live=self.cfg.n_participants))
+        return state
+
+    def shared_model(self, state):
+        """A copy of the shared model (slot 0 after a synced round)."""
+        return averaging.unstack_participant(state["params"], 0)
+
+    def _sync_ref(self, state):
+        """The last synced shared model (slot 0 before the first sync)."""
+        if state["prev_avg"] is not None:
+            return state["prev_avg"]
+        return averaging.unstack_participant(state["params"], 0)
+
+    # -- failure handling (paper: restart the participant's local training) --
+    @torch.no_grad()
+    def restart_participant(self, state, k):
+        """Reset participant k's params AND optimizer row to the last synced
+        shared model, and zero its round-state (residual) row."""
+        shared = self._sync_ref(state)
+        for dst, src in zip(leaves(state["params"]), leaves(shared)):
+            dst[k].copy_(src)
+        fresh = self.opt.init(shared)
+        for dst, src in zip(leaves(state["opt"]), leaves(fresh)):
+            dst[k].copy_(src)
+        if self._round_stateful and state.get("residual") is not None:
+            for e in leaves(state["residual"]):
+                e[k].zero_()
+        return state

@@ -1,0 +1,72 @@
+"""Dispatch for the wire kernels K1-K4.
+
+There is no ``impl`` knob: a tensor on the CPU goes to the plain version
+(``ref.py``), a CUDA tensor to the hand-written kernel's wrapper
+(``quantize.py`` / ``comm.py``), which launches it or raises. Nothing
+falls back from the kernel to the plain version.
+
+``KERNELS`` names each kernel's wrapper; ``launch_counts`` /
+``reset_launch_counts`` read and zero the per-wrapper launch counters.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels import comm as _comm
+from repro_torch.kernels import quantize as _qz
+from repro_torch.kernels import ref as _ref
+
+KERNELS = {
+    "wire_quantize": _qz.quantize_blockwise_fwd,                 # K1
+    "wire_dequantize": _qz.dequantize_blockwise_fwd,             # K2
+    "wire_quant_avg_dequant": _comm.quant_avg_dequant_fwd,       # K3
+    "wire_quant_avg_dequant_ef": _comm.quant_avg_dequant_ef_fwd,  # K4
+}
+
+
+def launch_counts():
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts():
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def _on_cuda(*tensors):
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cuda"}:
+        return True
+    if kinds == {"cpu"}:
+        return False
+    raise ValueError(f"wire kernels take tensors on one device, cuda or "
+                     f"cpu; got {sorted(kinds)}")
+
+
+def quantize_blockwise(x, *, block=256, bits=8):
+    if _on_cuda(x):
+        return _qz.quantize_blockwise_fwd(x, block=block, bits=bits)
+    return _ref.quantize_blockwise_ref(x, block=block, bits=bits)
+
+
+def dequantize_blockwise(q, scale, shape, *, bits=8):
+    if _on_cuda(q, scale):
+        return _qz.dequantize_blockwise_fwd(q, scale, shape, bits=bits)
+    return _ref.dequantize_blockwise_ref(q, scale, shape, bits=bits)
+
+
+def quant_avg_dequant(buf, *, block=256, bits=8):
+    """Fused Eq. 2 wire pass over a (K, n) flat buffer: quantize every
+    participant row blockwise at ``bits``, dequantize, mean -> (n,) f32."""
+    if _on_cuda(buf):
+        return _comm.quant_avg_dequant_fwd(buf, block=block, bits=bits)
+    return _ref.quant_avg_dequant_ref(buf, block=block, bits=bits)
+
+
+def quant_avg_dequant_ef(buf, residual, *, block=256, bits=8):
+    """Error-feedback fused Eq. 2 wire pass: quantize ``buf + residual``
+    per participant row; return ((n,) mean, new residual). The new residual
+    is written into ``residual`` in place and returned."""
+    if _on_cuda(buf, residual):
+        return _comm.quant_avg_dequant_ef_fwd(buf, residual, block=block,
+                                              bits=bits)
+    return _ref.quant_avg_dequant_ef_ref(buf, residual, block=block,
+                                         bits=bits)

@@ -1,0 +1,122 @@
+"""Plain PyTorch versions of the wire kernels K1-K4.
+
+They repeat ``repro/kernels/ref.py`` (``_code_blocks_ref`` ..
+``quant_avg_dequant_ef_ref``) op for op: absmax or mean-|x| per 256-wide
+row, ``x / scale`` (a division, never a reciprocal multiply), round half to
+even, clip, then ``q * scale``; Eq. 2 is ``sum over K / K``. The wrappers
+in ``ops.py`` use them for CPU tensors only; on the card they are the
+reference each kernel is held against.
+
+Where a JAX oracle materialises int8 codes and widens them again, the
+dequantize-only paths here keep the clipped rounded quotient in f32 and
+scale it in place: the values are integers of at most 127 in magnitude,
+so the result is the same number, and a ``(K, N_pad)`` buffer at full
+width needs one temporary of its size instead of four.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.quantize import QMAX, check_bits, pack_codes, \
+    unpack_codes
+
+
+def _div(a, v):
+    """``a / v`` as an elementwise IEEE division. PyTorch's CUDA kernel
+    turns division by a Python scalar into a multiply by its reciprocal,
+    which can round differently; a 0-d tensor divisor keeps the division
+    the JAX oracle and the CUDA kernels compute."""
+    return a / torch.full((), v, dtype=a.dtype, device=a.device)
+
+
+def _row_scale(xb, bits):
+    """Per-row scale over the last dim, keepdim: mean|x| at 1 bit, else
+    amax/qmax (1.0 for an all-zero row)."""
+    if bits == 1:
+        return xb.abs().mean(dim=-1, keepdim=True)
+    amax = xb.abs().amax(dim=-1, keepdim=True)
+    return torch.where(amax > 0, _div(amax, QMAX[bits]), 1.0)
+
+
+def _codes_f32(xb, scale, bits):
+    """clip(round(x / scale)) as f32 (exact small integers)."""
+    if bits == 1:
+        one = torch.ones((), dtype=xb.dtype, device=xb.device)
+        return torch.where(xb > 0, one, -one)
+    qmax = QMAX[bits]
+    return torch.div(xb, scale).round_().clamp_(-qmax, qmax)
+
+
+def _code_blocks_ref(blocks, bits):
+    """(nb, block) f32 -> (codes int8, scale (nb,)) for bits in {8, 4, 1}."""
+    scale = _row_scale(blocks, bits)
+    return _codes_f32(blocks, scale, bits).to(torch.int8), scale[:, 0]
+
+
+def _blocks(flat, block):
+    pad = (-flat.numel()) % block
+    if pad:
+        flat = F.pad(flat, (0, pad))
+    return flat.reshape(-1, block)
+
+
+def quantize_blockwise_ref(x, block=256, bits=8):
+    """x: any shape -> (q packed (nblocks, block*bits//8), scale f32
+    (nblocks,), shape). No ROWS padding of the row count."""
+    check_bits(bits)
+    blocks = _blocks(x.to(torch.float32).reshape(-1), block)
+    q, scale = _code_blocks_ref(blocks, bits)
+    return pack_codes(q, bits), scale, tuple(x.shape)
+
+
+def dequantize_blockwise_ref(q, scale, shape, bits=8):
+    check_bits(bits)
+    q = unpack_codes(q, bits)
+    flat = (q.to(torch.float32) * scale[:, None]).reshape(-1)
+    n = 1
+    for s in shape:
+        n *= s
+    return flat[:n].reshape(tuple(shape))
+
+
+def _roundtrip_rows_ref(xb, bits):
+    """(K, nb, block) f32 -> dequantized wire roundtrip, same shape."""
+    scale = _row_scale(xb, bits)
+    return _codes_f32(xb, scale, bits).mul_(scale)
+
+
+def _pad_rows(buf, block):
+    K, n = buf.shape
+    pad = (-n) % block
+    if pad:
+        buf = F.pad(buf, (0, pad))
+    return buf.reshape(K, -1, block)
+
+
+def quant_avg_dequant_ref(buf, block=256, bits=8):
+    """buf: (K, n) f32 -> (n,) f32 — wire-roundtrip every participant row
+    blockwise (one scale per (participant, block)), then Eq. 2 mean."""
+    check_bits(bits)
+    K, n = buf.shape
+    dq = _roundtrip_rows_ref(_pad_rows(buf, block), bits)
+    return _div(torch.sum(dq, dim=0), K).reshape(-1)[:n]
+
+
+def quant_avg_dequant_ef_ref(buf, residual, block=256, bits=8):
+    """Error-feedback version: quantize ``buf + residual`` per row; return
+    (Eq. 2 mean of the dequantized rows (n,), new residual (K, n)). The
+    residual is updated in place (first to ``y``, then to ``y - dq``) and
+    returned, as the CUDA kernel does."""
+    check_bits(bits)
+    if residual.shape != buf.shape:
+        raise ValueError(f"residual shape {tuple(residual.shape)} != buf "
+                         f"shape {tuple(buf.shape)}")
+    K, n = buf.shape
+    yb = _pad_rows(residual.add_(buf), block)   # y = e + x, held in e
+    dq = _roundtrip_rows_ref(yb, bits)
+    mean = _div(torch.sum(dq, dim=0), K).reshape(-1)[:n]
+    yb.sub_(dq)
+    if yb.data_ptr() != residual.data_ptr():   # padded copy: write back
+        residual.copy_(yb.reshape(K, -1)[:, :n])
+    return mean, residual

@@ -1,0 +1,120 @@
+"""Core layers, ported from ``repro/models/layers.py``: norms, RoPE,
+embeddings, the dense SwiGLU FFN and the LM loss.
+
+Functional style over plain dicts: ``*_init`` builds a params dict
+(optionally with a stacked leading ``repeats`` dim), ``*_apply`` consumes
+it. Norms and the loss accumulate in f32. Random numbers come from an
+explicit ``torch.Generator`` whose device is where the tensors are made.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+_SQRT2 = math.sqrt(2.0)
+
+
+def trunc_normal(gen, shape, scale, dtype):
+    """Fan-in scaled init: ``scale`` times a standard normal truncated to
+    ±2σ (inverse-CDF sampling, as ``jax.random.truncated_normal`` does)."""
+    lo = 0.5 * (1.0 + math.erf(-2.0 / _SQRT2))
+    hi = 0.5 * (1.0 + math.erf(2.0 / _SQRT2))
+    u = torch.rand(shape, generator=gen, device=gen.device,
+                   dtype=torch.float32)
+    x = torch.erfinv(2.0 * (lo + u * (hi - lo)) - 1.0) * _SQRT2
+    return (scale * x.clamp_(-2.0, 2.0)).to(dtype)
+
+
+def dense_init(gen, d_in, d_out, dtype, stack=(), bias=False):
+    p = {"w": trunc_normal(gen, (*stack, d_in, d_out), d_in ** -0.5, dtype)}
+    if bias:
+        p["b"] = torch.zeros((*stack, d_out), dtype=dtype, device=gen.device)
+    return p
+
+
+# --------------------------------------------------------------------------
+# RMSNorm
+# --------------------------------------------------------------------------
+def rmsnorm_init(d, dtype, stack=(), device=None):
+    return {"g": torch.ones((*stack, d), dtype=dtype, device=device)}
+
+
+def rmsnorm_apply(p, x, eps=1e-5):
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * p["g"].float()).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# Rotary position embedding (half-split, not interleaved)
+# --------------------------------------------------------------------------
+def rope_freqs(head_dim, theta, device=None):
+    half = head_dim // 2
+    exps = torch.arange(0, half, dtype=torch.float32, device=device) / half
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x, positions, theta):
+    """x: (..., S, H, hd) or (..., S, hd); positions: (..., S) int."""
+    hd = x.shape[-1]
+    inv = rope_freqs(hd, theta, x.device)                  # (hd/2,)
+    ang = positions[..., None].float() * inv               # (..., S, hd/2)
+    if x.ndim == ang.ndim + 1:                             # has a heads dim
+        ang = ang[..., None, :]                            # (..., S, 1, hd/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# Embedding + LM head
+# --------------------------------------------------------------------------
+def embed_init(gen, vocab, d, dtype):
+    return {"table": trunc_normal(gen, (vocab, d), d ** -0.5, dtype)}
+
+
+def embed_apply(p, tokens):
+    return p["table"][tokens]
+
+
+def lm_head_apply(p_embed, p_head, x, tie):
+    if tie:
+        return torch.einsum("...d,vd->...v", x, p_embed["table"])
+    return x @ p_head["w"]
+
+
+# --------------------------------------------------------------------------
+# Dense FFN (SwiGLU)
+# --------------------------------------------------------------------------
+def ffn_init(gen, d, d_ff, dtype, stack=()):
+    return {
+        "wi": trunc_normal(gen, (*stack, d, d_ff), d ** -0.5, dtype),
+        "wg": trunc_normal(gen, (*stack, d, d_ff), d ** -0.5, dtype),
+        "wo": trunc_normal(gen, (*stack, d_ff, d), d_ff ** -0.5, dtype),
+    }
+
+
+def ffn_apply(p, x):
+    h = x @ p["wi"]
+    g = x @ p["wg"]
+    h = F.silu(g.float()).to(x.dtype) * h
+    return h @ p["wo"]
+
+
+# --------------------------------------------------------------------------
+# Losses
+# --------------------------------------------------------------------------
+def softmax_xent(logits, labels, ignore_index=-1):
+    """Mean next-token cross-entropy over valid positions (f32):
+    ``logsumexp - logit[label]`` where ``label != ignore_index``."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    valid = labels != ignore_index
+    ll = torch.gather(lf, -1, torch.where(valid, labels, 0)[..., None])[..., 0]
+    validf = valid.float()
+    nll = (lse - ll) * validf
+    return nll.sum() / torch.clamp(validf.sum(), min=1.0)

@@ -1,0 +1,108 @@
+"""The PyTorch port stands alone and never falls back to the CPU.
+
+* No module of ``src/repro_torch/`` and not ``chip_smoke.py`` imports
+  ``jax``, ``jaxlib`` or anything of the JAX package ``repro``.
+* Without a card, every entry point raises unless the caller passes
+  ``device="cpu"`` (``--device cpu``) explicitly.
+"""
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _port_files():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)
+              and isinstance(node.args[0].value, str)):
+            yield node.args[0].value.split(".")[0]
+
+
+def test_port_imports_no_jax_and_no_reference_package():
+    files = _port_files()
+    assert (ROOT / "chip_smoke.py").exists()
+    assert len(files) > 20
+    bad = [(str(f.relative_to(ROOT)), m) for f in files
+           for m in _imported_roots(f) if m in FORBIDDEN]
+    assert not bad, bad
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_a_card(no_cuda):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import CoLearnConfig
+    from repro_torch.core.colearn import CoLearner
+    from repro_torch.device import resolve_device
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as tr
+
+    cfg = get_smoke_config("internlm2-1.8b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tr.init_params(0, cfg, torch.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CoLearner(CoLearnConfig(n_participants=2), lambda p, b: None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--rounds", "1", "--participants", "2",
+                    "--n-examples", "16", "--batch-size", "4",
+                    "--seq-len", "8"])
+    # asked for explicitly, the CPU is fine
+    assert resolve_device("cpu").type == "cpu"
+    p = tr.init_params(0, cfg.with_(n_layers=1,
+                                    segments=((("gqa:dense",), 1),)),
+                       torch.float32, device="cpu")
+    assert p["embed"]["table"].device.type == "cpu"
+
+
+def test_unported_paths_raise_not_implemented():
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import api
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as tr
+
+    for spec in ("partial", "ring", "graph", "d2"):
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            api.get_aggregator(spec)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        api.get_engine("fused")
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        api.get_sync_policy("divtrigger")
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        tr.init_params(0, get_smoke_config("internlm2-1.8b").with_(
+            n_layers=1, segments=((("mamba:dense",), 1),)), device="cpu")
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        get_smoke_config("jamba-v0.1-52b")
+    # the flat codec's standalone roundtrip serves only unported aggregators
+    flat = api.get_codec("fused", bits=4, error_feedback=True)
+    x = {"w": torch.zeros((2, 256))}
+    for call in (lambda: flat.encode(x), lambda: flat.decode(None),
+                 lambda: flat.roundtrip_ef(x, flat.init_state(x))):
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            call()
+    for flags in (["--engine", "fused"], ["--churn", "random"],
+                  ["--aggregator", "ring"], ["--partition", "dirichlet"]):
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            train.main(["--device", "cpu", *flags])

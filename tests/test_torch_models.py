@@ -1,0 +1,139 @@
+"""The PyTorch port's transformer (gqa:dense) against the JAX package.
+
+Parameters are JAX-initialised and carried across with
+``repro_torch.checkpoint.io.params_from_numpy``; inputs come from numpy
+with a fixed seed. Forward values, the loss and every gradient leaf agree
+at <= 1e-5 (f32 on both sides; sums run in other orders).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_smoke_config
+from repro.models import attention as jattn
+from repro.models import layers as jlayers
+from repro.models import transformer as jtr
+from repro_torch.checkpoint import io as tio
+from repro_torch.models import attention as tattn
+from repro_torch.models import layers as tlayers
+from repro_torch.models import transformer as ttr
+from repro_torch.tree import leaves, leaves_with_path
+
+TOL = {"rtol": 1e-5, "atol": 1e-5}
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _cfg(n_layers=2):
+    return get_smoke_config("internlm2-1.8b").with_(
+        n_layers=n_layers, segments=((("gqa:dense",), n_layers),))
+
+
+def _tokens(cfg, B=2, S=16, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    y = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    y[0, :3] = -1                         # ignored positions
+    return x, y
+
+
+def _close(t, j, tol=TOL):
+    np.testing.assert_allclose(t.detach().numpy(), np.asarray(j), **tol)
+
+
+def test_rmsnorm_rope_ffn_xent():
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((2, 8, 4, 32)).astype(np.float32)
+    g = rng.standard_normal(32).astype(np.float32)
+    _close(tlayers.rmsnorm_apply({"g": torch.tensor(g)}, torch.tensor(x)),
+           jlayers.rmsnorm_apply({"g": jnp.asarray(g)}, jnp.asarray(x)))
+    pos = np.broadcast_to(np.arange(8, dtype=np.int32), (2, 8))
+    _close(tlayers.apply_rope(torch.tensor(x), torch.tensor(pos), 1e4),
+           jlayers.apply_rope(jnp.asarray(x), jnp.asarray(pos), 1e4))
+    ffn = _np(jlayers.ffn_init(jax.random.PRNGKey(0), 32, 64, jnp.float32))
+    h = x[:, :, 0]
+    _close(tlayers.ffn_apply(tio.params_from_numpy(ffn, "cpu"),
+                             torch.tensor(h)),
+           jlayers.ffn_apply(jax.tree.map(jnp.asarray, ffn), jnp.asarray(h)))
+    logits = rng.standard_normal((2, 8, 50)).astype(np.float32) * 3
+    labels = rng.integers(0, 50, (2, 8)).astype(np.int32)
+    labels[1, 2:5] = -1
+    _close(tlayers.softmax_xent(torch.tensor(logits), torch.tensor(labels)),
+           jlayers.softmax_xent(jnp.asarray(logits), jnp.asarray(labels)))
+
+
+@pytest.mark.parametrize("chunk", [1024, 8])
+def test_chunked_attention(chunk):
+    """Single block and 4x4 blocks of the online softmax (S=32)."""
+    rng = np.random.default_rng(2)
+    q = rng.standard_normal((2, 32, 8, 16)).astype(np.float32)
+    k = rng.standard_normal((2, 32, 4, 16)).astype(np.float32)
+    v = rng.standard_normal((2, 32, 4, 16)).astype(np.float32)
+    kw = dict(n_kv_heads=4, chunk_q=chunk, chunk_kv=chunk)
+    _close(tattn.chunked_attention(torch.tensor(q), torch.tensor(k),
+                                   torch.tensor(v), **kw),
+           jattn.chunked_attention(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), **kw))
+
+
+def test_params_tree_matches_jax_layout():
+    """Same keys, nesting, order and shapes as the JAX tree."""
+    cfg = _cfg()
+    jp = jtr.init_params(jax.random.PRNGKey(0), cfg, jnp.float32)
+    tp = ttr.init_params(0, cfg, torch.float32, device="cpu")
+    jpaths = ["/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                       for k in path)
+              for path, _ in jax.tree_util.tree_flatten_with_path(jp)[0]]
+    assert [p for p, _ in leaves_with_path(tp)] == jpaths
+    assert [tuple(t.shape) for t in leaves(tp)] == \
+        [tuple(x.shape) for x in jax.tree.leaves(jp)]
+    assert ttr.count_params(tp) == jtr.count_params(jp)
+
+
+def test_loss_and_every_gradient_match_jax():
+    cfg = _cfg()
+    jp = jtr.init_params(jax.random.PRNGKey(0), cfg, jnp.float32)
+    x, y = _tokens(cfg)
+    jbatch = {"tokens": jnp.asarray(x), "labels": jnp.asarray(y)}
+    (jl, _), jg = jax.value_and_grad(jtr.loss_fn, has_aux=True)(
+        jp, cfg, jbatch)
+    tp = tio.params_from_numpy(_np(jp), "cpu")
+    tparams = [t.requires_grad_() for t in leaves(tp)]
+    tl, _ = ttr.loss_fn(tp, cfg, {"tokens": torch.tensor(x),
+                                  "labels": torch.tensor(y)})
+    _close(tl, jl)
+    grads = torch.autograd.grad(tl, tparams)
+    for g, want in zip(grads, jax.tree.leaves(jg)):
+        _close(g, want)
+
+
+def test_npz_checkpoint_crosses_packages(tmp_path):
+    """JAX writes, the port reads (and back), bf16 via the ::bf16 view."""
+    from repro.checkpoint import io as jio
+    cfg = _cfg(n_layers=1)
+    jp = jtr.init_params(jax.random.PRNGKey(3), cfg, jnp.bfloat16)
+    jio.save_pytree(str(tmp_path / "j.npz"), jp)
+    like = ttr.init_params(1, cfg, torch.bfloat16, device="cpu")
+    tp = tio.restore_pytree(str(tmp_path / "j.npz"), like)
+    for t, j in zip(leaves(tp), jax.tree.leaves(jp)):
+        assert t.dtype == torch.bfloat16
+        np.testing.assert_array_equal(
+            t.view(torch.int16).numpy(),
+            np.asarray(j).view(np.int16))
+    tio.save_pytree(str(tmp_path / "t.npz"), tp)
+    back = jio.restore_pytree(str(tmp_path / "t.npz"), jp)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(jp)):
+        np.testing.assert_array_equal(np.asarray(a).view(np.int16),
+                                      np.asarray(b).view(np.int16))
+    # the bridge copies: updating the tensor leaves the numpy source alone
+    src = _np(jtr.init_params(jax.random.PRNGKey(4), cfg, jnp.float32))
+    t32 = tio.params_from_numpy(src, "cpu")
+    before = src["embed"]["table"].copy()
+    t32["embed"]["table"].add_(1.0)
+    np.testing.assert_array_equal(src["embed"]["table"], before)
+    back32 = tio.params_to_numpy(t32)
+    np.testing.assert_array_equal(back32["embed"]["table"], before + 1.0)
