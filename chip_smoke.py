@@ -6,18 +6,29 @@
 
 Phases:
   1. device: name, capability (must be 9.0), power limit, versions;
-  2. build the wire kernels from ``src/repro_torch/kernels/csrc``;
-  3. each kernel (K1-K4) against its plain PyTorch version on the card at
+  2. build the kernels from ``src/repro_torch/kernels/csrc`` (one nvcc per
+     source, all started together);
+  3. each kernel (K1-K5) against its plain PyTorch version on the card at
      small odd shapes and at the main path's shapes, timed with CUDA
-     events (median of >= 10 runs after warm-up) beside the plain version
-     and the memory bound;
+     events (median of >= 10 runs after warm-up) beside the plain version,
+     the bound and, for K5, ``F.scaled_dot_product_attention`` (the
+     library yardstick, which the port never calls);
   4. a small Algorithm 1 run (smoke config, K=3, 2 rounds, fused codec) on
      the card against the same run on the CPU;
   5. the main path at internlm2-1.8b's full width (depth cut to 16 of 24
      layers, f32): (a) fused codec, K=5, 2 rounds; (b) fused int4 with
      error feedback, K=3, 1 round; (c) leafwise codec, K=3, 1 round. The
      kernels' launch counters are zeroed just before each and read just
-     after; each must show its kernels launched.
+     after; each must show its kernels launched;
+  6. serving at internlm2-1.8b's full width and all 24 layers, f32:
+     (a) ``make_prefill_step(cfg, impl="kernel")`` over 8 x 2048-token
+     prompts, K5 launched once per layer per prefill; (b) ``ServeLoop``,
+     batch 8, a 128-token prompt, 64 new tokens, max_seq 256, its decode
+     loop under ``torch.cuda.set_sync_debug_mode("error")``; (c) a second
+     model published to a ``ModelBank`` and polled in, whose tokens must
+     equal an eager ``decode_step`` loop of that model; (d) the loop's
+     last-prompt logits against ``prefill(impl="kernel")`` at 1e-4. The
+     counters are zeroed just before (a) and read after (d).
 Before the last line come the ``kernels`` JSON and the card's name and
 power limit as ``nvidia-smi`` gives them; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
@@ -34,6 +45,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -43,13 +55,30 @@ RECORD = {}
 # suite's: tests/test_kernels.py)
 TOL8 = {"rtol": 1e-7, "atol": 1e-6}
 TOL41 = {"rtol": 2e-6, "atol": 2e-6}
+WIRE_SRC = "src/repro_torch/kernels/csrc/wire.cu"
+FLASH_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
+# name in ops.KERNELS: (tag, TPU kernel it replaces, source)
 KERNEL_META = {
-    "wire_quantize": ("K1", "repro/kernels/quantize.py:99"),
-    "wire_dequantize": ("K2", "repro/kernels/quantize.py:125"),
-    "wire_quant_avg_dequant": ("K3", "repro/kernels/comm.py:74"),
-    "wire_quant_avg_dequant_ef": ("K4", "repro/kernels/comm.py:97"),
+    "wire_quantize": ("K1", "repro/kernels/quantize.py:99", WIRE_SRC),
+    "wire_dequantize": ("K2", "repro/kernels/quantize.py:125", WIRE_SRC),
+    "wire_quant_avg_dequant": ("K3", "repro/kernels/comm.py:74", WIRE_SRC),
+    "wire_quant_avg_dequant_ef": ("K4", "repro/kernels/comm.py:97",
+                                  WIRE_SRC),
+    "flash_attention": ("K5", "repro/kernels/flash_attention.py:66",
+                        FLASH_SRC),
 }
-SOURCE = "src/repro_torch/kernels/csrc/wire.cu"
+# K5 against its plain version: the JAX suite's tolerances
+# (tests/test_kernels.py: f32 2e-5, bf16 2e-2)
+FA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# (B, Sq, Sk, H, KV, hd, hd_v, window): MHA / GQA / MQA, ragged tails,
+# Sq < Sk, hd_v != hd, windows, one query row
+FA_SMALL = [(1, 128, 128, 4, 4, 32, 32, 0), (2, 256, 256, 8, 2, 64, 64, 0),
+            (1, 128, 128, 4, 1, 32, 32, 0), (2, 512, 512, 4, 2, 128, 128, 0),
+            (2, 200, 200, 4, 2, 128, 128, 0), (1, 77, 333, 4, 2, 128, 96, 0),
+            (1, 256, 256, 4, 2, 32, 32, 32), (1, 256, 256, 4, 2, 32, 32, 128),
+            (2, 150, 300, 6, 3, 16, 16, 100), (1, 1, 70, 2, 1, 128, 128, 0)]
+# K5 at the serving path's shape: internlm2-1.8b's heads, 8 x 2048 tokens
+FA_PATH = (8, 2048, 2048, 16, 8, 128, 128, 0)
 # depth of the full-width model: 16 of internlm2-1.8b's 24 layers. The
 # wire step at K=5 holds 12 model copies (5 stacked, the 5-row flat
 # buffer, the mean, prev_avg): 12 x 5.54 GB = 66.5 GB of the card's 80.
@@ -84,6 +113,22 @@ def mem_bandwidth(name):
     if "H100" in name and "NVL" in name:
         return 3.9e12
     return 3.35e12                      # H100 SXM
+
+
+def f32_peak(name):
+    """Published f32 rate outside the tensor cores (flop/s)."""
+    if "H100" in name and "PCIe" in name:
+        return 51e12
+    if "H100" in name and "NVL" in name:
+        return 60e12
+    return 67e12                        # H100 SXM, H200
+
+
+def attention_pairs(Sq, Sk, window):
+    """(query, key) pairs K5's mask leaves visible (Sq <= Sk)."""
+    off = Sk - Sq
+    return sum(min(i + off + 1, window) if window else i + off + 1
+               for i in range(Sq))
 
 
 def cuda_ms(torch, fn, reps=10, warmup=2):
@@ -126,13 +171,16 @@ def phase_device(torch):
 def phase_build():
     from repro_torch.kernels import _build
     t0 = time.time()
-    path = _build.build("wire")
-    _build.load("wire")
-    log = _build.BUILD_LOGS.get("wire", "(already built)")
-    say("build", seconds=round(time.time() - t0, 3),
-        library=str(path.relative_to(ROOT)),
-        ptxas=[ln for ln in log.splitlines() if "registers" in ln
-               or "spill" in ln])
+    names = tuple(_build.API)
+    with ThreadPoolExecutor(len(names)) as ex:
+        paths = list(ex.map(_build.build, names))
+    for name, path in zip(names, paths):
+        _build.load(name)
+        log = _build.BUILD_LOGS.get(name, "(already built)")
+        say("build", name=name, library=str(path.relative_to(ROOT)),
+            ptxas=[ln for ln in log.splitlines() if "registers" in ln
+                   or "spill" in ln or "smem" in ln])
+    say("build", seconds=round(time.time() - t0, 3))
 
 
 def _close(torch, got, want, tol, what, chunk=1 << 26):
@@ -195,6 +243,79 @@ def phase_kernels_small(torch, dev, errs):
                 errs["wire_quant_avg_dequant_ef"], e4)
     torch.cuda.synchronize()
     say("kernels-small", max_abs_err=errs)
+
+
+def _fa_inputs(torch, dev, g, shape, dtype):
+    B, Sq, Sk, H, KV, hd, hd_v, _ = shape
+    return (torch.randn((B, Sq, H, hd), generator=g, device=dev).to(dtype),
+            torch.randn((B, Sk, KV, hd), generator=g, device=dev).to(dtype),
+            torch.randn((B, Sk, KV, hd_v), generator=g, device=dev).to(dtype))
+
+
+def phase_flash_small(torch, dev, errs):
+    """K5 at small odd shapes, f32 and bf16, against its plain version.
+    The kernels line carries the f32 error (the serving path's dtype)."""
+    from repro_torch.kernels import flash_attention as fa, ref
+    g = torch.Generator(device=dev).manual_seed(3)
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        tol = {"rtol": FA_TOL[dname], "atol": FA_TOL[dname]}
+        for shape in FA_SMALL:
+            q, k, v = _fa_inputs(torch, dev, g, shape, dtype)
+            kw = {"n_kv_heads": shape[4], "window": shape[7]}
+            got = fa.flash_attention_fwd(q, k, v, **kw)
+            check(got.dtype == dtype and got.shape == (*shape[:2], shape[3],
+                                                       shape[6]),
+                  f"K5 output {got.dtype} {tuple(got.shape)} at {shape}")
+            err = _close(torch, got, ref.flash_attention_ref(q, k, v, **kw),
+                         tol, f"K5 {shape} {dname}")
+            worst[dname] = max(worst.get(dname, 0.0), err)
+    torch.cuda.synchronize()
+    errs["flash_attention"] = max(errs["flash_attention"], worst["float32"])
+    say("kernels-small", kernel="flash_attention", shapes=FA_SMALL,
+        max_abs_err=worst, tol=FA_TOL)
+
+
+def phase_flash_full(torch, dev, errs, name, bw):
+    """K5 at the serving path's shape, f32: against the plain version,
+    timed beside it and beside the library call."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa, ref
+    B, Sq, Sk, H, KV, hd, hd_v, window = FA_PATH
+    g = torch.Generator(device=dev).manual_seed(4)
+    q, k, v = _fa_inputs(torch, dev, g, FA_PATH, torch.float32)
+    kw = {"n_kv_heads": KV, "window": window}
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    got = fa.flash_attention_fwd(q, k, v, **kw)
+    err = _close(torch, got, want, {"rtol": FA_TOL["float32"],
+                                    "atol": FA_TOL["float32"]},
+                 f"K5 at {FA_PATH}")
+    del want
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+    lib_err = float((lib_out.transpose(1, 2) - got).abs().max())
+    del lib_out, got
+    ms = cuda_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, **kw))
+    plain = cuda_ms(torch, lambda: ref.flash_attention_ref(q, k, v, **kw))
+    lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True))
+    pairs = attention_pairs(Sq, Sk, window)
+    flops = 2 * B * H * pairs * (hd + hd_v)
+    nbytes = 4 * (q.numel() + k.numel() + v.numel() + B * Sq * H * hd_v)
+    bound = max(1e3 * flops / f32_peak(name), 1e3 * nbytes / bw)
+    errs["flash_attention"] = max(errs["flash_attention"], err)
+    out = {"shape": list(FA_PATH), "dtype": "float32", "ms": ms,
+           "plain_ms": plain, "library_ms": lib, "flops": flops,
+           "bytes": nbytes, "bound_ms": bound,
+           "bound_by": "operations" if 1e3 * flops / f32_peak(name)
+           >= 1e3 * nbytes / bw else "bytes",
+           "tflops": flops / ms / 1e9, "library_max_abs_diff": lib_err}
+    say("kernels-full", kernel="flash_attention", **out, max_abs_err=err)
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return out
 
 
 def full_cfg():
@@ -265,7 +386,7 @@ def phase_kernels_full(torch, dev, errs, bw):
         torch.cuda.empty_cache()
         out[name] = {"shape": [K, n_pad], "bits": bits, "ms": ms,
                      "plain_ms": plain, "bytes": nbytes,
-                     "bound_ms": 1e3 * nbytes / bw}
+                     "bound_ms": 1e3 * nbytes / bw, "bound_by": "bytes"}
         errs[name] = max(errs[name], err)
         say("kernels-full", kernel=name, **out[name], max_abs_err=err)
 
@@ -307,7 +428,7 @@ def phase_kernels_full(torch, dev, errs, bw):
         out[name] = {"shape": f"{len(xs)} leaves of the K=3 stacked tree, "
                               f"{n_el} values", "bits": 8, "ms": ms,
                      "plain_ms": plain, "bytes": nbytes,
-                     "bound_ms": 1e3 * nbytes / bw}
+                     "bound_ms": 1e3 * nbytes / bw, "bound_by": "bytes"}
         say("kernels-full", kernel=name, **out[name],
             max_abs_err=errs[name])
     del xs, payload
@@ -454,6 +575,120 @@ def phase_main(torch, dev, label, codec, K, rounds, launches_out):
 
 
 # ---------------------------------------------------------------------------
+def phase_serving(torch, dev, launches_out):
+    """Phase 6: prefill through K5, the ServeLoop, a hot swap from a
+    ModelBank, at full width and all 24 layers."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer as tr
+    from repro_torch.serving import ModelBank, ServeLoop
+    cfg = get_config("internlm2-1.8b")
+    g = torch.Generator(device=dev).manual_seed(5)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = tr.init_params(0, cfg, torch.float32, device=dev)
+    n_params = tr.count_params(params)
+    B, S = 8, 2048
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                           device=dev)
+    step = make_prefill_step(cfg, impl="kernel")
+    ops.reset_launch_counts()
+
+    # (a) the full-sequence prefill through K5; the first call warms up
+    prefill_s = []
+    for _ in range(2):
+        before = ops.launch_counts()["flash_attention"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = step(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t0)
+        n = ops.launch_counts()["flash_attention"] - before
+        check(n == cfg.n_layers, f"6a: K5 launched {n} times in one "
+                                 f"prefill, not once per layer "
+                                 f"({cfg.n_layers})")
+        check(logits.shape == (B, cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()),
+              "6a: prefill logits not finite or misshapen")
+    peak_prefill = torch.cuda.max_memory_allocated()
+    del logits, tokens
+    torch.cuda.empty_cache()
+
+    # (b) the serving loop, decode under the sync guard
+    P, new, max_seq = 128, 64, 256
+    prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=g,
+                            device=dev)
+    loop = ServeLoop(cfg, params, batch=B, max_seq=max_seq, device=dev)
+    loop.generate(prompts[:, :8], 4)                       # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gen0, st0 = loop.generate(prompts, new)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    peak_loop = torch.cuda.max_memory_allocated()
+
+    # (c) a second model through the bank; an eager decode loop of it
+    params1 = tr.init_params(1, cfg, torch.float32, device=dev)
+    bank = ModelBank()
+    bank.publish(params1, round_i=1)
+    check(loop.poll(bank) and loop.version == 1, "6c: poll did not swap")
+    gen1, st1 = loop.generate(prompts, new)
+    check(loop.compile_count() == 1 and st1["compile_count"] == 1,
+          "6c: the swap rebuilt the decode step")
+    cache = tr.init_cache(cfg, B, max_seq, torch.float32, dev)
+    pos = torch.arange(max_seq, dtype=torch.int32, device=dev)
+    for t in range(P):
+        logits, cache = tr.decode_step(params1, cfg, cache,
+                                       prompts[:, t:t + 1], pos[t])
+    tok, eager = torch.argmax(logits, -1), []
+    for i in range(new):
+        eager.append(tok)
+        logits, cache = tr.decode_step(params1, cfg, cache, tok, pos[P + i])
+        tok = torch.argmax(logits, -1)
+    eager = torch.cat(eager, dim=1)
+    check(torch.equal(gen1, eager), "6c: ServeLoop tokens after the swap "
+                                    "differ from an eager decode loop")
+    check(not torch.equal(gen1, gen0), "6c: the swapped model generates "
+                                       "the first model's tokens")
+    del cache, eager
+
+    # (d) the loop's last-prompt logits against the K5 prefill
+    loop_logits, _ = loop.prefill(prompts)
+    want = tr.prefill(params1, cfg, {"tokens": prompts}, impl="kernel")
+    d_err = _close(torch, loop_logits[:, 0], want,
+                   {"rtol": 1e-4, "atol": 1e-4},
+                   "6d: ServeLoop prefill vs prefill(impl='kernel')")
+    counts = ops.launch_counts()
+    check(counts["flash_attention"] == 3 * cfg.n_layers,
+          f"6: K5 launched {counts['flash_attention']} times over three "
+          "prefills")
+    for name, n in counts.items():
+        launches_out[name] = launches_out.get(name, 0) + n
+    say("serving", model=cfg.name, n_layers=cfg.n_layers,
+        params=n_params, dtype="float32", batch=B,
+        prefill={"seq_len": S, "seconds": prefill_s,
+                 "tokens_per_s": [B * S / x for x in prefill_s],
+                 "k5_launches_per_prefill": cfg.n_layers,
+                 "peak_mem_GB": peak_prefill / 1e9},
+        loop={"prompt_len": P, "new_tokens": new, "max_seq": max_seq,
+              "prefill_s": [st0["prefill_s"], st1["prefill_s"]],
+              "decode_s": [st0["decode_s"], st1["decode_s"]],
+              "decode_tokens_per_s": [st0["tokens_per_s"],
+                                      st1["tokens_per_s"]],
+              "prompt_tokens_per_s": [B * P / st0["prefill_s"],
+                                      B * P / st1["prefill_s"]],
+              "peak_mem_GB": peak_loop / 1e9,
+              "compile_count": loop.compile_count(),
+              "versions": [st0["version"], st1["version"]]},
+        swap_tokens_equal_eager=True, loop_vs_prefill_max_abs_err=d_err,
+        launches=counts, peak_mem_GB=torch.cuda.max_memory_allocated() / 1e9)
+    del params, params1, loop, bank, want, loop_logits
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -481,9 +716,12 @@ def main(argv=None):
     phase_build()
     errs = {k: 0.0 for k in KERNEL_META}
     phase_kernels_small(torch, dev, errs)
+    phase_flash_small(torch, dev, errs)
     if args.quick:
         return 0
-    timing = phase_kernels_full(torch, dev, errs, mem_bandwidth(name))
+    bw = mem_bandwidth(name)
+    timing = phase_kernels_full(torch, dev, errs, bw)
+    timing["flash_attention"] = phase_flash_full(torch, dev, errs, name, bw)
     phase_small_round(torch, dev)
 
     launches = {}
@@ -502,16 +740,17 @@ def main(argv=None):
                         launches)
     check(c_c["wire_quantize"] > 0 and c_c["wire_dequantize"] > 0,
           "5c: K1/K2 not launched")
+    phase_serving(torch, dev, launches)
 
     kernels = []
-    for kname, (tag, replaces) in KERNEL_META.items():
+    for kname, (tag, replaces, source) in KERNEL_META.items():
         t = timing[kname]
         kernels.append({
-            "name": f"{kname} ({tag})", "route": "cuda", "source": SOURCE,
+            "name": f"{kname} ({tag})", "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[kname],
             "max_abs_err": errs[kname], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": "bytes", "library_ms": None})
+            "bound_by": t["bound_by"], "library_ms": t.get("library_ms")})
     RECORD["kernels"] = kernels
     RECORD["seconds"] = time.time() - t_start
     out = ROOT / "build"

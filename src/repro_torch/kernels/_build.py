@@ -4,8 +4,11 @@ Each source is compiled at first use with ``nvcc`` for Hopper
 (``sm_90a``) into ``build/kernels/<hash of source and flags>/lib<name>.so``
 under the repository root (``build/`` is git-ignored), with a plain C
 interface that ``ctypes`` loads — no PyTorch headers, so a build takes
-seconds. ``-fmad=false`` keeps every multiply and add separately rounded,
-as XLA's dequantize-then-sum is. Nothing here runs at import time.
+seconds. Each library has its own flags (``NVCC_FLAGS``), hashed into its
+path, and its own C entry points (``API``): the wire kernels build with
+``-fmad=false``, which keeps every multiply and add separately rounded as
+XLA's dequantize-then-sum is; flash attention, held to 2e-5, keeps fused
+multiply-adds. Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -19,18 +22,25 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 REPO_ROOT = Path(__file__).resolve().parents[3]
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
-              "-Xptxas", "-v")
+_BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+NVCC_FLAGS = {"wire": _BASE_FLAGS + ("-fmad=false",),
+              "flash_attention": _BASE_FLAGS}
 
-_P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-# C entry points of wire.cu: (argtypes), all return cudaGetLastError()
+_P, _I64, _I32, _F32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                        ctypes.c_float)
+# C entry points of each library: (argtypes); all return a cudaError_t
 WIRE_API = {
     "wire_quantize": (_P, _P, _P, _I64, _I64, _I32, _P),
     "wire_dequantize": (_P, _P, _P, _I64, _P),
     "wire_quant_avg_dequant": (_P, _P, _I64, _I64, _I32, _P),
     "wire_quant_avg_dequant_ef": (_P, _P, _P, _P, _I64, _I64, _I32, _P),
 }
+FLASH_API = {
+    # q, k, v, o, dtype, B, Sq, Sk, H, KV, hd, hd_v, window, scale, stream
+    "flash_attention_fwd": (_P, _P, _P, _P, _I32, *(_I64,) * 8, _F32, _P),
+}
+API = {"wire": WIRE_API, "flash_attention": FLASH_API}
 
 #: compiler output (``-Xptxas -v``) of the builds this process ran
 BUILD_LOGS = {}
@@ -44,19 +54,21 @@ def nvcc_path():
     default = "/usr/local/cuda/bin/nvcc"
     if os.path.exists(default):
         return default
-    raise RuntimeError("nvcc not found: the CUDA wire kernels are built on "
-                       "a machine with the CUDA toolkit")
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                       "machine with the CUDA toolkit")
 
 
 def lib_path(name="wire"):
     src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    flags = " ".join(NVCC_FLAGS[name]).encode()
+    h = hashlib.sha256(src.read_bytes() + flags)
     return REPO_ROOT / "build" / "kernels" / h.hexdigest()[:16] / \
         f"lib{name}.so"
 
 
 def build_cmd(name, out):
-    return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu")]
+    return [nvcc_path(), *NVCC_FLAGS[name], "-o", str(out),
+            str(CSRC / f"{name}.cu")]
 
 
 def build(name="wire"):
@@ -88,7 +100,7 @@ def load(name="wire"):
     ``argtypes`` / ``restype`` of every entry point declared."""
     if name not in _LOADED:
         lib = ctypes.CDLL(str(build(name)))
-        for fn, argtypes in WIRE_API.items():
+        for fn, argtypes in API[name].items():
             f = getattr(lib, fn)
             f.argtypes = list(argtypes)
             f.restype = ctypes.c_int

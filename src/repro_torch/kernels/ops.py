@@ -1,9 +1,9 @@
-"""Dispatch for the wire kernels K1-K4.
+"""Dispatch for the wire kernels K1-K4 and flash attention K5.
 
 There is no ``impl`` knob: a tensor on the CPU goes to the plain version
 (``ref.py``), a CUDA tensor to the hand-written kernel's wrapper
-(``quantize.py`` / ``comm.py``), which launches it or raises. Nothing
-falls back from the kernel to the plain version.
+(``quantize.py`` / ``comm.py`` / ``flash_attention.py``), which launches
+it or raises. Nothing falls back from the kernel to the plain version.
 
 ``KERNELS`` names each kernel's wrapper; ``launch_counts`` /
 ``reset_launch_counts`` read and zero the per-wrapper launch counters.
@@ -11,6 +11,7 @@ falls back from the kernel to the plain version.
 from __future__ import annotations
 
 from repro_torch.kernels import comm as _comm
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import quantize as _qz
 from repro_torch.kernels import ref as _ref
 
@@ -19,6 +20,7 @@ KERNELS = {
     "wire_dequantize": _qz.dequantize_blockwise_fwd,             # K2
     "wire_quant_avg_dequant": _comm.quant_avg_dequant_fwd,       # K3
     "wire_quant_avg_dequant_ef": _comm.quant_avg_dequant_ef_fwd,  # K4
+    "flash_attention": _fa.flash_attention_fwd,                  # K5
 }
 
 
@@ -37,7 +39,7 @@ def _on_cuda(*tensors):
         return True
     if kinds == {"cpu"}:
         return False
-    raise ValueError(f"wire kernels take tensors on one device, cuda or "
+    raise ValueError(f"the kernels take tensors on one device, cuda or "
                      f"cpu; got {sorted(kinds)}")
 
 
@@ -70,3 +72,15 @@ def quant_avg_dequant_ef(buf, residual, *, block=256, bits=8):
                                               bits=bits)
     return _ref.quant_avg_dequant_ef_ref(buf, residual, block=block,
                                          bits=bits)
+
+
+def flash_attention(q, k, v, *, n_kv_heads, window=0, softmax_scale=None):
+    """Causal attention (optional sliding window, GQA), forward only.
+    q: (B,Sq,H,hd), k/v: (B,Sk,KV,hd|hd_v) -> (B,Sq,H,hd_v) in q's dtype."""
+    if _on_cuda(q, k, v):
+        return _fa.flash_attention_fwd(q, k, v, n_kv_heads=n_kv_heads,
+                                       window=window,
+                                       softmax_scale=softmax_scale)
+    return _ref.flash_attention_ref(q, k, v, n_kv_heads=n_kv_heads,
+                                    window=window,
+                                    softmax_scale=softmax_scale)

@@ -1,6 +1,6 @@
-"""Plain PyTorch versions of the wire kernels K1-K4.
+"""Plain PyTorch versions of the wire kernels K1-K4 and flash attention K5.
 
-They repeat ``repro/kernels/ref.py`` (``_code_blocks_ref`` ..
+The wire versions repeat ``repro/kernels/ref.py`` (``_code_blocks_ref`` ..
 ``quant_avg_dequant_ef_ref``) op for op: absmax or mean-|x| per 256-wide
 row, ``x / scale`` (a division, never a reciprocal multiply), round half to
 even, clip, then ``q * scale``; Eq. 2 is ``sum over K / K``. The wrappers
@@ -12,6 +12,9 @@ dequantize-only paths here keep the clipped rounded quotient in f32 and
 scale it in place: the values are integers of at most 127 in magnitude,
 so the result is the same number, and a ``(K, N_pad)`` buffer at full
 width needs one temporary of its size instead of four.
+
+``flash_attention_ref`` repeats ``repro/kernels/ref.py``
+``flash_attention_ref``: it materialises the whole score matrix.
 """
 from __future__ import annotations
 
@@ -20,6 +23,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.quantize import QMAX, check_bits, pack_codes, \
     unpack_codes
+
+NEG_INF = -1e30
 
 
 def _div(a, v):
@@ -120,3 +125,24 @@ def quant_avg_dequant_ef_ref(buf, residual, block=256, bits=8):
     if yb.data_ptr() != residual.data_ptr():   # padded copy: write back
         residual.copy_(yb.reshape(K, -1)[:, :n])
     return mean, residual
+
+
+def flash_attention_ref(q, k, v, *, n_kv_heads, window=0, softmax_scale=None):
+    """q: (B,Sq,H,hd), k/v: (B,Sk,KV,hd*) -> (B,Sq,H,hd_v). Causal, with
+    query row i at key position i + (Sk - Sq); masked scores are -1e30;
+    f32 scores and softmax, the result in q's dtype."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], n_kv_heads
+    G = H // KV
+    scale = softmax_scale or hd ** -0.5
+    qg = q.reshape(B, Sq, KV, G, hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float() * scale, k.float())
+    qpos = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    ok = kpos <= qpos
+    if window:
+        ok &= kpos > qpos - window
+    s = torch.where(ok, s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", w, v.float())
+    return o.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)

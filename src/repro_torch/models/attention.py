@@ -1,4 +1,5 @@
-"""GQA attention, training path, ported from ``repro/models/attention.py``.
+"""GQA attention, ported from ``repro/models/attention.py``: the
+training / prefill forward and the one-token KV-cache decode.
 
 ``chunked_attention`` computes what the JAX function of the same name
 computes: q is scaled by ``hd**-0.5`` before the product, kv head
@@ -6,14 +7,23 @@ computes: q is scaled by ``hd**-0.5`` before the product, kv head
 are f32 with an additive ``-1e30`` causal mask, and the online softmax
 runs over ``chunk_q x chunk_kv`` blocks and divides by ``max(l, 1e-30)``.
 It is plain tensor code (matmul, exp), not
-``F.scaled_dot_product_attention``; the hand-written flash-attention
-kernel (``repro/kernels/flash_attention.py``) is still to port, and with
-it the decode path.
+``F.scaled_dot_product_attention``. ``attn_apply(impl="kernel")`` routes
+through ``kernels.ops.flash_attention`` instead: the hand-written K5 kernel
+for CUDA tensors (forward only), its plain version on the CPU.
+
+Decode: the cache of one layer is ``{"k", "v"}`` of shape (B,S,KV,hd),
+S = ``min(window, max_seq)`` under a sliding window (a ring buffer, slot
+``pos % S``) and ``max_seq`` otherwise. Where JAX returns an updated copy
+(``dynamic_update_slice``), ``attn_decode`` writes the new key and value
+into the given cache IN PLACE (``index_copy_``) and returns it. ``pos`` is
+a 0-d tensor on the model's device and the validity mask is built from it
+on the device, so a decode step never waits for the host.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import apply_rope, trunc_normal
 
 NEG_INF = -1e30
@@ -105,11 +115,85 @@ def chunked_attention(q, k, v, *, n_kv_heads, window=0, q_offset=0,
     return out.to(q.dtype)
 
 
-def attn_apply(p, x, cfg, positions):
-    """Training forward. x: (B,S,D) -> (B,S,D), plus (k, v)."""
+def _out_proj(out, wo):
+    """einsum('bshk,hkd->bsd') as one matmul, in the promoted dtype."""
+    H, hd, d = wo.shape
+    dt = torch.promote_types(out.dtype, wo.dtype)
+    return out.reshape(*out.shape[:2], H * hd).to(dt) @ \
+        wo.reshape(H * hd, d).to(dt)
+
+
+IMPLS = ("ref", "kernel")
+
+
+def attn_apply(p, x, cfg, positions, impl="ref"):
+    """Training / prefill forward. x: (B,S,D) -> (B,S,D), plus (k, v).
+
+    ``impl="ref"`` is ``chunked_attention``; ``impl="kernel"`` is
+    ``kernels.ops.flash_attention`` (K5), the counterpart of the JAX
+    package's ``impl="pallas"``. K5 is forward only."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}; got {impl!r}")
     q, k, v = _qkv(p, x, cfg, positions)
-    out = chunked_attention(q, k, v, n_kv_heads=cfg.n_kv_heads,
-                            window=cfg.window)
-    H, hd, d = p["wo"].shape
-    y = out.reshape(*out.shape[:2], H * hd) @ p["wo"].reshape(H * hd, d)
-    return y, (k, v)
+    if impl == "kernel":
+        out = kops.flash_attention(q, k, v, n_kv_heads=cfg.n_kv_heads,
+                                   window=cfg.window)
+    else:
+        out = chunked_attention(q, k, v, n_kv_heads=cfg.n_kv_heads,
+                                window=cfg.window)
+    return _out_proj(out, p["wo"]), (k, v)
+
+
+# --------------------------------------------------------------------------
+# Decode (one token, KV cache; ring buffer when cfg.window > 0)
+# --------------------------------------------------------------------------
+def repeat_kv(k, n_heads):
+    """(B,S,KV,hd) -> (B,S,H,hd), kv head ``h // (H/KV)`` for head h."""
+    B, S, KV, hd = k.shape
+    if KV == n_heads:
+        return k
+    G = n_heads // KV
+    return k[:, :, :, None, :].expand(B, S, KV, G, hd).reshape(
+        B, S, n_heads, hd)
+
+
+def attn_cache_init(cfg, batch, seq_len, dtype, device, stack=()):
+    """Zeros ``{"k", "v"}`` of shape (*stack, B, S, KV, hd)."""
+    S = min(cfg.window, seq_len) if cfg.window else seq_len
+    shp = (*stack, batch, S, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shp, dtype=dtype, device=device),
+            "v": torch.zeros(shp, dtype=dtype, device=device)}
+
+
+def decode_attend(q, ck, cv, pos, *, window, softmax_scale):
+    """q: (B,1,H,hd); ck/cv: (B,S,KV,hd); pos: 0-d tensor. Single-token
+    attention -> (B,1,H,hd_v)."""
+    H = q.shape[2]
+    S = ck.shape[1]
+    qh = q[:, 0] * softmax_scale                           # (B,H,hd)
+    k2 = repeat_kv(ck, H)                                  # (B,S,H,hd)
+    v2 = repeat_kv(cv, H)
+    dt = torch.promote_types(qh.dtype, k2.dtype)
+    s = torch.einsum("bhd,bshd->bhs", qh.to(dt), k2.to(dt)).float()
+    idx = torch.arange(S, device=q.device)
+    valid = ((idx <= pos) | (pos >= S)) if window else (idx <= pos)
+    s = torch.where(valid[None, None, :], s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhs,bshd->bhd", w.to(v2.dtype), v2)
+    return out[:, None]                                    # (B,1,H,hd_v)
+
+
+def attn_decode(p, x, cfg, cache, pos):
+    """x: (B,1,D); pos: 0-d int tensor, the current position. Writes this
+    token's k and v into ``cache`` in place; returns (y, cache)."""
+    B = x.shape[0]
+    S = cache["k"].shape[1]
+    positions = pos.reshape(1, 1).expand(B, 1)
+    q, k, v = _qkv(p, x, cfg, positions)                   # k,v: (B,1,KV,hd)
+    slot = torch.remainder(pos, S) if cfg.window else pos
+    idx = slot.reshape(1).long()
+    cache["k"].index_copy_(1, idx, k.to(cache["k"].dtype))
+    cache["v"].index_copy_(1, idx, v.to(cache["v"].dtype))
+    out = decode_attend(q, cache["k"], cache["v"], pos, window=cfg.window,
+                        softmax_scale=cfg.head_dim ** -0.5)
+    return _out_proj(out, p["wo"]), cache

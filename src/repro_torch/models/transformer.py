@@ -4,8 +4,15 @@ A config's ``segments`` is a sequence of (pattern, repeats); each pattern
 entry is "<mixer>:<ffn>". Parameters for each pattern position carry a
 leading ``repeats`` dim, as in the JAX tree, and ``forward`` loops over
 it. The port runs ``gqa:dense`` layers; every other mixer and FFN (MLA,
-Mamba, xLSTM, MoE), the multi-token-prediction head, the prefix input
-mode and the decode path are still to port (ROADMAP.md).
+Mamba, xLSTM, MoE), the multi-token-prediction head and the prefix input
+mode are still to port (ROADMAP.md).
+
+Serving: ``prefill`` is the full-sequence forward with the LM head on the
+last position only (``impl="kernel"`` runs attention through K5);
+``init_cache`` / ``decode_step`` run one token against a KV cache. The
+cache is a list of segments, each ``{"p<j>": {"k", "v"}}`` with a leading
+``repeats`` dim as in the JAX tree, allocated for real (JAX broadcasts one
+layer's zeros) because ``decode_step`` updates it in place.
 """
 from __future__ import annotations
 
@@ -47,14 +54,36 @@ def layer_init(gen, kind, cfg, dtype, stack=()):
     return p
 
 
-def layer_apply(p, kind, x, cfg, positions):
-    h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
-    y, _ = attn.attn_apply(p["mixer"], h, cfg, positions)
-    x = x + y
+def _ffn_residual(p, x, cfg):
     if "ffn" in p:
         h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
         x = x + ffn_apply(p["ffn"], h)
     return x
+
+
+def layer_apply(p, kind, x, cfg, positions, impl="ref"):
+    h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
+    y, _ = attn.attn_apply(p["mixer"], h, cfg, positions, impl)
+    return _ffn_residual(p, x + y, cfg)
+
+
+def _check_decodable(kind):
+    if kind.split(":")[0] != "gqa":
+        raise NotImplementedError(
+            f"decode for layer kind {kind!r} not yet ported, see ROADMAP.md")
+
+
+def layer_cache_init(kind, cfg, batch, seq_len, dtype, device, stack=()):
+    _check_decodable(kind)
+    return attn.attn_cache_init(cfg, batch, seq_len, dtype, device, stack)
+
+
+def layer_decode(p, kind, x, cfg, cache, pos):
+    """One token through one layer; ``cache`` is updated in place."""
+    _check_decodable(kind)
+    h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
+    y, cache = attn.attn_decode(p["mixer"], h, cfg, cache, pos)
+    return _ffn_residual(p, x + y, cfg), cache
 
 
 def init_params(seed, cfg, dtype=torch.bfloat16, device=None):
@@ -83,9 +112,11 @@ def init_params(seed, cfg, dtype=torch.bfloat16, device=None):
     return params
 
 
-def forward(params, cfg, batch):
-    """Returns (logits, aux_loss). Every layer's activations are kept for
-    the backward pass: the per-layer recomputation of the JAX package
+def forward(params, cfg, batch, impl="ref", return_hidden=False,
+            apply_head=True):
+    """Returns (logits, aux_loss[, hidden]); ``logits`` is None when
+    ``apply_head`` is False. Every layer's activations are kept for the
+    backward pass: the per-layer recomputation of the JAX package
     (``remat``) is not ported yet (ROADMAP.md)."""
     _check_supported(cfg)
     x = embed_apply(params["embed"], batch["tokens"])
@@ -97,19 +128,68 @@ def forward(params, cfg, batch):
         for r in range(repeats):
             for j, kind in enumerate(pattern):
                 p_r = tree_map(lambda t, _r=r: t[_r], seg_params[f"p{j}"])
-                x = layer_apply(p_r, kind, x, cfg, positions)
+                x = layer_apply(p_r, kind, x, cfg, positions, impl)
     h = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
-    logits = lm_head_apply(params["embed"], params.get("head"), h,
-                           cfg.tie_embeddings)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    logits = None
+    if apply_head:
+        logits = lm_head_apply(params["embed"], params.get("head"), h,
+                               cfg.tie_embeddings)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if return_hidden:
+        return logits, aux, h
+    return logits, aux
 
 
-def loss_fn(params, cfg, batch):
+def loss_fn(params, cfg, batch, impl="ref"):
     """Next-token LM loss. labels: -1 = ignore. Returns (loss, metrics)."""
-    logits, aux = forward(params, cfg, batch)
+    logits, aux = forward(params, cfg, batch, impl)
     loss = softmax_xent(logits, batch["labels"])
     total = loss + aux
     return total, {"lm_loss": loss, "aux_loss": aux, "loss": total}
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill and one-token decode
+# ---------------------------------------------------------------------------
+def init_cache(cfg, batch, seq_len, dtype=torch.bfloat16, device=None):
+    """Zero KV caches, one ``(repeats, B, S, KV, hd)`` pair per pattern
+    position of every segment."""
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    return [{f"p{j}": layer_cache_init(kind, cfg, batch, seq_len, dtype,
+                                       dev, stack=(repeats,))
+             for j, kind in enumerate(pattern)}
+            for pattern, repeats in cfg.segments]
+
+
+@torch.no_grad()
+def decode_step(params, cfg, cache, token, pos):
+    """token: (B,1) int; pos: 0-d int tensor on the model's device.
+    Returns (logits (B,1,V), cache), the cache updated in place."""
+    x = embed_apply(params["embed"], token)
+    for seg_params, seg_cache, (pattern, repeats) in zip(
+            params["segments"], cache, cfg.segments):
+        for r in range(repeats):
+            for j, kind in enumerate(pattern):
+                p_r = tree_map(lambda t, _r=r: t[_r], seg_params[f"p{j}"])
+                c_r = tree_map(lambda t, _r=r: t[_r], seg_cache[f"p{j}"])
+                x, _ = layer_decode(p_r, kind, x, cfg, c_r, pos)
+    h = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
+    logits = lm_head_apply(params["embed"], params.get("head"), h,
+                           cfg.tie_embeddings)
+    return logits, cache
+
+
+@torch.no_grad()
+def prefill(params, cfg, batch, impl="ref"):
+    """Full-sequence forward -> last-position logits (B, V). The LM head
+    is applied to the last position only, as in the JAX package: the
+    whole (B, S, V) logits would dominate a long prefill."""
+    _, _, h = forward(params, cfg, batch, impl, return_hidden=True,
+                      apply_head=False)
+    logits = lm_head_apply(params["embed"], params.get("head"), h[:, -1:],
+                           cfg.tie_embeddings)
+    return logits[:, 0]
 
 
 def count_params(params):

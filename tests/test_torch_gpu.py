@@ -1,0 +1,108 @@
+"""On the card: each hand-written CUDA kernel (K1-K5) against its plain
+PyTorch version on the same CUDA inputs, at the JAX suite's tolerances
+(tests/test_kernels.py). Every test is marked ``gpu`` and skips without a
+card; the file imports no JAX, so it runs where the card is:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import comm as tcomm
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import quantize as tqz
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.quantize import ROWS
+
+SHAPES = [(1000, 37), (256,), (3 * 256 + 100,), (8, 8, 8)]
+BUFS = [(1, 8 * 256), (3, 16 * 256), (5, 8 * 256 + 300)]
+
+
+def _x(shape, seed=0, scale=5.0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+
+def _tol(bits):
+    return ({"rtol": 1e-7, "atol": 1e-6} if bits == 8
+            else {"rtol": 2e-6, "atol": 2e-6})
+
+
+def _qkv(B, Sq, Sk, H, KV, hd, hd_v):
+    return (_x((B, Sq, H, hd), 7, 1.0), _x((B, Sk, KV, hd), 8, 1.0),
+            _x((B, Sk, KV, hd_v), 9, 1.0))
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels build with nvcc for "
+                    "sm_90a)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [8, 4, 1])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_gpu_k1_k2_kernels_match_plain(cuda, bits, shape):
+    x = torch.tensor(_x(shape), device=cuda)
+    before = tops.launch_counts()
+    q_k, s_k, shp = tqz.quantize_blockwise_fwd(x, bits=bits)
+    q_p, s_p, _ = tref.quantize_blockwise_ref(x, bits=bits)
+    nb = q_p.shape[0]
+    assert q_k.shape[0] % ROWS == 0
+    assert torch.equal(q_k[:nb], q_p)
+    if bits == 1:
+        torch.testing.assert_close(s_k[:nb], s_p, rtol=1e-6, atol=0)
+    else:
+        assert torch.equal(s_k[:nb], s_p)
+    d_k = tqz.dequantize_blockwise_fwd(q_p, s_p, shp, bits=bits)
+    assert torch.equal(d_k, tref.dequantize_blockwise_ref(q_p, s_p, shp,
+                                                          bits=bits))
+    after = tops.launch_counts()
+    assert after["wire_quantize"] == before["wire_quantize"] + 1
+    assert after["wire_dequantize"] == before["wire_dequantize"] + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [8, 4, 1])
+@pytest.mark.parametrize("K,n", BUFS)
+def test_gpu_k3_k4_kernels_match_plain(cuda, bits, K, n):
+    buf = torch.tensor(_x((K, n), seed=2, scale=3.0), device=cuda)
+    res = torch.tensor(_x((K, n), seed=4, scale=0.1), device=cuda)
+    torch.testing.assert_close(tcomm.quant_avg_dequant_fwd(buf, bits=bits),
+                               tref.quant_avg_dequant_ref(buf, bits=bits),
+                               **_tol(bits))
+    m_k, e_k = tcomm.quant_avg_dequant_ef_fwd(buf, res.clone(), bits=bits)
+    m_p, e_p = tref.quant_avg_dequant_ef_ref(buf, res.clone(), bits=bits)
+    torch.testing.assert_close(m_k, m_p, **_tol(bits))
+    torch.testing.assert_close(e_k, e_p, **_tol(bits))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,hd_v,window", [
+    (1, 128, 128, 4, 4, 32, 32, 0),       # MHA
+    (2, 256, 256, 8, 2, 64, 64, 0),       # GQA
+    (1, 128, 128, 4, 1, 32, 32, 0),       # MQA
+    (2, 200, 200, 4, 2, 128, 128, 0),     # tails: 200 = 3 x 64 + 8
+    (1, 77, 333, 4, 2, 128, 96, 0),       # Sq < Sk, hd_v != hd, odd
+    (1, 256, 256, 4, 2, 32, 32, 32),      # window
+    (2, 150, 300, 6, 3, 16, 16, 100),     # window, Sq < Sk, odd
+])
+def test_gpu_k5_matches_plain(cuda, dtype, B, Sq, Sk, H, KV, hd, hd_v,
+                              window):
+    q, k, v = (torch.tensor(a, device=cuda).to(dtype)
+               for a in _qkv(B, Sq, Sk, H, KV, hd, hd_v))
+    before = tfa.flash_attention_fwd.launches
+    got = tfa.flash_attention_fwd(q, k, v, n_kv_heads=KV, window=window)
+    want = tref.flash_attention_ref(q, k, v, n_kv_heads=KV, window=window)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert got.dtype == dtype
+    assert tfa.flash_attention_fwd.launches == before + 1
+    torch.cuda.synchronize()

@@ -1,4 +1,5 @@
-"""Wire kernels K1-K4 of the PyTorch port against the JAX package.
+"""Wire kernels K1-K4 and flash attention K5 of the PyTorch port against
+the JAX package.
 
 CPU half: the port's plain versions (``repro_torch/kernels/ref.py``) are
 held against the JAX oracles (``repro/kernels/ref.py``, ``impl="ref"``)
@@ -8,8 +9,14 @@ as ``tests/test_kernels.py`` runs them. Packed payloads are bit-exact;
 ``amax / qmax`` may differ from it by one f32 ULP, and the 1-bit mean's
 summation order differs everywhere, hence rtol 1e-6 there).
 
-Card half (marked ``gpu``, skipped without CUDA): each hand-written CUDA
-kernel against the plain version on the same CUDA inputs.
+K5's plain version is held against the JAX oracle and the Pallas kernel
+in interpret mode (``block_q = block_k = 64``) over ``test_kernels.py``'s
+sweep: f32 at 2e-5, bf16 at 2e-2 (bf16 inputs are rounded from the same
+f32 numbers on both sides).
+
+The card half — each hand-written CUDA kernel against its plain version
+on the same CUDA inputs — is ``tests/test_torch_gpu.py``, which imports no
+JAX so that it runs on a machine with a card.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -22,7 +29,6 @@ from repro.kernels.quantize import ROWS
 from repro_torch.kernels import comm as tcomm
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import quantize as tqz
-from repro_torch.kernels import ref as tref
 
 SHAPES = [(1000, 37), (256,), (3 * 256 + 100,), (8, 8, 8)]
 BUFS = [(1, 8 * 256), (3, 16 * 256), (5, 8 * 256 + 300)]
@@ -162,52 +168,109 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     assert all(v == 0 for v in tops.launch_counts().values())
 
 
+
 # ---------------------------------------------------------------------------
-# on the card: each CUDA kernel against its plain version
+# K5: flash attention, plain version against the JAX oracle and kernel
 # ---------------------------------------------------------------------------
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the wire kernels build with nvcc "
-                    "for sm_90a)")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.device("cuda")
+def _qkv(B, Sq, Sk, H, KV, hd, hd_v=None, seed=7):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, Sq, H, hd)).astype(np.float32),
+            rng.standard_normal((B, Sk, KV, hd)).astype(np.float32),
+            rng.standard_normal((B, Sk, KV, hd_v or hd)).astype(np.float32))
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("bits", [8, 4, 1])
-@pytest.mark.parametrize("shape", SHAPES)
-def test_gpu_k1_k2_kernels_match_plain(cuda, bits, shape):
-    x = torch.tensor(_x(shape), device=cuda)
-    before = tops.launch_counts()
-    q_k, s_k, shp = tqz.quantize_blockwise_fwd(x, bits=bits)
-    q_p, s_p, _ = tref.quantize_blockwise_ref(x, bits=bits)
-    nb = q_p.shape[0]
-    assert q_k.shape[0] % ROWS == 0
-    assert torch.equal(q_k[:nb], q_p)
-    if bits == 1:
-        torch.testing.assert_close(s_k[:nb], s_p, rtol=1e-6, atol=0)
-    else:
-        assert torch.equal(s_k[:nb], s_p)
-    d_k = tqz.dequantize_blockwise_fwd(q_p, s_p, shp, bits=bits)
-    assert torch.equal(d_k, tref.dequantize_blockwise_ref(q_p, s_p, shp,
-                                                          bits=bits))
-    after = tops.launch_counts()
-    assert after["wire_quantize"] == before["wire_quantize"] + 1
-    assert after["wire_dequantize"] == before["wire_dequantize"] + 1
+def _fa_both(q, k, v, dtype, **kw):
+    """(port plain version, JAX oracle, JAX interpret-mode kernel), f32."""
+    jd, td = ((jnp.bfloat16, torch.bfloat16) if dtype == "bf16"
+              else (jnp.float32, torch.float32))
+    jq, jk, jv = (jnp.asarray(a, jd) for a in (q, k, v))
+    got = tops.flash_attention(*(torch.tensor(a).to(td) for a in (q, k, v)),
+                               **kw)
+    assert got.dtype == td
+    want = jref.flash_attention_ref(jq, jk, jv, **kw)
+    pal = jops.flash_attention(jq, jk, jv, impl="interpret", block_q=64,
+                               block_k=64, **kw)
+    return (got.float().numpy(), np.asarray(want, np.float32),
+            np.asarray(pal, np.float32))
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("bits", [8, 4, 1])
-@pytest.mark.parametrize("K,n", BUFS)
-def test_gpu_k3_k4_kernels_match_plain(cuda, bits, K, n):
-    buf = torch.tensor(_x((K, n), seed=2, scale=3.0), device=cuda)
-    res = torch.tensor(_x((K, n), seed=4, scale=0.1), device=cuda)
-    torch.testing.assert_close(tcomm.quant_avg_dequant_fwd(buf, bits=bits),
-                               tref.quant_avg_dequant_ref(buf, bits=bits),
-                               **_tol(bits))
-    m_k, e_k = tcomm.quant_avg_dequant_ef_fwd(buf, res.clone(), bits=bits)
-    m_p, e_p = tref.quant_avg_dequant_ef_ref(buf, res.clone(), bits=bits)
-    torch.testing.assert_close(m_k, m_p, **_tol(bits))
-    torch.testing.assert_close(e_k, e_p, **_tol(bits))
-    torch.cuda.synchronize()
+@pytest.mark.parametrize("B,S,H,KV,hd", [
+    (1, 128, 4, 4, 32),      # MHA
+    (2, 256, 8, 2, 64),      # GQA
+    (1, 128, 4, 1, 32),      # MQA
+    (2, 512, 4, 2, 128),     # longer, full head size
+])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_k5_flash_attention_plain_matches_jax(B, S, H, KV, hd, dtype):
+    got, want, pal = _fa_both(*_qkv(B, S, S, H, KV, hd), dtype,
+                              n_kv_heads=KV)
+    tol = 2e-2 if dtype == "bf16" else 2e-5
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+    np.testing.assert_allclose(got, pal, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("window", [32, 128])
+def test_k5_sliding_window_plain_matches_jax(window):
+    got, want, pal = _fa_both(*_qkv(1, 256, 256, 4, 2, 32), "f32",
+                              n_kv_heads=2, window=window)
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got, pal, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("window", [0, 48])
+def test_k5_fewer_queries_than_keys_plain_matches_jax(window):
+    """Sq < Sk: query row i sits at key position i + (Sk - Sq); hd_v
+    differs from hd and the scale is given explicitly."""
+    got, want, pal = _fa_both(*_qkv(2, 64, 192, 4, 2, 32, hd_v=16), "f32",
+                              n_kv_heads=2, window=window,
+                              softmax_scale=0.3)
+    assert got.shape == (2, 64, 4, 16)
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got, pal, rtol=2e-5, atol=2e-5)
+
+
+def test_k5_wrapper_refuses_cpu_tensors_and_grad():
+    """No fallback: K5's wrapper takes CUDA tensors only, and it is
+    forward only — inputs that require grad raise while grad is on."""
+    from repro_torch.kernels import flash_attention as tfa
+    q, k, v = (torch.tensor(a) for a in _qkv(1, 16, 16, 4, 2, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention_fwd(q, k, v, n_kv_heads=2)
+    qg = q.clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="forward only"):
+        tfa.flash_attention_fwd(qg, k, v, n_kv_heads=2)
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention_fwd(qg, k, v, n_kv_heads=2)
+    # the dispatcher sends CPU tensors to the plain version, never K5
+    out = tops.flash_attention(q, k, v, n_kv_heads=2)
+    assert out.shape == (1, 16, 4, 8)
+    with pytest.raises(ValueError, match="one device"):
+        tops.flash_attention(q, k.to("meta"), v, n_kv_heads=2)
+    assert tops.launch_counts()["flash_attention"] == 0
+
+
+def test_build_tables_are_per_library(monkeypatch, tmp_path):
+    """Each library gets its own entry points and flags: the wire kernels
+    keep -fmad=false, flash attention does not, and the flags are part of
+    the library's path."""
+    from repro_torch.kernels import _build
+    assert set(_build.API) == set(_build.NVCC_FLAGS) == {"wire",
+                                                         "flash_attention"}
+    assert "-fmad=false" in _build.NVCC_FLAGS["wire"]
+    assert "-fmad=false" not in _build.NVCC_FLAGS["flash_attention"]
+    assert set(_build.API["flash_attention"]) == {"flash_attention_fwd"}
+    path = _build.lib_path("flash_attention")
+    assert path.name == "libflash_attention.so"
+    monkeypatch.setitem(_build.NVCC_FLAGS, "flash_attention",
+                        _build.NVCC_FLAGS["flash_attention"] + ("-G",))
+    assert _build.lib_path("flash_attention") != path
+
+    class FakeLib:       # holds only the flash entry point, like the .so
+        def __init__(self):
+            self.flash_attention_fwd = type("Fn", (), {})()
+
+    monkeypatch.setattr(_build, "build", lambda name: tmp_path / name)
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: FakeLib())
+    monkeypatch.setattr(_build, "_LOADED", {})
+    lib = _build.load("flash_attention")
+    assert len(lib.flash_attention_fwd.argtypes) == 15

@@ -3,7 +3,11 @@
 Parameters are JAX-initialised and carried across with
 ``repro_torch.checkpoint.io.params_from_numpy``; inputs come from numpy
 with a fixed seed. Forward values, the loss and every gradient leaf agree
-at <= 1e-5 (f32 on both sides; sums run in other orders).
+at <= 1e-5 (f32 on both sides; sums run in other orders). The serving
+half — ``prefill`` through either attention path and the KV-cache
+``decode_step`` (full cache and sliding-window ring buffer) — agrees with
+the JAX package's at 1e-5 as well, against ``prefill(impl="pallas")``
+(the Pallas kernel in interpret mode on the CPU).
 """
 import jax
 import jax.numpy as jnp
@@ -137,3 +141,74 @@ def test_npz_checkpoint_crosses_packages(tmp_path):
     np.testing.assert_array_equal(src["embed"]["table"], before)
     back32 = tio.params_to_numpy(t32)
     np.testing.assert_array_equal(back32["embed"]["table"], before + 1.0)
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill and the KV-cache decode
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("impl", ["kernel", "ref"])
+def test_prefill_matches_jax_pallas(impl):
+    """Last-position logits of a 2-layer GQA LM (H=8, KV=4)."""
+    cfg = _cfg()
+    jp = jtr.init_params(jax.random.PRNGKey(0), cfg, jnp.float32)
+    x, _ = _tokens(cfg, B=2, S=32)
+    want = jtr.prefill(jp, cfg, {"tokens": jnp.asarray(x)}, impl="pallas")
+    tp = tio.params_from_numpy(_np(jp), "cpu")
+    got = ttr.prefill(tp, cfg, {"tokens": torch.tensor(x)}, impl=impl)
+    assert tuple(got.shape) == (2, cfg.vocab_size)
+    _close(got, want)
+
+
+def test_forward_impls_agree_and_hidden_is_returned():
+    cfg = _cfg()
+    tp = tio.params_from_numpy(
+        _np(jtr.init_params(jax.random.PRNGKey(1), cfg, jnp.float32)), "cpu")
+    x, _ = _tokens(cfg, B=2, S=16)
+    batch = {"tokens": torch.tensor(x)}
+    lr, _ = ttr.forward(tp, cfg, batch, impl="ref")
+    lk, _, h = ttr.forward(tp, cfg, batch, impl="kernel",
+                           return_hidden=True)
+    torch.testing.assert_close(lk, lr, **TOL)
+    assert h.shape == (2, 16, cfg.d_model)
+    none, _ = ttr.forward(tp, cfg, batch, apply_head=False)
+    assert none is None
+    with pytest.raises(ValueError, match="impl"):
+        ttr.forward(tp, cfg, batch, impl="pallas")
+
+
+@pytest.mark.parametrize("window", [0, 8])
+def test_decode_step_matches_jax(window):
+    """A 6-token prompt then 8 greedy tokens, token by token; window 8
+    wraps the ring buffer (S = 8 slots for 14 positions). Logits every
+    step and the whole cache at the end agree at 1e-5."""
+    cfg = _cfg().with_(window=window)
+    jp = jtr.init_params(jax.random.PRNGKey(2), cfg, jnp.float32)
+    tp = tio.params_from_numpy(_np(jp), "cpu")
+    prompt, _ = _tokens(cfg, B=2, S=6, seed=3)
+    jc = jtr.init_cache(cfg, 2, 16, jnp.float32)
+    tc = ttr.init_cache(cfg, 2, 16, torch.float32, device="cpu")
+    assert [tuple(t.shape) for t in leaves(tc)] == \
+        [tuple(t.shape) for t in jax.tree.leaves(jc)]
+    jtok, ttok = jnp.asarray(prompt[:, :1]), torch.tensor(prompt[:, :1])
+    for pos in range(14):
+        jl, jc = jtr.decode_step(jp, cfg, jc, jtok, jnp.int32(pos))
+        tl, tc2 = ttr.decode_step(tp, cfg, tc, ttok, torch.tensor(pos))
+        assert tc2 is tc                      # updated in place
+        _close(tl, jl)
+        if pos + 1 < prompt.shape[1]:
+            jtok = jnp.asarray(prompt[:, pos + 1:pos + 2])
+            ttok = torch.tensor(prompt[:, pos + 1:pos + 2])
+        else:
+            jtok = jnp.argmax(jl, -1).astype(jnp.int32)
+            ttok = torch.argmax(tl, -1)
+            np.testing.assert_array_equal(ttok.numpy(), np.asarray(jtok))
+    for t, j in zip(leaves(tc), jax.tree.leaves(jc)):
+        _close(t, j)
+
+
+def test_decode_of_unported_mixers_raises():
+    cfg = _cfg()
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        ttr.layer_cache_init("mamba:dense", cfg, 1, 8, torch.float32, "cpu")
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        ttr.layer_decode({}, "mlstm:-", None, cfg, {}, torch.tensor(0))
