@@ -8,11 +8,12 @@ Phases:
   1. device: name, capability (must be 9.0), power limit, versions;
   2. build the kernels from ``src/repro_torch/kernels/csrc`` (one nvcc per
      source, all started together);
-  3. each kernel (K1-K5) against its plain PyTorch version on the card at
-     small odd shapes and at the main path's shapes, timed with CUDA
-     events (median of >= 10 runs after warm-up) beside the plain version,
-     the bound and, for K5, ``F.scaled_dot_product_attention`` (the
-     library yardstick, which the port never calls);
+  3. each kernel (K1-K5, K7) against its plain PyTorch version on the card
+     at small odd shapes and at the main path's shapes, timed with CUDA
+     events (median of >= 10 runs after warm-up; the plain mLSTM loop of
+     2048 steps, >= 3) beside the plain version, the bound and, for K5,
+     ``F.scaled_dot_product_attention`` (the library yardstick, which the
+     port never calls; no PyTorch call computes K7's recurrence);
   4. a small Algorithm 1 run (smoke config, K=3, 2 rounds, fused codec) on
      the card against the same run on the CPU;
   5. the main path at internlm2-1.8b's full width (depth cut to 16 of 24
@@ -22,13 +23,25 @@ Phases:
      after; each must show its kernels launched;
   6. serving at internlm2-1.8b's full width and all 24 layers, f32:
      (a) ``make_prefill_step(cfg, impl="kernel")`` over 8 x 2048-token
-     prompts, K5 launched once per layer per prefill; (b) ``ServeLoop``,
-     batch 8, a 128-token prompt, 64 new tokens, max_seq 256, its decode
-     loop under ``torch.cuda.set_sync_debug_mode("error")``; (c) a second
-     model published to a ``ModelBank`` and polled in, whose tokens must
-     equal an eager ``decode_step`` loop of that model; (d) the loop's
-     last-prompt logits against ``prefill(impl="kernel")`` at 1e-4. The
-     counters are zeroed just before (a) and read after (d).
+     prompts, twice, K5 launched once per layer per prefill; (b)
+     ``ServeLoop``, batch 8, a 128-token prompt, 64 new tokens, max_seq
+     256, its decode loop under ``torch.cuda.set_sync_debug_mode("error")``;
+     (c) a second model published to a ``ModelBank`` and polled in, whose
+     tokens must equal an eager ``decode_step`` loop of that model; (d) the
+     loop's token-by-token prefill against the kernel prefill at 1e-4:
+     every layer on the loop's own inputs to it, and the last-prompt
+     logits against ``prefill(impl="kernel")``. The counters are zeroed
+     just before (a) and read after (d);
+  7. serving xlstm-1.3b at full width and all 48 layers (42 mLSTM, 6
+     sLSTM), f32: (a) two prefills of 8 x 2048 tokens through
+     ``make_prefill_step(cfg, impl="kernel")``, K7 launched 42 times in
+     each, the second with synchronised spans around the mLSTM and sLSTM
+     layers and K7; (b)-(d) as in phase 6, at 2e-4 (the JAX suite's
+     tolerance for K7), except that (d) holds only every layer to it: the
+     random 48-layer model's last-prompt logits differ by far more between
+     any two f32 orderings of the same model (the loop, the K7 prefill,
+     ``prefill(impl="ref")``), so those distances are recorded side by
+     side. The counters are zeroed just before (a) and read after (d).
 Before the last line come the ``kernels`` JSON and the card's name and
 power limit as ``nvidia-smi`` gives them; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
@@ -37,6 +50,7 @@ A record of every phase goes to ``build/chip_smoke.json``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -57,6 +71,7 @@ TOL8 = {"rtol": 1e-7, "atol": 1e-6}
 TOL41 = {"rtol": 2e-6, "atol": 2e-6}
 WIRE_SRC = "src/repro_torch/kernels/csrc/wire.cu"
 FLASH_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
+MLSTM_SRC = "src/repro_torch/kernels/csrc/mlstm.cu"
 # name in ops.KERNELS: (tag, TPU kernel it replaces, source)
 KERNEL_META = {
     "wire_quantize": ("K1", "repro/kernels/quantize.py:99", WIRE_SRC),
@@ -66,6 +81,7 @@ KERNEL_META = {
                                   WIRE_SRC),
     "flash_attention": ("K5", "repro/kernels/flash_attention.py:66",
                         FLASH_SRC),
+    "mlstm": ("K7", "repro/kernels/mlstm.py:61", MLSTM_SRC),
 }
 # K5 against its plain version: the JAX suite's tolerances
 # (tests/test_kernels.py: f32 2e-5, bf16 2e-2)
@@ -79,6 +95,18 @@ FA_SMALL = [(1, 128, 128, 4, 4, 32, 32, 0), (2, 256, 256, 8, 2, 64, 64, 0),
             (2, 150, 300, 6, 3, 16, 16, 100), (1, 1, 70, 2, 1, 128, 128, 0)]
 # K5 at the serving path's shape: internlm2-1.8b's heads, 8 x 2048 tokens
 FA_PATH = (8, 2048, 2048, 16, 8, 128, 128, 0)
+# K7 against its plain version: the JAX suite's tolerance
+# (tests/test_kernels.py). (B, S, H, hd): one step, odd lengths, the JAX
+# sweep's shapes and xlstm-1.3b's head size
+ML_TOL = {"rtol": 2e-4, "atol": 2e-4}
+ML_SMALL = [(2, 1, 3, 64), (2, 37, 3, 128), (2, 300, 3, 1024),
+            (1, 64, 2, 32), (2, 128, 4, 64)]
+# gate regimes: (ig shift, fg shift, q and k drawn >= 0); see
+# tests/test_torch_gpu.py mlstm_inputs for why "positive" draws q, k >= 0
+ML_GATES = {"standard": (0.0, 2.0, False), "negative": (-8.0, -8.0, False),
+            "positive": (8.0, 8.0, True)}
+# K7 at the serving path's shape: xlstm-1.3b's heads, 8 x 2048 tokens
+ML_PATH = (8, 2048, 4, 1024)
 # depth of the full-width model: 16 of internlm2-1.8b's 24 layers. The
 # wire step at K=5 holds 12 model copies (5 stacked, the 5-row flat
 # buffer, the mean, prev_avg): 12 x 5.54 GB = 66.5 GB of the card's 80.
@@ -314,6 +342,80 @@ def phase_flash_full(torch, dev, errs, name, bw):
            "tflops": flops / ms / 1e9, "library_max_abs_diff": lib_err}
     say("kernels-full", kernel="flash_attention", **out, max_abs_err=err)
     del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ml_inputs(torch, dev, g, shape, gates, dtype):
+    """q, k, v in ``dtype``, f32 gates N(shift, 1) (``ML_GATES``)."""
+    B, S, H, hd = shape
+    ish, fsh, nonneg = ML_GATES[gates]
+    q, k, v = (torch.randn((B, S, H, hd), generator=g, device=dev)
+               for _ in range(3))
+    if nonneg:
+        q, k = q.abs_(), k.abs_()
+    ig = torch.randn((B, S, H), generator=g, device=dev) + ish
+    fg = torch.randn((B, S, H), generator=g, device=dev) + fsh
+    return q.to(dtype), k.to(dtype), v.to(dtype), ig, fg
+
+
+def phase_mlstm_small(torch, dev, errs):
+    """K7 at small odd shapes, f32 and bf16 q/k/v, f32 and bf16 gates, in
+    three gate regimes, against its plain version at 2e-4. The kernels
+    line carries the f32 error (the serving path's dtype)."""
+    from repro_torch.kernels import mlstm as ml, ref
+    g = torch.Generator(device=dev).manual_seed(6)
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        for shape in ML_SMALL:
+            for gates in ML_GATES:
+                q, k, v, ig, fg = _ml_inputs(torch, dev, g, shape, gates,
+                                             dtype)
+                for gdt in (torch.float32, torch.bfloat16):
+                    a, b = ig.to(gdt), fg.to(gdt)
+                    got = ml.mlstm_fwd(q, k, v, a, b)
+                    check(got.dtype == torch.float32
+                          and got.shape == tuple(shape),
+                          f"K7 output {got.dtype} {tuple(got.shape)} at "
+                          f"{shape}")
+                    want, _ = ref.mlstm_ref(q, k, v, a, b)
+                    err = _close(torch, got, want, ML_TOL,
+                                 f"K7 {shape} {gates} {dname}")
+                    worst[dname] = max(worst.get(dname, 0.0), err)
+    torch.cuda.synchronize()
+    errs["mlstm"] = max(errs["mlstm"], worst["float32"])
+    say("kernels-small", kernel="mlstm", shapes=ML_SMALL,
+        gates=list(ML_GATES), max_abs_err=worst, tol=ML_TOL)
+
+
+def phase_mlstm_full(torch, dev, errs, name, bw):
+    """K7 at the serving path's shape, f32, standard gates: against the
+    plain version, timed beside it. No PyTorch call computes the
+    recurrence, so there is no library time."""
+    from repro_torch.kernels import mlstm as ml, ref
+    B, S, H, hd = ML_PATH
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k, v, ig, fg = _ml_inputs(torch, dev, g, ML_PATH, "standard",
+                                 torch.float32)
+    want, _ = ref.mlstm_ref(q, k, v, ig, fg)
+    got = ml.mlstm_fwd(q, k, v, ig, fg)
+    err = _close(torch, got, want, ML_TOL, f"K7 at {ML_PATH}")
+    del want, got
+    ms = cuda_ms(torch, lambda: ml.mlstm_fwd(q, k, v, ig, fg))
+    plain = cuda_ms(torch, lambda: ref.mlstm_ref(q, k, v, ig, fg), reps=3,
+                    warmup=1)
+    flops = 5 * hd * hd * B * H * S
+    nbytes = 4 * (4 * B * S * H * hd + 2 * B * S * H)
+    t_ops, t_bytes = 1e3 * flops / f32_peak(name), 1e3 * nbytes / bw
+    errs["mlstm"] = max(errs["mlstm"], err)
+    out = {"shape": list(ML_PATH), "dtype": "float32", "ms": ms,
+           "plain_ms": plain, "library_ms": None, "flops": flops,
+           "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "tflops": flops / ms / 1e9}
+    say("kernels-full", kernel="mlstm", **out, max_abs_err=err)
+    del q, k, v, ig, fg
     torch.cuda.empty_cache()
     return out
 
@@ -575,48 +677,117 @@ def phase_main(torch, dev, label, codec, K, rounds, launches_out):
 
 
 # ---------------------------------------------------------------------------
-def phase_serving(torch, dev, launches_out):
-    """Phase 6: prefill through K5, the ServeLoop, a hot swap from a
-    ModelBank, at full width and all 24 layers."""
-    from repro_torch.configs import get_config
+@contextlib.contextmanager
+def synced_spans(torch, targets):
+    """Replace each ``(module, attribute, name)`` function by one that
+    synchronises around the call and adds its host seconds to
+    ``spans[name]``; restore them on exit."""
+    spans = {name: 0.0 for _, _, name in targets}
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in targets]
+    for (mod, attr, name), (_, _, fn) in zip(targets, saved):
+        def timed(*a, _fn=fn, _name=name, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*a, **kw)
+            torch.cuda.synchronize()
+            spans[_name] += time.perf_counter() - t0
+            return out
+        setattr(mod, attr, timed)
+    try:
+        yield spans
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def _prefills(torch, cfg, params, tokens, kernel, per_prefill, tag,
+              span_targets=()):
+    """(a) of the serving phases: two prefills through
+    ``make_prefill_step(cfg, impl="kernel")``, ``kernel`` launched
+    ``per_prefill`` times in each; the first warms up, the second runs
+    inside ``synced_spans(span_targets)``. Returns (seconds, spans)."""
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import make_prefill_step
+    step = make_prefill_step(cfg, impl="kernel")
+    seconds = []
+    for i in range(2):
+        before = ops.launch_counts()[kernel]
+        with synced_spans(torch, span_targets if i else ()) as spans:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = step(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        n = ops.launch_counts()[kernel] - before
+        check(n == per_prefill, f"{tag}a: {kernel} launched {n} times in "
+                                f"one prefill, not {per_prefill}")
+        check(logits.shape == (tokens.shape[0], cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()),
+              f"{tag}a: prefill logits not finite or misshapen")
+    return seconds, dict(spans)
+
+
+@contextlib.contextmanager
+def recorded_layer_decodes(tr):
+    """Record ``(input, output)`` of every ``transformer.layer_decode``
+    call, in call order."""
+    calls, fn = [], tr.layer_decode
+
+    def recorded(p, kind, x, *a):
+        y, cache = fn(p, kind, x, *a)
+        calls.append((x, y))
+        return y, cache
+    tr.layer_decode = recorded
+    try:
+        yield calls
+    finally:
+        tr.layer_decode = fn
+
+
+def _layers(cfg, params):
+    """(layer params, kind) of every layer, in the order ``forward`` runs
+    them."""
+    from repro_torch.tree import tree_map
+    for seg, (pattern, repeats) in zip(params["segments"], cfg.segments):
+        for r in range(repeats):
+            for j, kind in enumerate(pattern):
+                yield tree_map(lambda t, _r=r: t[_r], seg[f"p{j}"]), kind
+
+
+def _per_layer(torch, cfg, params, calls, P, tol, tag):
+    """Each layer of the loop's token-by-token prefill against
+    ``layer_apply(impl="kernel")`` of that layer on the loop's own inputs
+    to it (all P positions at once), at ``tol``. Returns the max error."""
+    from repro_torch.models import transformer as tr
+    L = cfg.n_layers
+    check(len(calls) == P * L, f"{tag}d: {len(calls)} layer decodes for "
+                               f"{P} tokens x {L} layers")
+    worst = 0.0
+    for i, (p, kind) in enumerate(_layers(cfg, params)):
+        x = torch.cat([calls[t * L + i][0] for t in range(P)], dim=1)
+        y = torch.cat([calls[t * L + i][1] for t in range(P)], dim=1)
+        pos = torch.arange(P, dtype=torch.int32, device=x.device)
+        want = tr.layer_apply(p, kind, x, cfg, pos.expand(x.shape[0], P),
+                              "kernel")
+        worst = max(worst, _close(torch, y, want, tol,
+                                  f"{tag}d: layer {i} ({kind}) of the loop "
+                                  "vs layer_apply(impl='kernel')"))
+    return worst
+
+
+def _loop_swap(torch, dev, cfg, params, g, tol, tag, end_to_end=True):
+    """(b)-(d) of the serving phases: the ``ServeLoop`` at batch 8 (128 +
+    64 tokens, decode under the sync guard), a second model published to a
+    ``ModelBank`` and polled in, whose tokens must equal an eager
+    ``decode_step`` loop of it, and (d) the loop's token-by-token prefill
+    against the kernel prefill at ``tol``: every layer on the same inputs
+    and, when ``end_to_end``, the last-prompt logits. Otherwise the
+    logits' distance is recorded beside that of ``prefill(impl="ref")``,
+    the spread of two f32 orderings of the same model. Returns the
+    record."""
     from repro_torch.models import transformer as tr
     from repro_torch.serving import ModelBank, ServeLoop
-    cfg = get_config("internlm2-1.8b")
-    g = torch.Generator(device=dev).manual_seed(5)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    params = tr.init_params(0, cfg, torch.float32, device=dev)
-    n_params = tr.count_params(params)
-    B, S = 8, 2048
-    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
-                           device=dev)
-    step = make_prefill_step(cfg, impl="kernel")
-    ops.reset_launch_counts()
-
-    # (a) the full-sequence prefill through K5; the first call warms up
-    prefill_s = []
-    for _ in range(2):
-        before = ops.launch_counts()["flash_attention"]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits = step(params, {"tokens": tokens})
-        torch.cuda.synchronize()
-        prefill_s.append(time.perf_counter() - t0)
-        n = ops.launch_counts()["flash_attention"] - before
-        check(n == cfg.n_layers, f"6a: K5 launched {n} times in one "
-                                 f"prefill, not once per layer "
-                                 f"({cfg.n_layers})")
-        check(logits.shape == (B, cfg.vocab_size)
-              and bool(torch.isfinite(logits).all()),
-              "6a: prefill logits not finite or misshapen")
-    peak_prefill = torch.cuda.max_memory_allocated()
-    del logits, tokens
-    torch.cuda.empty_cache()
-
-    # (b) the serving loop, decode under the sync guard
-    P, new, max_seq = 128, 64, 256
+    B, P, new, max_seq = 8, 128, 64, 256
     prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=g,
                             device=dev)
     loop = ServeLoop(cfg, params, batch=B, max_seq=max_seq, device=dev)
@@ -633,10 +804,11 @@ def phase_serving(torch, dev, launches_out):
     params1 = tr.init_params(1, cfg, torch.float32, device=dev)
     bank = ModelBank()
     bank.publish(params1, round_i=1)
-    check(loop.poll(bank) and loop.version == 1, "6c: poll did not swap")
+    check(loop.poll(bank) and loop.version == 1, f"{tag}c: poll did not "
+                                                 "swap")
     gen1, st1 = loop.generate(prompts, new)
     check(loop.compile_count() == 1 and st1["compile_count"] == 1,
-          "6c: the swap rebuilt the decode step")
+          f"{tag}c: the swap rebuilt the decode step")
     cache = tr.init_cache(cfg, B, max_seq, torch.float32, dev)
     pos = torch.arange(max_seq, dtype=torch.int32, device=dev)
     for t in range(P):
@@ -648,22 +820,76 @@ def phase_serving(torch, dev, launches_out):
         logits, cache = tr.decode_step(params1, cfg, cache, tok, pos[P + i])
         tok = torch.argmax(logits, -1)
     eager = torch.cat(eager, dim=1)
-    check(torch.equal(gen1, eager), "6c: ServeLoop tokens after the swap "
-                                    "differ from an eager decode loop")
-    check(not torch.equal(gen1, gen0), "6c: the swapped model generates "
-                                       "the first model's tokens")
+    check(torch.equal(gen1, eager), f"{tag}c: ServeLoop tokens after the "
+                                    "swap differ from an eager decode loop")
+    check(not torch.equal(gen1, gen0), f"{tag}c: the swapped model "
+                                       "generates the first model's tokens")
     del cache, eager
 
-    # (d) the loop's last-prompt logits against the K5 prefill
-    loop_logits, _ = loop.prefill(prompts)
+    # (d) the loop's token-by-token prefill against the kernel prefill
+    with recorded_layer_decodes(tr) as calls:
+        loop_logits, _ = loop.prefill(prompts)
+    d = {"per_layer_max_abs_err": _per_layer(torch, cfg, params1, calls, P,
+                                             tol, tag)}
+    del calls
     want = tr.prefill(params1, cfg, {"tokens": prompts}, impl="kernel")
-    d_err = _close(torch, loop_logits[:, 0], want,
-                   {"rtol": 1e-4, "atol": 1e-4},
-                   "6d: ServeLoop prefill vs prefill(impl='kernel')")
+    if end_to_end:
+        d["logits_max_abs_err"] = _close(
+            torch, loop_logits[:, 0], want, tol,
+            f"{tag}d: ServeLoop prefill vs prefill(impl='kernel')")
+    else:
+        ref = tr.prefill(params1, cfg, {"tokens": prompts}, impl="ref")
+        d["logits_max_abs_diff"] = {
+            "loop_vs_kernel": float((loop_logits[:, 0] - want).abs().max()),
+            "loop_vs_ref": float((loop_logits[:, 0] - ref).abs().max()),
+            "kernel_vs_ref": float((want - ref).abs().max()),
+            "logits_max_abs": float(want.abs().max())}
+        del ref
+    peak = torch.cuda.max_memory_allocated()
+    builds = loop.compile_count()
+    del params1, loop, bank, want, loop_logits
+    return {"loop": {"prompt_len": P, "new_tokens": new, "max_seq": max_seq,
+                     "prefill_s": [st0["prefill_s"], st1["prefill_s"]],
+                     "decode_s": [st0["decode_s"], st1["decode_s"]],
+                     "decode_tokens_per_s": [st0["tokens_per_s"],
+                                             st1["tokens_per_s"]],
+                     "prompt_tokens_per_s": [B * P / st0["prefill_s"],
+                                             B * P / st1["prefill_s"]],
+                     "peak_mem_GB": peak_loop / 1e9,
+                     "compile_count": builds,
+                     "versions": [st0["version"], st1["version"]]},
+            "swap_tokens_equal_eager": True, "loop_vs_prefill": d,
+            "tol": tol,
+            "peak_mem_GB": peak / 1e9}
+
+
+def phase_serving(torch, dev, launches_out):
+    """Phase 6: prefill through K5, the ServeLoop, a hot swap from a
+    ModelBank, at internlm2-1.8b's full width and all 24 layers."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tr
+    cfg = get_config("internlm2-1.8b")
+    g = torch.Generator(device=dev).manual_seed(5)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = tr.init_params(0, cfg, torch.float32, device=dev)
+    n_params = tr.count_params(params)
+    B, S = 8, 2048
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                           device=dev)
+    ops.reset_launch_counts()
+    prefill_s, _ = _prefills(torch, cfg, params, tokens, "flash_attention",
+                             cfg.n_layers, "6")
+    peak_prefill = torch.cuda.max_memory_allocated()
+    del tokens
+    torch.cuda.empty_cache()
+    rec = _loop_swap(torch, dev, cfg, params, g,
+                     {"rtol": 1e-4, "atol": 1e-4}, "6")
     counts = ops.launch_counts()
-    check(counts["flash_attention"] == 3 * cfg.n_layers,
-          f"6: K5 launched {counts['flash_attention']} times over three "
-          "prefills")
+    check(counts["flash_attention"] == 4 * cfg.n_layers,
+          f"6: K5 launched {counts['flash_attention']} times over four "
+          "prefills (two in (a), one by layer and one whole in (d))")
     for name, n in counts.items():
         launches_out[name] = launches_out.get(name, 0) + n
     say("serving", model=cfg.name, n_layers=cfg.n_layers,
@@ -672,19 +898,64 @@ def phase_serving(torch, dev, launches_out):
                  "tokens_per_s": [B * S / x for x in prefill_s],
                  "k5_launches_per_prefill": cfg.n_layers,
                  "peak_mem_GB": peak_prefill / 1e9},
-        loop={"prompt_len": P, "new_tokens": new, "max_seq": max_seq,
-              "prefill_s": [st0["prefill_s"], st1["prefill_s"]],
-              "decode_s": [st0["decode_s"], st1["decode_s"]],
-              "decode_tokens_per_s": [st0["tokens_per_s"],
-                                      st1["tokens_per_s"]],
-              "prompt_tokens_per_s": [B * P / st0["prefill_s"],
-                                      B * P / st1["prefill_s"]],
-              "peak_mem_GB": peak_loop / 1e9,
-              "compile_count": loop.compile_count(),
-              "versions": [st0["version"], st1["version"]]},
-        swap_tokens_equal_eager=True, loop_vs_prefill_max_abs_err=d_err,
-        launches=counts, peak_mem_GB=torch.cuda.max_memory_allocated() / 1e9)
-    del params, params1, loop, bank, want, loop_logits
+        launches=counts, **rec)
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_xlstm_serving(torch, dev, launches_out, k7_ms, bw):
+    """Phase 7: xlstm-1.3b at full width and all 48 layers: prefill through
+    K7 (with the time split between mLSTM layers, K7 and sLSTM layers),
+    the ServeLoop over the recurrent state, a hot swap."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tr, xlstm as xl
+    cfg = get_config("xlstm-1.3b")
+    n_mlstm = sum(kind.startswith("mlstm") for kind in cfg.layer_kinds())
+    g = torch.Generator(device=dev).manual_seed(8)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = tr.init_params(0, cfg, torch.float32, device=dev)
+    n_params = tr.count_params(params)
+    B, S = 8, 2048
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                           device=dev)
+    ops.reset_launch_counts()
+    prefill_s, spans = _prefills(
+        torch, cfg, params, tokens, "mlstm", n_mlstm, "7",
+        span_targets=[(xl, "mlstm_apply", "mlstm_layers"),
+                      (ops, "mlstm", "k7"),
+                      (xl, "slstm_apply", "slstm_layers")])
+    peak_prefill = torch.cuda.max_memory_allocated()
+    del tokens
+    torch.cuda.empty_cache()
+    rec = _loop_swap(torch, dev, cfg, params, g, ML_TOL, "7",
+                     end_to_end=False)
+    counts = ops.launch_counts()
+    check(counts["mlstm"] == 4 * n_mlstm,
+          f"7: K7 launched {counts['mlstm']} times over four prefills (two "
+          "in (a), one by layer and one whole in (d))")
+    for name, n in counts.items():
+        launches_out[name] = launches_out.get(name, 0) + n
+    # f32 decode state: C, n, m per mLSTM layer; h, c, n, m per sLSTM layer
+    H, d = cfg.n_heads, cfg.d_model
+    hd = int(cfg.xlstm_proj_factor * d) // H
+    state_bytes = 4 * B * H * (n_mlstm * (hd * hd + hd + 1)
+                               + (cfg.n_layers - n_mlstm) * 4 * (d // H))
+    weight_bytes = 4 * n_params
+    say("xlstm-serving", model=cfg.name, n_layers=cfg.n_layers,
+        mlstm_layers=n_mlstm, params=n_params, dtype="float32", batch=B,
+        prefill={"seq_len": S, "seconds": prefill_s,
+                 "tokens_per_s": [B * S / x for x in prefill_s],
+                 "k7_launches_per_prefill": n_mlstm,
+                 "spans_s_second_prefill": spans,
+                 "k7_share_from_phase3_ms": n_mlstm * k7_ms / 1e3
+                 / prefill_s[0],
+                 "peak_mem_GB": peak_prefill / 1e9},
+        decode_state_GB=state_bytes / 1e9,
+        decode_bound_ms_per_step=1e3 * (weight_bytes + 2 * state_bytes)
+        / bw, launches=counts, **rec)
+    del params
     torch.cuda.empty_cache()
 
 
@@ -717,11 +988,13 @@ def main(argv=None):
     errs = {k: 0.0 for k in KERNEL_META}
     phase_kernels_small(torch, dev, errs)
     phase_flash_small(torch, dev, errs)
+    phase_mlstm_small(torch, dev, errs)
     if args.quick:
         return 0
     bw = mem_bandwidth(name)
     timing = phase_kernels_full(torch, dev, errs, bw)
     timing["flash_attention"] = phase_flash_full(torch, dev, errs, name, bw)
+    timing["mlstm"] = phase_mlstm_full(torch, dev, errs, name, bw)
     phase_small_round(torch, dev)
 
     launches = {}
@@ -741,6 +1014,7 @@ def main(argv=None):
     check(c_c["wire_quantize"] > 0 and c_c["wire_dequantize"] > 0,
           "5c: K1/K2 not launched")
     phase_serving(torch, dev, launches)
+    phase_xlstm_serving(torch, dev, launches, timing["mlstm"]["ms"], bw)
 
     kernels = []
     for kname, (tag, replaces, source) in KERNEL_META.items():

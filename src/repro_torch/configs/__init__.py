@@ -12,6 +12,7 @@ from repro_torch.configs.base import (CoLearnConfig, InputShape,
 
 _MODULES = {
     "internlm2-1.8b": "internlm2_1_8b",
+    "xlstm-1.3b": "xlstm_1_3b",
 }
 
 ARCH_IDS = tuple(_MODULES)

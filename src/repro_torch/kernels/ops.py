@@ -1,9 +1,10 @@
-"""Dispatch for the wire kernels K1-K4 and flash attention K5.
+"""Dispatch for the wire kernels K1-K4, flash attention K5 and mLSTM K7.
 
 There is no ``impl`` knob: a tensor on the CPU goes to the plain version
 (``ref.py``), a CUDA tensor to the hand-written kernel's wrapper
-(``quantize.py`` / ``comm.py`` / ``flash_attention.py``), which launches
-it or raises. Nothing falls back from the kernel to the plain version.
+(``quantize.py`` / ``comm.py`` / ``flash_attention.py`` / ``mlstm.py``),
+which launches it or raises. Nothing falls back from the kernel to the
+plain version.
 
 ``KERNELS`` names each kernel's wrapper; ``launch_counts`` /
 ``reset_launch_counts`` read and zero the per-wrapper launch counters.
@@ -12,6 +13,7 @@ from __future__ import annotations
 
 from repro_torch.kernels import comm as _comm
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import mlstm as _ml
 from repro_torch.kernels import quantize as _qz
 from repro_torch.kernels import ref as _ref
 
@@ -21,6 +23,7 @@ KERNELS = {
     "wire_quant_avg_dequant": _comm.quant_avg_dequant_fwd,       # K3
     "wire_quant_avg_dequant_ef": _comm.quant_avg_dequant_ef_fwd,  # K4
     "flash_attention": _fa.flash_attention_fwd,                  # K5
+    "mlstm": _ml.mlstm_fwd,                                      # K7
 }
 
 
@@ -84,3 +87,13 @@ def flash_attention(q, k, v, *, n_kv_heads, window=0, softmax_scale=None):
     return _ref.flash_attention_ref(q, k, v, n_kv_heads=n_kv_heads,
                                     window=window,
                                     softmax_scale=softmax_scale)
+
+
+def mlstm(q, k, v, ig, fg):
+    """Stabilized mLSTM recurrence from a zero state, forward only.
+    q,k,v: (B,S,H,hd), ig,fg: (B,S,H) raw gates -> (h (B,S,H,hd) f32,
+    None), as the JAX kernel path returns no final state."""
+    if _on_cuda(q, k, v, ig, fg):
+        return _ml.mlstm_fwd(q, k, v, ig, fg), None
+    h, _ = _ref.mlstm_ref(q, k, v, ig, fg)
+    return h, None

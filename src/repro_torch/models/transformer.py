@@ -3,16 +3,18 @@
 A config's ``segments`` is a sequence of (pattern, repeats); each pattern
 entry is "<mixer>:<ffn>". Parameters for each pattern position carry a
 leading ``repeats`` dim, as in the JAX tree, and ``forward`` loops over
-it. The port runs ``gqa:dense`` layers; every other mixer and FFN (MLA,
-Mamba, xLSTM, MoE), the multi-token-prediction head and the prefix input
-mode are still to port (ROADMAP.md).
+it. The port runs ``gqa:dense``, ``mlstm:-`` and ``slstm:-`` layers; the
+other mixers and FFNs (MLA, Mamba, MoE), the multi-token-prediction head
+and the prefix input mode are still to port (ROADMAP.md).
 
 Serving: ``prefill`` is the full-sequence forward with the LM head on the
-last position only (``impl="kernel"`` runs attention through K5);
-``init_cache`` / ``decode_step`` run one token against a KV cache. The
-cache is a list of segments, each ``{"p<j>": {"k", "v"}}`` with a leading
-``repeats`` dim as in the JAX tree, allocated for real (JAX broadcasts one
-layer's zeros) because ``decode_step`` updates it in place.
+last position only (``impl="kernel"`` runs attention through K5 and the
+mLSTM recurrence through K7); ``init_cache`` / ``decode_step`` run one
+token against a per-layer cache: a KV cache for attention, the recurrent
+state for xLSTM. The cache is a list of segments, each ``{"p<j>": ...}``
+with a leading ``repeats`` dim as in the JAX tree, allocated for real
+(JAX broadcasts one layer's zeros) because ``decode_step`` updates it in
+place.
 """
 from __future__ import annotations
 
@@ -20,13 +22,18 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import xlstm as xl
 from repro_torch.models.layers import (dense_init, embed_apply, embed_init,
                                        ffn_apply, ffn_init, lm_head_apply,
                                        rmsnorm_apply, rmsnorm_init,
                                        softmax_xent)
 from repro_torch.tree import leaves, tree_map
 
-PORTED_KINDS = ("gqa:dense",)
+PORTED_KINDS = ("gqa:dense", "mlstm:-", "slstm:-")
+_MIXER_INIT = {"gqa": attn.attn_init, "mlstm": xl.mlstm_init,
+               "slstm": xl.slstm_init}
+_MIXER_DECODE = {"gqa": attn.attn_decode, "mlstm": xl.mlstm_decode,
+                 "slstm": xl.slstm_decode}
 
 
 def _check_supported(cfg):
@@ -45,9 +52,9 @@ def _check_supported(cfg):
 
 
 def layer_init(gen, kind, cfg, dtype, stack=()):
-    _, ffn = kind.split(":")
+    mixer, ffn = kind.split(":")
     p = {"norm1": rmsnorm_init(cfg.d_model, dtype, stack, gen.device)}
-    p["mixer"] = attn.attn_init(gen, cfg, dtype, stack)
+    p["mixer"] = _MIXER_INIT[mixer](gen, cfg, dtype, stack)
     if ffn != "-":
         p["norm2"] = rmsnorm_init(cfg.d_model, dtype, stack, gen.device)
         p["ffn"] = ffn_init(gen, cfg.d_model, cfg.d_ff, dtype, stack)
@@ -62,27 +69,40 @@ def _ffn_residual(p, x, cfg):
 
 
 def layer_apply(p, kind, x, cfg, positions, impl="ref"):
+    mixer = kind.split(":")[0]
     h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
-    y, _ = attn.attn_apply(p["mixer"], h, cfg, positions, impl)
+    if mixer == "gqa":
+        y, _ = attn.attn_apply(p["mixer"], h, cfg, positions, impl)
+    elif mixer == "mlstm":
+        y = xl.mlstm_apply(p["mixer"], h, cfg, impl)
+    else:
+        y = xl.slstm_apply(p["mixer"], h, cfg, impl)
     return _ffn_residual(p, x + y, cfg)
 
 
 def _check_decodable(kind):
-    if kind.split(":")[0] != "gqa":
+    mixer = kind.split(":")[0]
+    if mixer not in _MIXER_DECODE:
         raise NotImplementedError(
             f"decode for layer kind {kind!r} not yet ported, see ROADMAP.md")
+    return mixer
 
 
 def layer_cache_init(kind, cfg, batch, seq_len, dtype, device, stack=()):
-    _check_decodable(kind)
-    return attn.attn_cache_init(cfg, batch, seq_len, dtype, device, stack)
+    mixer = _check_decodable(kind)
+    if mixer == "gqa":
+        return attn.attn_cache_init(cfg, batch, seq_len, dtype, device,
+                                    stack)
+    if mixer == "mlstm":
+        return xl.mlstm_state_init(cfg, batch, dtype, device, stack)
+    return xl.slstm_state_init(cfg, batch, dtype, device, stack)
 
 
 def layer_decode(p, kind, x, cfg, cache, pos):
     """One token through one layer; ``cache`` is updated in place."""
-    _check_decodable(kind)
+    mixer = _check_decodable(kind)
     h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
-    y, cache = attn.attn_decode(p["mixer"], h, cfg, cache, pos)
+    y, cache = _MIXER_DECODE[mixer](p["mixer"], h, cfg, cache, pos)
     return _ffn_residual(p, x + y, cfg), cache
 
 
@@ -152,8 +172,9 @@ def loss_fn(params, cfg, batch, impl="ref"):
 # Serving: prefill and one-token decode
 # ---------------------------------------------------------------------------
 def init_cache(cfg, batch, seq_len, dtype=torch.bfloat16, device=None):
-    """Zero KV caches, one ``(repeats, B, S, KV, hd)`` pair per pattern
-    position of every segment."""
+    """Per pattern position of every segment, with a leading ``repeats``
+    dim: a zero ``(repeats, B, S, KV, hd)`` k/v pair for attention, the
+    f32 recurrent state (``xlstm.*_state_init``) for xLSTM."""
     _check_supported(cfg)
     dev = resolve_device(device)
     return [{f"p{j}": layer_cache_init(kind, cfg, batch, seq_len, dtype,

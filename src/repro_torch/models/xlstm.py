@@ -1,0 +1,225 @@
+"""xLSTM blocks, ported from ``repro/models/xlstm.py``: mLSTM (matrix
+memory) and sLSTM (scalar memory), arXiv:2405.04517.
+
+Both use the stabilized exponential gating of the paper (running max m).
+The plain recurrences ``mlstm_cell_ref`` / ``slstm_cell_ref`` are Python
+loops over time (the JAX ``chunked_scan``'s recomputation only matters
+for a backward pass and is not ported). ``mlstm_apply(impl="kernel")`` —
+the JAX ``impl="pallas"`` — runs the recurrence through
+``kernels.ops.mlstm``: the hand-written K7 kernel for CUDA tensors, the
+plain recurrence on the CPU. The sLSTM recurrence has no kernel in the
+reference either.
+
+Decode: the state of one mLSTM layer is ``{"C", "n", "m"}``, of one sLSTM
+layer ``{"c", "h", "m", "n"}``, all f32. Where JAX returns a new state,
+``mlstm_decode`` / ``slstm_decode`` update the given one IN PLACE: the
+gates are computed from the old ``m`` before anything is overwritten, then
+C and n (c, n, h) are updated, and ``m`` last. ``pos`` is unused, as in
+the reference. The sharding hint of the reference (``constrain``) has no
+counterpart here.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops as kops
+from repro_torch.models.layers import trunc_normal
+
+IMPLS = ("ref", "kernel")
+_F32 = torch.float32
+
+
+def _zeros(shape, device):
+    return torch.zeros(shape, dtype=_F32, device=device)
+
+
+# ---------------------------------------------------------------------------
+# mLSTM
+# ---------------------------------------------------------------------------
+def mlstm_init(gen, cfg, dtype, stack=()):
+    d = cfg.d_model
+    di = int(cfg.xlstm_proj_factor * d)
+    H = cfg.n_heads
+    hd = di // H
+    return {
+        "up": trunc_normal(gen, (*stack, d, 2 * di), d ** -0.5, dtype),
+        "wq": trunc_normal(gen, (*stack, di, H, hd), di ** -0.5, dtype),
+        "wk": trunc_normal(gen, (*stack, di, H, hd), di ** -0.5, dtype),
+        "wv": trunc_normal(gen, (*stack, di, H, hd), di ** -0.5, dtype),
+        "w_if": trunc_normal(gen, (*stack, di, H, 2), di ** -0.5, _F32),
+        "b_if": _zeros((*stack, H, 2), gen.device),
+        "gn_g": torch.ones((*stack, H, hd), dtype=dtype, device=gen.device),
+        "down": trunc_normal(gen, (*stack, di, d), di ** -0.5, dtype),
+    }
+
+
+def mlstm_cell_ref(q, k, v, ig, fg, state=None):
+    """Stabilized mLSTM recurrence, one time step after another.
+
+    q,k,v: (B,S,H,hd); ig,fg: (B,S,H) raw gate pre-activations.
+    state: dict(C:(B,H,hd,hd), n:(B,H,hd), m:(B,H)) f32, updated in place,
+    or None (C = n = 0, m = -inf). Returns (h: (B,S,H,hd) f32, state).
+    """
+    B, S, H, hd = q.shape
+    if state is None:
+        state = {"C": _zeros((B, H, hd, hd), q.device),
+                 "n": _zeros((B, H, hd), q.device),
+                 "m": torch.full((B, H), float("-inf"), dtype=_F32,
+                                 device=q.device)}
+    C, n, m = state["C"], state["n"], state["m"]
+    logf = F.logsigmoid(fg.float())
+    igf = ig.float()
+    qf, kf, vf = (t.float() * (hd ** -0.25) for t in (q, k, v))
+    vf = vf * hd ** 0.25      # only q,k scaled (standard 1/sqrt(hd) split)
+    hs = torch.empty((B, S, H, hd), dtype=_F32, device=q.device)
+    for t in range(S):
+        lf_t, i_t, q_t, k_t = logf[:, t], igf[:, t], qf[:, t], kf[:, t]
+        m_new = torch.maximum(lf_t + m, i_t)
+        i_p = torch.exp(i_t - m_new)
+        f_p = torch.exp(lf_t + m - m_new)
+        vk = vf[:, t, :, :, None] * k_t[:, :, None, :]        # (B,H,hd,hd)
+        C.mul_(f_p[..., None, None]).add_(vk.mul_(i_p[..., None, None]))
+        n.mul_(f_p[..., None]).add_(i_p[..., None] * k_t)
+        m.copy_(m_new)
+        num = torch.matmul(C, q_t[..., None])[..., 0]          # (B,H,hd)
+        den = torch.maximum(torch.abs((n * q_t).sum(-1)), torch.exp(-m_new))
+        hs[:, t] = num / den[..., None]
+    return hs, state
+
+
+def _mlstm_qkvg(p, x, cfg):
+    xz = x @ p["up"]
+    xm, z = torch.chunk(xz, 2, dim=-1)
+    q = torch.einsum("bsd,dhk->bshk", xm, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", xm, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", xm, p["wv"])
+    g = torch.einsum("bsd,dhg->bshg", xm.float(), p["w_if"]) + p["b_if"]
+    return q, k, v, g[..., 0], g[..., 1], z
+
+
+def _mlstm_out(p, h, z, x_dtype, eps):
+    hf = h.float()
+    var = torch.mean(hf * hf, dim=-1, keepdim=True)        # per-head groupnorm
+    hn = (hf * torch.rsqrt(var + eps)) * p["gn_g"].float()
+    hn = hn.reshape(*h.shape[:-2], -1)
+    y = hn * F.silu(z.float())
+    return y.to(x_dtype) @ p["down"]
+
+
+def mlstm_apply(p, x, cfg, impl="ref"):
+    """x: (B,S,D) -> (B,S,D). ``impl="kernel"`` runs the recurrence
+    through ``kernels.ops.mlstm`` (K7 on the card), ``"ref"`` through
+    ``mlstm_cell_ref``."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}; got {impl!r}")
+    q, k, v, ig, fg, z = _mlstm_qkvg(p, x, cfg)
+    if impl == "kernel":
+        h, _ = kops.mlstm(*(t.contiguous() for t in (q, k, v, ig, fg)))
+    else:
+        h, _ = mlstm_cell_ref(q, k, v, ig, fg)
+    return _mlstm_out(p, h, z, x.dtype, cfg.norm_eps)
+
+
+def mlstm_state_init(cfg, batch, dtype, device, stack=()):
+    """C = n = 0 and m = -1e30 (as the reference and the TPU kernel start),
+    with a leading ``stack`` dim. The state is f32 whatever ``dtype``, as
+    in the reference."""
+    di = int(cfg.xlstm_proj_factor * cfg.d_model)
+    H, hd = cfg.n_heads, di // cfg.n_heads
+    return {"C": _zeros((*stack, batch, H, hd, hd), device),
+            "n": _zeros((*stack, batch, H, hd), device),
+            "m": torch.full((*stack, batch, H), -1e30, dtype=_F32,
+                            device=device)}
+
+
+def mlstm_decode(p, x, cfg, state, pos):
+    """x: (B,1,D); ``state`` is updated in place. Returns (y, state)."""
+    q, k, v, ig, fg, z = _mlstm_qkvg(p, x, cfg)
+    h, state = mlstm_cell_ref(q, k, v, ig, fg, state)
+    return _mlstm_out(p, h, z, x.dtype, cfg.norm_eps), state
+
+
+# ---------------------------------------------------------------------------
+# sLSTM
+# ---------------------------------------------------------------------------
+def slstm_init(gen, cfg, dtype, stack=()):
+    d = cfg.d_model
+    H = cfg.n_heads
+    hd = d // H
+    f = int(cfg.slstm_proj_factor * d)
+    return {
+        "w_in": trunc_normal(gen, (*stack, d, H, 4 * hd), d ** -0.5, dtype),
+        # block-diagonal hidden-to-hidden recurrence, per head
+        "r": trunc_normal(gen, (*stack, H, hd, 4 * hd), hd ** -0.5, _F32),
+        "b": _zeros((*stack, H, 4 * hd), gen.device),
+        "gn_g": torch.ones((*stack, H, hd), dtype=dtype, device=gen.device),
+        "up1": trunc_normal(gen, (*stack, d, f), d ** -0.5, dtype),
+        "up2": trunc_normal(gen, (*stack, d, f), d ** -0.5, dtype),
+        "down": trunc_normal(gen, (*stack, f, d), f ** -0.5, dtype),
+    }
+
+
+def slstm_cell_ref(wx, r, b, state):
+    """wx: (B,S,H,4*hd) input contributions; recurrence per head.
+
+    state: dict(h,c,n,m: (B,H,hd)) f32, updated in place. Returns
+    (h_seq (B,S,H,hd) f32, state)."""
+    h, c, n, m = state["h"], state["c"], state["n"], state["m"]
+    wxf = wx.float()
+    hs = torch.empty((*wx.shape[:3], r.shape[-2]), dtype=_F32,
+                     device=wx.device)
+    for t in range(wx.shape[1]):
+        pre = wxf[:, t] + torch.einsum("bhk,hkg->bhg", h, r) + b   # (B,H,4hd)
+        zt, it, ft, ot = torch.chunk(pre, 4, dim=-1)
+        zt = torch.tanh(zt)
+        ot = torch.sigmoid(ot)
+        lf = F.logsigmoid(ft)
+        m_new = torch.maximum(lf + m, it)
+        i_p = torch.exp(it - m_new)
+        f_p = torch.exp(lf + m - m_new)
+        c.mul_(f_p).add_(i_p * zt)
+        n.mul_(f_p).add_(i_p)
+        m.copy_(m_new)
+        h.copy_(ot * c / torch.clamp(n, min=1e-6))
+        hs[:, t] = h
+    return hs, state
+
+
+def slstm_state_init(cfg, batch, dtype, device, stack=()):
+    """h = c = n = 0 (three tensors: each is updated in place) and
+    m = -1e30; f32 whatever ``dtype``, as in the reference."""
+    shp = (*stack, batch, cfg.n_heads, cfg.d_model // cfg.n_heads)
+    return {"h": _zeros(shp, device), "c": _zeros(shp, device),
+            "n": _zeros(shp, device),
+            "m": torch.full(shp, -1e30, dtype=_F32, device=device)}
+
+
+def _slstm_out(p, h, x, cfg):
+    hf = h.float()
+    var = torch.mean(hf * hf, dim=-1, keepdim=True)
+    hn = (hf * torch.rsqrt(var + cfg.norm_eps)) * p["gn_g"].float()
+    hn = hn.reshape(*h.shape[:-2], -1).to(x.dtype)
+    a = hn @ p["up1"]
+    g = hn @ p["up2"]
+    # jax.nn.gelu is the tanh approximation by default
+    a = a * F.gelu(g.float(), approximate="tanh").to(x.dtype)
+    return a @ p["down"]
+
+
+def slstm_apply(p, x, cfg, impl="ref"):
+    """x: (B,S,D) -> (B,S,D); ``impl`` is accepted for the layer dispatch
+    and changes nothing (the sLSTM recurrence has no kernel)."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}; got {impl!r}")
+    wx = torch.einsum("bsd,dhg->bshg", x, p["w_in"])
+    st = slstm_state_init(cfg, x.shape[0], x.dtype, x.device)
+    h, _ = slstm_cell_ref(wx, p["r"], p["b"], st)
+    return _slstm_out(p, h, x, cfg)
+
+
+def slstm_decode(p, x, cfg, state, pos):
+    """x: (B,1,D); ``state`` is updated in place. Returns (y, state)."""
+    wx = torch.einsum("bsd,dhg->bshg", x, p["w_in"])
+    h, state = slstm_cell_ref(wx, p["r"], p["b"], state)
+    return _slstm_out(p, h, x, cfg), state

@@ -1,4 +1,4 @@
-"""ServeLoop: batched KV-cache decode with between-round hot-swap.
+"""ServeLoop: batched cached decode with between-round hot-swap.
 
 Ported from ``repro/serving/loop.py``. One ``ServeLoop`` owns ONE decode
 step, built once in ``__init__`` for a fixed config, batch and cache
@@ -10,11 +10,14 @@ life, and a swap never adds one (it only accepts params with the same tree
 structure, leaf shapes, dtypes and device). Capturing the step as a CUDA
 graph is later work (ROADMAP.md).
 
-Prefill goes token by token through the same step, as in the JAX loop.
-Positions are 0-d slices of one device tensor made in ``__init__``, and the
-next token is an argmax on the device, so nothing on the decode loop waits
-for the host; ``generate`` synchronises once, at its end, for its timing
-(where JAX calls ``block_until_ready``).
+The cache is ``transformer.init_cache``'s: a KV cache for attention
+layers, the recurrent state for xLSTM layers, made anew for each prompt
+batch and updated in place by the step. Prefill goes token by token
+through the same step, as in the JAX loop. Positions are 0-d slices of
+one device tensor made in ``__init__``, and the next token is an argmax on
+the device, so nothing on the decode loop waits for the host;
+``generate`` synchronises once, at its end, for its timing (where JAX
+calls ``block_until_ready``).
 """
 from __future__ import annotations
 
@@ -35,7 +38,8 @@ def _tree_signature(params):
 
 
 class ServeLoop:
-    """Batched greedy decode against a KV cache, hot-swappable params.
+    """Batched greedy decode against a per-layer cache, hot-swappable
+    params.
 
     ``generate(prompts, new_tokens)`` checks that the prompt and the
     requested continuation fit the cache (``max_seq``) before touching the

@@ -1,4 +1,4 @@
-"""On the card: each hand-written CUDA kernel (K1-K5) against its plain
+"""On the card: each hand-written CUDA kernel (K1-K5, K7) against its plain
 PyTorch version on the same CUDA inputs, at the JAX suite's tolerances
 (tests/test_kernels.py). Every test is marked ``gpu`` and skips without a
 card; the file imports no JAX, so it runs where the card is:
@@ -105,4 +105,55 @@ def test_gpu_k5_matches_plain(cuda, dtype, B, Sq, Sk, H, KV, hd, hd_v,
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
     assert got.dtype == dtype
     assert tfa.flash_attention_fwd.launches == before + 1
+    torch.cuda.synchronize()
+
+
+
+# gate regimes: (ig shift, fg shift, q and k drawn >= 0)
+MLSTM_GATES = {"standard": (0.0, 2.0, False),    # tests/test_kernels.py's
+               "negative": (-8.0, -8.0, False),
+               "positive": (8.0, 8.0, True)}
+
+
+def mlstm_inputs(B, S, H, hd, gates, dev, dtype, seed=0):
+    """q, k, v in ``dtype`` and f32 gates N(shift, 1). With strongly
+    positive input gates exp(-m) no longer bounds the denominator, and
+    |n . q| of random-sign q and k cancels: there f32 results of any
+    summation order differ from the exact ones by more than 2e-4 (up to
+    20x, against a float64 recurrence on the CPU), so that regime draws
+    q, k >= 0 and keeps n . q away from zero."""
+    ish, fsh, nonneg = MLSTM_GATES[gates]
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((B, S, H, hd)) for _ in range(3))
+    if nonneg:
+        q, k = np.abs(q), np.abs(k)
+    ig = rng.standard_normal((B, S, H)) + ish
+    fg = rng.standard_normal((B, S, H)) + fsh
+    return (*(torch.tensor(a, dtype=torch.float32, device=dev).to(dtype)
+              for a in (q, k, v)),
+            *(torch.tensor(a, dtype=torch.float32, device=dev)
+              for a in (ig, fg)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 37, 300])
+@pytest.mark.parametrize("hd", [64, 128, 1024])
+@pytest.mark.parametrize("gates", list(MLSTM_GATES))
+def test_gpu_k7_matches_plain(cuda, dtype, S, hd, gates):
+    """K7 against ``ref.mlstm_ref`` on the same CUDA inputs at 2e-4 (the
+    JAX suite's tolerance for K7), with f32 and bf16 gates. bf16 q/k/v
+    are widened the same way by both, and h is f32."""
+    from repro_torch.kernels import mlstm as tml
+    B, H = 2, 3
+    q, k, v, ig, fg = mlstm_inputs(B, S, H, hd, gates, cuda, dtype)
+    before = tml.mlstm_fwd.launches
+    got = tml.mlstm_fwd(q, k, v, ig, fg)
+    want, _ = tref.mlstm_ref(q, k, v, ig, fg)
+    assert got.dtype == torch.float32 and got.shape == (B, S, H, hd)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    assert tml.mlstm_fwd.launches == before + 1
+    got16 = tml.mlstm_fwd(q, k, v, ig.bfloat16(), fg.bfloat16())
+    want16, _ = tref.mlstm_ref(q, k, v, ig.bfloat16(), fg.bfloat16())
+    torch.testing.assert_close(got16, want16, rtol=2e-4, atol=2e-4)
     torch.cuda.synchronize()

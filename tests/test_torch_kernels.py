@@ -1,5 +1,5 @@
-"""Wire kernels K1-K4 and flash attention K5 of the PyTorch port against
-the JAX package.
+"""Wire kernels K1-K4, flash attention K5 and mLSTM K7 of the PyTorch port
+against the JAX package.
 
 CPU half: the port's plain versions (``repro_torch/kernels/ref.py``) are
 held against the JAX oracles (``repro/kernels/ref.py``, ``impl="ref"``)
@@ -13,6 +13,11 @@ K5's plain version is held against the JAX oracle and the Pallas kernel
 in interpret mode (``block_q = block_k = 64``) over ``test_kernels.py``'s
 sweep: f32 at 2e-5, bf16 at 2e-2 (bf16 inputs are rounded from the same
 f32 numbers on both sides).
+
+K7's plain version (``ref.mlstm_ref``, the model's ``mlstm_cell_ref``) is
+held against the JAX oracle at 1e-5, from the zero state and from a
+carried one, and against the Pallas kernel in interpret mode over
+``test_kernels.py``'s sweep at 2e-4 (the JAX suite's tolerance for K7).
 
 The card half — each hand-written CUDA kernel against its plain version
 on the same CUDA inputs — is ``tests/test_torch_gpu.py``, which imports no
@@ -29,6 +34,7 @@ from repro.kernels.quantize import ROWS
 from repro_torch.kernels import comm as tcomm
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import quantize as tqz
+from repro_torch.kernels import ref as tref
 
 SHAPES = [(1000, 37), (256,), (3 * 256 + 100,), (8, 8, 8)]
 BUFS = [(1, 8 * 256), (3, 16 * 256), (5, 8 * 256 + 300)]
@@ -251,14 +257,17 @@ def test_k5_wrapper_refuses_cpu_tensors_and_grad():
 
 def test_build_tables_are_per_library(monkeypatch, tmp_path):
     """Each library gets its own entry points and flags: the wire kernels
-    keep -fmad=false, flash attention does not, and the flags are part of
-    the library's path."""
+    keep -fmad=false, flash attention and mLSTM do not, and the flags are
+    part of the library's path."""
     from repro_torch.kernels import _build
-    assert set(_build.API) == set(_build.NVCC_FLAGS) == {"wire",
-                                                         "flash_attention"}
+    assert set(_build.API) == set(_build.NVCC_FLAGS) == {
+        "wire", "flash_attention", "mlstm"}
     assert "-fmad=false" in _build.NVCC_FLAGS["wire"]
     assert "-fmad=false" not in _build.NVCC_FLAGS["flash_attention"]
+    assert "-fmad=false" not in _build.NVCC_FLAGS["mlstm"]
     assert set(_build.API["flash_attention"]) == {"flash_attention_fwd"}
+    assert set(_build.API["mlstm"]) == {"mlstm_fwd"}
+    assert len(_build.API["mlstm"]["mlstm_fwd"]) == 14
     path = _build.lib_path("flash_attention")
     assert path.name == "libflash_attention.so"
     monkeypatch.setitem(_build.NVCC_FLAGS, "flash_attention",
@@ -274,3 +283,80 @@ def test_build_tables_are_per_library(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_LOADED", {})
     lib = _build.load("flash_attention")
     assert len(lib.flash_attention_fwd.argtypes) == 15
+
+
+# ---------------------------------------------------------------------------
+# K7: the mLSTM recurrence, plain version against the JAX oracle and kernel
+# ---------------------------------------------------------------------------
+def _mlstm_inputs(B, S, H, hd, seed=11, f_shift=2.0, gate_scale=1.0):
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((B, S, H, hd)).astype(np.float32)
+               for _ in range(3))
+    ig = (rng.standard_normal((B, S, H)) * gate_scale).astype(np.float32)
+    fg = (rng.standard_normal((B, S, H)) * gate_scale
+          + f_shift).astype(np.float32)
+    return q, k, v, ig, fg
+
+
+def _state_np(B, H, hd, seed=12):
+    rng = np.random.default_rng(seed)
+    return {"C": rng.standard_normal((B, H, hd, hd)).astype(np.float32),
+            "n": rng.standard_normal((B, H, hd)).astype(np.float32),
+            "m": rng.standard_normal((B, H)).astype(np.float32)}
+
+
+@pytest.mark.parametrize("carried", [False, True])
+def test_k7_mlstm_plain_matches_jax_ref(carried):
+    """h and the final (C, n, m) at 1e-5, from the zero state (m = -inf)
+    and from a carried state, which the port updates in place."""
+    xs = _mlstm_inputs(2, 24, 3, 16)
+    st = _state_np(2, 3, 16) if carried else None
+    jh, jst = jref.mlstm_ref(*(jnp.asarray(a) for a in xs),
+                             state=None if st is None else
+                             {k: jnp.asarray(a) for k, a in st.items()})
+    tst = None if st is None else {k: torch.tensor(a) for k, a in st.items()}
+    th, tst2 = tref.mlstm_ref(*(torch.tensor(a) for a in xs), state=tst)
+    if carried:
+        assert tst2 is tst                    # updated in place
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), rtol=1e-5,
+                               atol=1e-5)
+    for key in ("C", "n", "m"):
+        np.testing.assert_allclose(tst2[key].numpy(), np.asarray(jst[key]),
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("B,S,H,hd,ck", [
+    (1, 64, 2, 32, 32),
+    (2, 128, 4, 64, 64),
+])
+def test_k7_mlstm_plain_matches_jax_interpret(B, S, H, hd, ck):
+    """tests/test_kernels.py's sweep: the Pallas kernel in interpret mode
+    against the port's ``ops.mlstm`` on CPU tensors, at 2e-4."""
+    xs = _mlstm_inputs(B, S, H, hd)
+    jh, _ = jops.mlstm(*(jnp.asarray(a) for a in xs), impl="interpret",
+                       chunk=ck)
+    th, none = tops.mlstm(*(torch.tensor(a) for a in xs))
+    assert none is None and th.dtype == torch.float32
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), rtol=2e-4,
+                               atol=2e-4)
+
+
+def test_k7_wrapper_refuses_cpu_tensors_and_grad():
+    """No fallback: K7's wrapper takes CUDA tensors only, and it is
+    forward only."""
+    from repro_torch.kernels import mlstm as tml
+    xs = [torch.tensor(a) for a in _mlstm_inputs(1, 5, 2, 8)]
+    with pytest.raises(ValueError, match="CUDA"):
+        tml.mlstm_fwd(*xs)
+    qg = xs[0].clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="forward only"):
+        tml.mlstm_fwd(qg, *xs[1:])
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+        tml.mlstm_fwd(qg, *xs[1:])
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tml.mlstm_fwd(xs[0].double(), *xs[1:])
+    h, _ = tops.mlstm(*xs)
+    assert h.shape == (1, 5, 2, 8)
+    with pytest.raises(ValueError, match="one device"):
+        tops.mlstm(xs[0], xs[1].to("meta"), *xs[2:])
+    assert tops.launch_counts()["mlstm"] == 0

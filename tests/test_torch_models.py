@@ -8,6 +8,13 @@ half — ``prefill`` through either attention path and the KV-cache
 ``decode_step`` (full cache and sliding-window ring buffer) — agrees with
 the JAX package's at 1e-5 as well, against ``prefill(impl="pallas")``
 (the Pallas kernel in interpret mode on the CPU).
+
+xlstm-1.3b's smoke config (one ``mlstm:-`` and one ``slstm:-`` layer):
+the bf16 tree keeps the JAX keys, shapes and dtypes (``w_if``, ``b_if``,
+``r`` and ``b`` stay f32, through the bridge and the npz format too); the
+loss, ``prefill(impl="kernel")`` against JAX ``prefill(impl="pallas")``
+(the mLSTM kernel in interpret mode) and ``decode_step`` over the
+recurrent states, which the port updates in place, agree at 1e-5.
 """
 import jax
 import jax.numpy as jnp
@@ -211,4 +218,121 @@ def test_decode_of_unported_mixers_raises():
     with pytest.raises(NotImplementedError, match="not yet ported"):
         ttr.layer_cache_init("mamba:dense", cfg, 1, 8, torch.float32, "cpu")
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        ttr.layer_decode({}, "mlstm:-", None, cfg, {}, torch.tensor(0))
+        ttr.layer_decode({}, "mla:dense", None, cfg, {}, torch.tensor(0))
+
+
+# ---------------------------------------------------------------------------
+# xlstm-1.3b: mLSTM and sLSTM blocks, their recurrent decode state
+# ---------------------------------------------------------------------------
+def _xcfg():
+    return get_smoke_config("xlstm-1.3b")
+
+
+def _dtype_names(tree, torch_side):
+    if torch_side:
+        return [str(t.dtype).split(".")[1] for t in leaves(tree)]
+    return [str(np.asarray(x).dtype) for x in jax.tree.leaves(tree)]
+
+
+def test_xlstm_params_tree_matches_jax_layout_bf16():
+    """Keys, order, shapes and dtypes of the bf16 tree: the gate and
+    recurrence leaves (w_if, b_if, r, b) are f32 in both packages, and
+    ``params_from_numpy`` keeps each leaf's dtype."""
+    cfg = _xcfg()
+    jp = jtr.init_params(jax.random.PRNGKey(0), cfg, jnp.bfloat16)
+    tp = ttr.init_params(0, cfg, torch.bfloat16, device="cpu")
+    jpaths = ["/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                       for k in path)
+              for path, _ in jax.tree_util.tree_flatten_with_path(jp)[0]]
+    assert [p for p, _ in leaves_with_path(tp)] == jpaths
+    assert [tuple(t.shape) for t in leaves(tp)] == \
+        [tuple(x.shape) for x in jax.tree.leaves(jp)]
+    want = _dtype_names(jp, torch_side=False)
+    assert _dtype_names(tp, torch_side=True) == want
+    f32 = {p.rsplit("/", 1)[1] for p, d in zip(jpaths, want)
+           if d == "float32"}
+    assert f32 == {"w_if", "b_if", "r", "b"}
+    assert _dtype_names(tio.params_from_numpy(_np(jp), "cpu"),
+                        torch_side=True) == want
+    assert ttr.count_params(tp) == jtr.count_params(jp)
+
+
+def test_xlstm_npz_checkpoint_keeps_f32_leaves(tmp_path):
+    """A bf16 xLSTM tree written by JAX restores bit for bit in the port
+    with its f32 leaves f32, and back."""
+    from repro.checkpoint import io as jio
+    cfg = _xcfg()
+    jp = jtr.init_params(jax.random.PRNGKey(3), cfg, jnp.bfloat16)
+    jio.save_pytree(str(tmp_path / "j.npz"), jp)
+    like = ttr.init_params(1, cfg, torch.bfloat16, device="cpu")
+    tp = tio.restore_pytree(str(tmp_path / "j.npz"), like)
+    assert _dtype_names(tp, True) == _dtype_names(jp, False)
+    for t, j in zip(leaves(tp), jax.tree.leaves(jp)):
+        np.testing.assert_array_equal(tio.params_to_numpy(t), np.asarray(j))
+    tio.save_pytree(str(tmp_path / "t.npz"), tp)
+    back = jio.restore_pytree(str(tmp_path / "t.npz"), jp)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(jp)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_xlstm_loss_matches_jax():
+    cfg = _xcfg()
+    jp = jtr.init_params(jax.random.PRNGKey(0), cfg, jnp.float32)
+    x, y = _tokens(cfg)
+    jl, jm = jtr.loss_fn(jp, cfg, {"tokens": jnp.asarray(x),
+                                   "labels": jnp.asarray(y)})
+    tl, tm = ttr.loss_fn(tio.params_from_numpy(_np(jp), "cpu"), cfg,
+                         {"tokens": torch.tensor(x),
+                          "labels": torch.tensor(y)})
+    _close(tl, jl)
+    _close(tm["lm_loss"], jm["lm_loss"])
+
+
+@pytest.mark.parametrize("impl", ["kernel", "ref"])
+def test_xlstm_prefill_matches_jax_pallas(impl):
+    """Last-position logits over 32 tokens; ``impl="kernel"`` reaches
+    ``ops.mlstm`` (its plain version on CPU tensors)."""
+    cfg = _xcfg()
+    jp = jtr.init_params(jax.random.PRNGKey(1), cfg, jnp.float32)
+    x, _ = _tokens(cfg, B=2, S=32, seed=4)
+    want = jtr.prefill(jp, cfg, {"tokens": jnp.asarray(x)}, impl="pallas")
+    got = ttr.prefill(tio.params_from_numpy(_np(jp), "cpu"), cfg,
+                      {"tokens": torch.tensor(x)}, impl=impl)
+    assert tuple(got.shape) == (2, cfg.vocab_size)
+    _close(got, want)
+
+
+def test_xlstm_decode_step_matches_jax_with_states_in_place():
+    """A 6-token prompt then 8 greedy tokens: logits every step, the
+    greedy tokens, and every recurrent state at the end agree at 1e-5;
+    ``decode_step`` returns the cache it was given, updated in place."""
+    cfg = _xcfg()
+    jp = jtr.init_params(jax.random.PRNGKey(2), cfg, jnp.float32)
+    tp = tio.params_from_numpy(_np(jp), "cpu")
+    prompt, _ = _tokens(cfg, B=2, S=6, seed=3)
+    jc = jtr.init_cache(cfg, 2, 16, jnp.float32)
+    tc = ttr.init_cache(cfg, 2, 16, torch.float32, device="cpu")
+    assert [p for p, _ in leaves_with_path(tc)] == [
+        "0/p0/C", "0/p0/m", "0/p0/n", "0/p1/c", "0/p1/h", "0/p1/m", "0/p1/n"]
+    assert [tuple(t.shape) for t in leaves(tc)] == \
+        [tuple(t.shape) for t in jax.tree.leaves(jc)]
+    for t, j in zip(leaves(tc), jax.tree.leaves(jc)):
+        _close(t, j)
+    ptrs = [t.data_ptr() for t in leaves(tc)]
+    jtok, ttok = jnp.asarray(prompt[:, :1]), torch.tensor(prompt[:, :1])
+    for pos in range(14):
+        jl, jc = jtr.decode_step(jp, cfg, jc, jtok, jnp.int32(pos))
+        tl, tc2 = ttr.decode_step(tp, cfg, tc, ttok, torch.tensor(pos))
+        assert tc2 is tc
+        _close(tl, jl)
+        if pos + 1 < prompt.shape[1]:
+            jtok = jnp.asarray(prompt[:, pos + 1:pos + 2])
+            ttok = torch.tensor(prompt[:, pos + 1:pos + 2])
+        else:
+            jtok = jnp.argmax(jl, -1).astype(jnp.int32)
+            ttok = torch.argmax(tl, -1)
+            np.testing.assert_array_equal(ttok.numpy(), np.asarray(jtok))
+    assert [t.data_ptr() for t in leaves(tc)] == ptrs
+    for t, j in zip(leaves(tc), jax.tree.leaves(jc)):
+        _close(t, j)
