@@ -8,12 +8,14 @@ Phases:
   1. device: name, capability (must be 9.0), power limit, versions;
   2. build the kernels from ``src/repro_torch/kernels/csrc`` (one nvcc per
      source, all started together);
-  3. each kernel (K1-K5, K7) against its plain PyTorch version on the card
-     at small odd shapes and at the main path's shapes, timed with CUDA
-     events (median of >= 10 runs after warm-up; the plain mLSTM loop of
-     2048 steps, >= 3) beside the plain version, the bound and, for K5,
-     ``F.scaled_dot_product_attention`` (the library yardstick, which the
-     port never calls; no PyTorch call computes K7's recurrence);
+  3. each kernel (K1-K7) against its plain PyTorch version on the card
+     at small odd shapes and at the main path's shapes (K5 at both
+     internlm2-1.8b's and jamba-v0.1-52b's attention), timed with CUDA
+     events (median of >= 10 runs after warm-up; the plain mLSTM and
+     selective-scan loops of 2048 steps, >= 3) beside the plain version,
+     the bound and, for K5, ``F.scaled_dot_product_attention`` (the
+     library yardstick, which the port never calls; no PyTorch call
+     computes K6's or K7's recurrence);
   4. a small Algorithm 1 run (smoke config, K=3, 2 rounds, fused codec) on
      the card against the same run on the CPU;
   5. the main path at internlm2-1.8b's full width (depth cut to 16 of 24
@@ -41,7 +43,20 @@ Phases:
      random 48-layer model's last-prompt logits differ by far more between
      any two f32 orderings of the same model (the loop, the K7 prefill,
      ``prefill(impl="ref")``), so those distances are recorded side by
-     side. The counters are zeroed just before (a) and read after (d).
+     side. The counters are zeroed just before (a) and read after (d);
+  8. serving jamba-v0.1-52b at full width, one 8-layer period of the
+     published interleave (7 Mamba layers, 1 attention layer, MoE FFNs
+     with 16 experts top-2 in 4 of them, dense FFNs in 4), f32: (a) two
+     prefills of 8 x 2048 tokens, K6 launched 7 times and K5 once in
+     each, the second with synchronised spans around the Mamba layers,
+     K6, the MoE FFNs, the dense FFNs and the attention layer; (b) the
+     ServeLoop as in phase 6, at the config's capacity factor 1.25; (c)
+     the loop's tokens against an eager ``decode_step`` loop of the SAME
+     model (two f32 copies of 53 GB do not fit the card, so no second
+     model and no swap); (d) as in phase 6 at 1e-4, both sides at a
+     drop-free capacity factor (capacity dropping depends on how many
+     tokens a call sees). The counters are zeroed just before (a) and
+     read after (d).
 Before the last line come the ``kernels`` JSON and the card's name and
 power limit as ``nvidia-smi`` gives them; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
@@ -72,6 +87,7 @@ TOL41 = {"rtol": 2e-6, "atol": 2e-6}
 WIRE_SRC = "src/repro_torch/kernels/csrc/wire.cu"
 FLASH_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
 MLSTM_SRC = "src/repro_torch/kernels/csrc/mlstm.cu"
+SCAN_SRC = "src/repro_torch/kernels/csrc/selective_scan.cu"
 # name in ops.KERNELS: (tag, TPU kernel it replaces, source)
 KERNEL_META = {
     "wire_quantize": ("K1", "repro/kernels/quantize.py:99", WIRE_SRC),
@@ -81,6 +97,8 @@ KERNEL_META = {
                                   WIRE_SRC),
     "flash_attention": ("K5", "repro/kernels/flash_attention.py:66",
                         FLASH_SRC),
+    "selective_scan": ("K6", "repro/kernels/selective_scan.py:62",
+                       SCAN_SRC),
     "mlstm": ("K7", "repro/kernels/mlstm.py:61", MLSTM_SRC),
 }
 # K5 against its plain version: the JAX suite's tolerances
@@ -93,8 +111,11 @@ FA_SMALL = [(1, 128, 128, 4, 4, 32, 32, 0), (2, 256, 256, 8, 2, 64, 64, 0),
             (2, 200, 200, 4, 2, 128, 128, 0), (1, 77, 333, 4, 2, 128, 96, 0),
             (1, 256, 256, 4, 2, 32, 32, 32), (1, 256, 256, 4, 2, 32, 32, 128),
             (2, 150, 300, 6, 3, 16, 16, 100), (1, 1, 70, 2, 1, 128, 128, 0)]
-# K5 at the serving path's shape: internlm2-1.8b's heads, 8 x 2048 tokens
+# K5 at the serving paths' shapes, 8 x 2048 tokens: internlm2-1.8b's heads
+# (phase 6, the kernels line's K5 entry) and jamba-v0.1-52b's attention
+# layer (phase 8: 4 query heads per KV head)
 FA_PATH = (8, 2048, 2048, 16, 8, 128, 128, 0)
+FA_PATH_JAMBA = (8, 2048, 2048, 32, 8, 128, 128, 0)
 # K7 against its plain version: the JAX suite's tolerance
 # (tests/test_kernels.py). (B, S, H, hd): one step, odd lengths, the JAX
 # sweep's shapes and xlstm-1.3b's head size
@@ -107,6 +128,14 @@ ML_GATES = {"standard": (0.0, 2.0, False), "negative": (-8.0, -8.0, False),
             "positive": (8.0, 8.0, True)}
 # K7 at the serving path's shape: xlstm-1.3b's heads, 8 x 2048 tokens
 ML_PATH = (8, 2048, 4, 1024)
+# K6 against its plain version: the JAX suite's tolerance
+# (tests/test_kernels.py). (B, S, di, st): the JAX sweep's shapes, one
+# step, a ragged length and width, jamba's width
+SS_TOL = {"rtol": 1e-5, "atol": 1e-5}
+SS_SMALL = [(1, 64, 128, 8), (2, 128, 256, 16), (1, 256, 128, 4),
+            (2, 1, 128, 16), (2, 37, 200, 8), (1, 64, 8192, 16)]
+# K6 at the serving path's shape: jamba's d_inner and state, 8 x 2048
+SS_PATH = (8, 2048, 8192, 16)
 # depth of the full-width model: 16 of internlm2-1.8b's 24 layers. The
 # wire step at K=5 holds 12 model copies (5 stacked, the 5-row flat
 # buffer, the mean, prev_avg): 12 x 5.54 GB = 66.5 GB of the card's 80.
@@ -305,20 +334,21 @@ def phase_flash_small(torch, dev, errs):
         max_abs_err=worst, tol=FA_TOL)
 
 
-def phase_flash_full(torch, dev, errs, name, bw):
-    """K5 at the serving path's shape, f32: against the plain version,
-    timed beside it and beside the library call."""
+def phase_flash_full(torch, dev, errs, name, bw, shape, seed):
+    """K5 at a serving path's shape (``FA_PATH``, ``FA_PATH_JAMBA``),
+    f32: against the plain version, timed beside it and beside the library
+    call."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa, ref
-    B, Sq, Sk, H, KV, hd, hd_v, window = FA_PATH
-    g = torch.Generator(device=dev).manual_seed(4)
-    q, k, v = _fa_inputs(torch, dev, g, FA_PATH, torch.float32)
+    B, Sq, Sk, H, KV, hd, hd_v, window = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = _fa_inputs(torch, dev, g, shape, torch.float32)
     kw = {"n_kv_heads": KV, "window": window}
     want = ref.flash_attention_ref(q, k, v, **kw)
     got = fa.flash_attention_fwd(q, k, v, **kw)
     err = _close(torch, got, want, {"rtol": FA_TOL["float32"],
                                     "atol": FA_TOL["float32"]},
-                 f"K5 at {FA_PATH}")
+                 f"K5 at {shape}")
     del want
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
@@ -334,7 +364,7 @@ def phase_flash_full(torch, dev, errs, name, bw):
     nbytes = 4 * (q.numel() + k.numel() + v.numel() + B * Sq * H * hd_v)
     bound = max(1e3 * flops / f32_peak(name), 1e3 * nbytes / bw)
     errs["flash_attention"] = max(errs["flash_attention"], err)
-    out = {"shape": list(FA_PATH), "dtype": "float32", "ms": ms,
+    out = {"shape": list(shape), "dtype": "float32", "ms": ms,
            "plain_ms": plain, "library_ms": lib, "flops": flops,
            "bytes": nbytes, "bound_ms": bound,
            "bound_by": "operations" if 1e3 * flops / f32_peak(name)
@@ -416,6 +446,96 @@ def phase_mlstm_full(torch, dev, errs, name, bw):
            "tflops": flops / ms / 1e9}
     say("kernels-full", kernel="mlstm", **out, max_abs_err=err)
     del q, k, v, ig, fg
+    torch.cuda.empty_cache()
+    return out
+
+
+def sm_clock_hz():
+    """The card's maximum SM clock as ``nvidia-smi`` reports it, or None."""
+    out = run_cmd(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                   "--format=csv,noheader,nounits"])
+    try:
+        return float(out.splitlines()[0]) * 1e6
+    except (ValueError, IndexError):
+        return None
+
+
+def _ss_inputs(torch, dev, g, shape, x_dtype):
+    """K6's inputs drawn as tests/test_kernels.py draws them: xc, Bm, Cm
+    ~ N(0, 1), dt = softplus(N(0, 1)) * 0.1, A = -exp(0.3 N(0, 1)),
+    D = 1; xc in ``x_dtype``, the rest f32."""
+    import torch.nn.functional as F
+    B, S, di, st = shape
+    xc = torch.randn((B, S, di), generator=g, device=dev)
+    dt = F.softplus(torch.randn((B, S, di), generator=g, device=dev)) * 0.1
+    Bm = torch.randn((B, S, st), generator=g, device=dev)
+    Cm = torch.randn((B, S, st), generator=g, device=dev)
+    A = -torch.exp(torch.randn((di, st), generator=g, device=dev) * 0.3)
+    return xc.to(x_dtype), dt, Bm, Cm, A, torch.ones(di, device=dev)
+
+
+def phase_scan_small(torch, dev, errs):
+    """K6 at small odd shapes, f32 and bf16 xc, against its plain version
+    at 1e-5: y and the final state. The kernels line carries the f32
+    error (the serving path's dtype)."""
+    from repro_torch.kernels import ref, selective_scan as ss
+    g = torch.Generator(device=dev).manual_seed(10)
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        for shape in SS_SMALL:
+            B, S, di, st = shape
+            xs = _ss_inputs(torch, dev, g, shape, dtype)
+            y, h = ss.selective_scan_fwd(*xs)
+            check(y.dtype == h.dtype == torch.float32
+                  and y.shape == (B, S, di) and h.shape == (B, di, st),
+                  f"K6 outputs {y.dtype} {tuple(y.shape)}, {h.dtype} "
+                  f"{tuple(h.shape)} at {shape}")
+            wy, wh = ref.selective_scan_ref(*xs)
+            err = max(_close(torch, y, wy, SS_TOL, f"K6 y {shape} {dname}"),
+                      _close(torch, h, wh, SS_TOL, f"K6 h {shape} {dname}"))
+            worst[dname] = max(worst.get(dname, 0.0), err)
+    torch.cuda.synchronize()
+    errs["selective_scan"] = max(errs["selective_scan"], worst["float32"])
+    say("kernels-small", kernel="selective_scan", shapes=SS_SMALL,
+        max_abs_err=worst, tol=SS_TOL)
+
+
+def phase_scan_full(torch, dev, errs, name, bw):
+    """K6 at the serving path's shape, f32: against the plain version
+    (y and the final state), timed beside it. No PyTorch call computes the
+    scan, so there is no library time."""
+    from repro_torch.kernels import ref, selective_scan as ss
+    B, S, di, st = SS_PATH
+    g = torch.Generator(device=dev).manual_seed(11)
+    xs = _ss_inputs(torch, dev, g, SS_PATH, torch.float32)
+    wy, wh = ref.selective_scan_ref(*xs)
+    y, h = ss.selective_scan_fwd(*xs)
+    err = max(_close(torch, y, wy, SS_TOL, f"K6 y at {SS_PATH}"),
+              _close(torch, h, wh, SS_TOL, f"K6 h at {SS_PATH}"))
+    del wy, wh, y, h
+    ms = cuda_ms(torch, lambda: ss.selective_scan_fwd(*xs))
+    plain = cuda_ms(torch, lambda: ref.selective_scan_ref(*xs), reps=3,
+                    warmup=1)
+    n = B * S * di
+    # per state update: dt*A, the exp, dt*B*x (two products), one FMA into
+    # h and one into y; per output the D*x product and its add
+    flops = 8 * n * st + 2 * n
+    nbytes = (sum(t.numel() * t.element_size() for t in xs)
+              + 4 * n + 4 * B * di * st)
+    t_ops, t_bytes = 1e3 * flops / f32_peak(name), 1e3 * nbytes / bw
+    clock = sm_clock_hz()
+    errs["selective_scan"] = max(errs["selective_scan"], err)
+    out = {"shape": list(SS_PATH), "dtype": "float32", "ms": ms,
+           "plain_ms": plain, "library_ms": None, "flops": flops,
+           "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "GB_per_s": nbytes / ms / 1e6,
+           # the exps on the SFU, 16 per SM per clock (132 SMs)
+           "sfu_exp_ms": (1e3 * n * st / (16 * 132 * clock) if clock
+                          else None), "sm_clock_max_hz": clock}
+    say("kernels-full", kernel="selective_scan", **out, max_abs_err=err)
+    del xs
     torch.cuda.empty_cache()
     return out
 
@@ -700,27 +820,30 @@ def synced_spans(torch, targets):
             setattr(mod, attr, fn)
 
 
-def _prefills(torch, cfg, params, tokens, kernel, per_prefill, tag,
+def _prefills(torch, cfg, params, tokens, per_prefill, tag,
               span_targets=()):
     """(a) of the serving phases: two prefills through
-    ``make_prefill_step(cfg, impl="kernel")``, ``kernel`` launched
-    ``per_prefill`` times in each; the first warms up, the second runs
-    inside ``synced_spans(span_targets)``. Returns (seconds, spans)."""
+    ``make_prefill_step(cfg, impl="kernel")``, each kernel of
+    ``per_prefill`` ({name: launches}) launched that many times in each;
+    the first warms up, the second runs inside
+    ``synced_spans(span_targets)``. Returns (seconds, spans)."""
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import make_prefill_step
     step = make_prefill_step(cfg, impl="kernel")
     seconds = []
     for i in range(2):
-        before = ops.launch_counts()[kernel]
+        before = ops.launch_counts()
         with synced_spans(torch, span_targets if i else ()) as spans:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             logits = step(params, {"tokens": tokens})
             torch.cuda.synchronize()
             seconds.append(time.perf_counter() - t0)
-        n = ops.launch_counts()[kernel] - before
-        check(n == per_prefill, f"{tag}a: {kernel} launched {n} times in "
-                                f"one prefill, not {per_prefill}")
+        after = ops.launch_counts()
+        for kernel, want in per_prefill.items():
+            n = after[kernel] - before[kernel]
+            check(n == want, f"{tag}a: {kernel} launched {n} times in one "
+                             f"prefill, not {want}")
         check(logits.shape == (tokens.shape[0], cfg.vocab_size)
               and bool(torch.isfinite(logits).all()),
               f"{tag}a: prefill logits not finite or misshapen")
@@ -767,24 +890,28 @@ def _per_layer(torch, cfg, params, calls, P, tol, tag):
         x = torch.cat([calls[t * L + i][0] for t in range(P)], dim=1)
         y = torch.cat([calls[t * L + i][1] for t in range(P)], dim=1)
         pos = torch.arange(P, dtype=torch.int32, device=x.device)
-        want = tr.layer_apply(p, kind, x, cfg, pos.expand(x.shape[0], P),
-                              "kernel")
+        want, _ = tr.layer_apply(p, kind, x, cfg,
+                                 pos.expand(x.shape[0], P), "kernel")
         worst = max(worst, _close(torch, y, want, tol,
                                   f"{tag}d: layer {i} ({kind}) of the loop "
                                   "vs layer_apply(impl='kernel')"))
     return worst
 
 
-def _loop_swap(torch, dev, cfg, params, g, tol, tag, end_to_end=True):
+def _loop_swap(torch, dev, cfg, params, g, tol, tag, end_to_end=True,
+               swap=True):
     """(b)-(d) of the serving phases: the ``ServeLoop`` at batch 8 (128 +
-    64 tokens, decode under the sync guard), a second model published to a
-    ``ModelBank`` and polled in, whose tokens must equal an eager
-    ``decode_step`` loop of it, and (d) the loop's token-by-token prefill
-    against the kernel prefill at ``tol``: every layer on the same inputs
-    and, when ``end_to_end``, the last-prompt logits. Otherwise the
-    logits' distance is recorded beside that of ``prefill(impl="ref")``,
-    the spread of two f32 orderings of the same model. Returns the
-    record."""
+    64 tokens, decode under the sync guard); (c) with ``swap``, a second
+    model published to a ``ModelBank`` and polled in, whose tokens must
+    equal an eager ``decode_step`` loop of it; without (a model too large
+    to hold twice), the loop's tokens from (b) against an eager loop of
+    the same model; and (d) the loop's token-by-token prefill against the
+    kernel prefill at ``tol``: every layer on the same inputs and, when
+    ``end_to_end``, the last-prompt logits. Otherwise the logits' distance
+    is recorded beside that of ``prefill(impl="ref")``, the spread of two
+    f32 orderings of the same model. (d) runs at a drop-free MoE capacity
+    factor where the model has experts: which tokens a capacity drops
+    depends on how many tokens a call sees. Returns the record."""
     from repro_torch.models import transformer as tr
     from repro_torch.serving import ModelBank, ServeLoop
     B, P, new, max_seq = 8, 128, 64, 256
@@ -799,16 +926,22 @@ def _loop_swap(torch, dev, cfg, params, g, tol, tag, end_to_end=True):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     peak_loop = torch.cuda.max_memory_allocated()
+    stats = [st0]
 
-    # (c) a second model through the bank; an eager decode loop of it
-    params1 = tr.init_params(1, cfg, torch.float32, device=dev)
-    bank = ModelBank()
-    bank.publish(params1, round_i=1)
-    check(loop.poll(bank) and loop.version == 1, f"{tag}c: poll did not "
-                                                 "swap")
-    gen1, st1 = loop.generate(prompts, new)
-    check(loop.compile_count() == 1 and st1["compile_count"] == 1,
-          f"{tag}c: the swap rebuilt the decode step")
+    # (c) the loop's tokens against an eager decode loop of the model it
+    # serves: a second model through the bank, or the same one
+    params1, gen1 = params, gen0
+    if swap:
+        params1 = tr.init_params(1, cfg, torch.float32, device=dev)
+        bank = ModelBank()
+        bank.publish(params1, round_i=1)
+        check(loop.poll(bank) and loop.version == 1,
+              f"{tag}c: poll did not swap")
+        gen1, st1 = loop.generate(prompts, new)
+        check(loop.compile_count() == 1 and st1["compile_count"] == 1,
+              f"{tag}c: the swap rebuilt the decode step")
+        stats.append(st1)
+        del bank
     cache = tr.init_cache(cfg, B, max_seq, torch.float32, dev)
     pos = torch.arange(max_seq, dtype=torch.int32, device=dev)
     for t in range(P):
@@ -820,25 +953,34 @@ def _loop_swap(torch, dev, cfg, params, g, tol, tag, end_to_end=True):
         logits, cache = tr.decode_step(params1, cfg, cache, tok, pos[P + i])
         tok = torch.argmax(logits, -1)
     eager = torch.cat(eager, dim=1)
-    check(torch.equal(gen1, eager), f"{tag}c: ServeLoop tokens after the "
-                                    "swap differ from an eager decode loop")
-    check(not torch.equal(gen1, gen0), f"{tag}c: the swapped model "
-                                       "generates the first model's tokens")
+    what = "after the swap " if swap else ""
+    check(torch.equal(gen1, eager), f"{tag}c: ServeLoop tokens {what}differ "
+                                    "from an eager decode loop")
+    if swap:
+        check(not torch.equal(gen1, gen0), f"{tag}c: the swapped model "
+                                           "generates the first model's "
+                                           "tokens")
     del cache, eager
 
     # (d) the loop's token-by-token prefill against the kernel prefill
+    cfg_d = (cfg.with_(capacity_factor=float(cfg.n_experts))
+             if cfg.n_experts else cfg)
+    loop_d = loop if cfg_d is cfg else ServeLoop(
+        cfg_d, params1, batch=B, max_seq=max_seq, device=dev)
     with recorded_layer_decodes(tr) as calls:
-        loop_logits, _ = loop.prefill(prompts)
-    d = {"per_layer_max_abs_err": _per_layer(torch, cfg, params1, calls, P,
-                                             tol, tag)}
+        loop_logits, _ = loop_d.prefill(prompts)
+    d = {"per_layer_max_abs_err": _per_layer(torch, cfg_d, params1, calls,
+                                             P, tol, tag)}
+    if cfg.n_experts:
+        d["capacity_factor"] = cfg_d.capacity_factor
     del calls
-    want = tr.prefill(params1, cfg, {"tokens": prompts}, impl="kernel")
+    want = tr.prefill(params1, cfg_d, {"tokens": prompts}, impl="kernel")
     if end_to_end:
         d["logits_max_abs_err"] = _close(
             torch, loop_logits[:, 0], want, tol,
             f"{tag}d: ServeLoop prefill vs prefill(impl='kernel')")
     else:
-        ref = tr.prefill(params1, cfg, {"tokens": prompts}, impl="ref")
+        ref = tr.prefill(params1, cfg_d, {"tokens": prompts}, impl="ref")
         d["logits_max_abs_diff"] = {
             "loop_vs_kernel": float((loop_logits[:, 0] - want).abs().max()),
             "loop_vs_ref": float((loop_logits[:, 0] - ref).abs().max()),
@@ -847,20 +989,20 @@ def _loop_swap(torch, dev, cfg, params, g, tol, tag, end_to_end=True):
         del ref
     peak = torch.cuda.max_memory_allocated()
     builds = loop.compile_count()
-    del params1, loop, bank, want, loop_logits
+    del params1, loop, loop_d, want, loop_logits
     return {"loop": {"prompt_len": P, "new_tokens": new, "max_seq": max_seq,
-                     "prefill_s": [st0["prefill_s"], st1["prefill_s"]],
-                     "decode_s": [st0["decode_s"], st1["decode_s"]],
-                     "decode_tokens_per_s": [st0["tokens_per_s"],
-                                             st1["tokens_per_s"]],
-                     "prompt_tokens_per_s": [B * P / st0["prefill_s"],
-                                             B * P / st1["prefill_s"]],
+                     "prefill_s": [x["prefill_s"] for x in stats],
+                     "decode_s": [x["decode_s"] for x in stats],
+                     "decode_tokens_per_s": [x["tokens_per_s"]
+                                             for x in stats],
+                     "prompt_tokens_per_s": [B * P / x["prefill_s"]
+                                             for x in stats],
                      "peak_mem_GB": peak_loop / 1e9,
                      "compile_count": builds,
-                     "versions": [st0["version"], st1["version"]]},
-            "swap_tokens_equal_eager": True, "loop_vs_prefill": d,
-            "tol": tol,
-            "peak_mem_GB": peak / 1e9}
+                     "versions": [x["version"] for x in stats]},
+            ("swap_tokens_equal_eager" if swap else "tokens_equal_eager"):
+                True,
+            "loop_vs_prefill": d, "tol": tol, "peak_mem_GB": peak / 1e9}
 
 
 def phase_serving(torch, dev, launches_out):
@@ -879,8 +1021,8 @@ def phase_serving(torch, dev, launches_out):
     tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
                            device=dev)
     ops.reset_launch_counts()
-    prefill_s, _ = _prefills(torch, cfg, params, tokens, "flash_attention",
-                             cfg.n_layers, "6")
+    prefill_s, _ = _prefills(torch, cfg, params, tokens,
+                             {"flash_attention": cfg.n_layers}, "6")
     peak_prefill = torch.cuda.max_memory_allocated()
     del tokens
     torch.cuda.empty_cache()
@@ -903,6 +1045,16 @@ def phase_serving(torch, dev, launches_out):
     torch.cuda.empty_cache()
 
 
+def decode_weight_bytes(params, cfg, batch):
+    """f32 bytes of weights one decode step must read: every weight once,
+    but of an untied input embedding table only the batch's rows."""
+    from repro_torch.models import transformer as tr
+    n = tr.count_params(params)
+    if not cfg.tie_embeddings:
+        n -= params["embed"]["table"].numel() - batch * cfg.d_model
+    return 4 * n
+
+
 def phase_xlstm_serving(torch, dev, launches_out, k7_ms, bw):
     """Phase 7: xlstm-1.3b at full width and all 48 layers: prefill through
     K7 (with the time split between mLSTM layers, K7 and sLSTM layers),
@@ -922,7 +1074,7 @@ def phase_xlstm_serving(torch, dev, launches_out, k7_ms, bw):
                            device=dev)
     ops.reset_launch_counts()
     prefill_s, spans = _prefills(
-        torch, cfg, params, tokens, "mlstm", n_mlstm, "7",
+        torch, cfg, params, tokens, {"mlstm": n_mlstm}, "7",
         span_targets=[(xl, "mlstm_apply", "mlstm_layers"),
                       (ops, "mlstm", "k7"),
                       (xl, "slstm_apply", "slstm_layers")])
@@ -942,7 +1094,7 @@ def phase_xlstm_serving(torch, dev, launches_out, k7_ms, bw):
     hd = int(cfg.xlstm_proj_factor * d) // H
     state_bytes = 4 * B * H * (n_mlstm * (hd * hd + hd + 1)
                                + (cfg.n_layers - n_mlstm) * 4 * (d // H))
-    weight_bytes = 4 * n_params
+    weight_bytes = decode_weight_bytes(params, cfg, B)
     say("xlstm-serving", model=cfg.name, n_layers=cfg.n_layers,
         mlstm_layers=n_mlstm, params=n_params, dtype="float32", batch=B,
         prefill={"seq_len": S, "seconds": prefill_s,
@@ -955,6 +1107,89 @@ def phase_xlstm_serving(torch, dev, launches_out, k7_ms, bw):
         decode_state_GB=state_bytes / 1e9,
         decode_bound_ms_per_step=1e3 * (weight_bytes + 2 * state_bytes)
         / bw, launches=counts, **rec)
+    del params
+    torch.cuda.empty_cache()
+
+
+def jamba_cfg():
+    """jamba-v0.1-52b at full width, one 8-layer period of its published
+    interleave (the config's ``_PERIOD``) in place of four."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.jamba_v0_1_52b import _PERIOD
+    return get_config("jamba-v0.1-52b").with_(n_layers=len(_PERIOD),
+                                              segments=((_PERIOD, 1),))
+
+
+def phase_jamba_serving(torch, dev, launches_out, k6_ms, bw):
+    """Phase 8: jamba-v0.1-52b at full width, one period: prefill through
+    K6 and K5 (the time split between Mamba layers, K6, MoE FFNs, dense
+    FFNs and the attention layer), the ServeLoop over the Mamba state and
+    KV cache, its tokens against an eager decode loop of the same model
+    (two f32 copies of the 53 GB model do not fit, so no swap)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as attn, mamba as mam, \
+        moe as moe_mod, transformer as tr
+    cfg = jamba_cfg()
+    kinds = cfg.layer_kinds()
+    n_mamba = sum(kind.startswith("mamba") for kind in kinds)
+    n_attn = sum(kind.startswith("gqa") for kind in kinds)
+    g = torch.Generator(device=dev).manual_seed(9)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = tr.init_params(0, cfg, torch.float32, device=dev)
+    n_params = tr.count_params(params)
+    peak_init = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    B, S = 8, 2048
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                           device=dev)
+    ops.reset_launch_counts()
+    prefill_s, spans = _prefills(
+        torch, cfg, params, tokens,
+        {"selective_scan": n_mamba, "flash_attention": n_attn}, "8",
+        span_targets=[(mam, "mamba_apply", "mamba_layers"),
+                      (ops, "selective_scan", "k6"),
+                      (moe_mod, "moe_apply", "moe_ffns"),
+                      (tr, "ffn_apply", "dense_ffns"),
+                      (attn, "attn_apply", "attention_layer")])
+    peak_prefill = torch.cuda.max_memory_allocated()
+    del tokens
+    torch.cuda.empty_cache()
+    rec = _loop_swap(torch, dev, cfg, params, g,
+                     {"rtol": 1e-4, "atol": 1e-4}, "8", swap=False)
+    counts = ops.launch_counts()
+    check(counts["selective_scan"] == 4 * n_mamba
+          and counts["flash_attention"] == 4 * n_attn,
+          f"8: K6 launched {counts['selective_scan']} and K5 "
+          f"{counts['flash_attention']} times over four prefills (two in "
+          "(a), one by layer and one whole in (d))")
+    for name, n in counts.items():
+        launches_out[name] = launches_out.get(name, 0) + n
+    # decode state at batch 8: a conv tail and an f32 SSM state per Mamba
+    # layer, the KV cache of the attention layer
+    di, st, K = cfg.d_inner_ssm, cfg.ssm_state_dim, cfg.ssm_conv_dim
+    state_bytes = 4 * B * (n_mamba * ((K - 1) * di + di * st)
+                           + n_attn * 2 * 256 * cfg.n_kv_heads
+                           * cfg.head_dim)
+    say("jamba-serving", model=cfg.name, n_layers=cfg.n_layers,
+        layer_kinds=kinds,
+        reduced="n_layers 32 -> 8: one period of the published interleave;"
+                " 52 B values do not fit one card",
+        params=n_params, dtype="float32", batch=B,
+        capacity_factor=cfg.capacity_factor,
+        init_peak_mem_GB=peak_init / 1e9,
+        prefill={"seq_len": S, "seconds": prefill_s,
+                 "tokens_per_s": [B * S / x for x in prefill_s],
+                 "k6_launches_per_prefill": n_mamba,
+                 "k5_launches_per_prefill": n_attn,
+                 "spans_s_second_prefill": spans,
+                 "k6_share_from_phase3_ms": n_mamba * k6_ms / 1e3
+                 / prefill_s[1],
+                 "peak_mem_GB": peak_prefill / 1e9},
+        decode_state_GB=state_bytes / 1e9,
+        decode_bound_ms_per_step=1e3 * (decode_weight_bytes(params, cfg, B)
+                                        + 2 * state_bytes) / bw,
+        launches=counts, **rec)
     del params
     torch.cuda.empty_cache()
 
@@ -989,12 +1224,17 @@ def main(argv=None):
     phase_kernels_small(torch, dev, errs)
     phase_flash_small(torch, dev, errs)
     phase_mlstm_small(torch, dev, errs)
+    phase_scan_small(torch, dev, errs)
     if args.quick:
         return 0
     bw = mem_bandwidth(name)
     timing = phase_kernels_full(torch, dev, errs, bw)
-    timing["flash_attention"] = phase_flash_full(torch, dev, errs, name, bw)
+    timing["flash_attention"] = phase_flash_full(torch, dev, errs, name, bw,
+                                                 FA_PATH, 4)
+    timing["flash_attention_jamba"] = phase_flash_full(
+        torch, dev, errs, name, bw, FA_PATH_JAMBA, 12)
     timing["mlstm"] = phase_mlstm_full(torch, dev, errs, name, bw)
+    timing["selective_scan"] = phase_scan_full(torch, dev, errs, name, bw)
     phase_small_round(torch, dev)
 
     launches = {}
@@ -1015,6 +1255,8 @@ def main(argv=None):
           "5c: K1/K2 not launched")
     phase_serving(torch, dev, launches)
     phase_xlstm_serving(torch, dev, launches, timing["mlstm"]["ms"], bw)
+    phase_jamba_serving(torch, dev, launches,
+                        timing["selective_scan"]["ms"], bw)
 
     kernels = []
     for kname, (tag, replaces, source) in KERNEL_META.items():

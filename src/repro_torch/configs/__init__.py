@@ -13,6 +13,7 @@ from repro_torch.configs.base import (CoLearnConfig, InputShape,
 _MODULES = {
     "internlm2-1.8b": "internlm2_1_8b",
     "xlstm-1.3b": "xlstm_1_3b",
+    "jamba-v0.1-52b": "jamba_v0_1_52b",
 }
 
 ARCH_IDS = tuple(_MODULES)

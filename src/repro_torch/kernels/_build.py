@@ -7,9 +7,9 @@ interface that ``ctypes`` loads — no PyTorch headers, so a build takes
 seconds. Each library has its own flags (``NVCC_FLAGS``), hashed into its
 path, and its own C entry points (``API``): the wire kernels build with
 ``-fmad=false``, which keeps every multiply and add separately rounded as
-XLA's dequantize-then-sum is; flash attention (held to 2e-5) and the
-mLSTM recurrence (2e-4) keep fused multiply-adds. Nothing here runs at
-import time.
+XLA's dequantize-then-sum is; flash attention (held to 2e-5), the
+mLSTM recurrence (2e-4) and the selective scan (1e-5) keep fused
+multiply-adds. Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -27,7 +27,8 @@ _BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 NVCC_FLAGS = {"wire": _BASE_FLAGS + ("-fmad=false",),
               "flash_attention": _BASE_FLAGS,
-              "mlstm": _BASE_FLAGS}
+              "mlstm": _BASE_FLAGS,
+              "selective_scan": _BASE_FLAGS}
 
 _P, _I64, _I32, _F32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
                         ctypes.c_float)
@@ -46,7 +47,12 @@ MLSTM_API = {
     # q, k, v, ig, fg, h, dtype, gate_dtype, B, S, H, hd, scale, stream
     "mlstm_fwd": (*(_P,) * 6, _I32, _I32, *(_I64,) * 4, _F32, _P),
 }
-API = {"wire": WIRE_API, "flash_attention": FLASH_API, "mlstm": MLSTM_API}
+SCAN_API = {
+    # xc, dt, Bm, Cm, A, D, y, h, x_dtype, B, S, di, st, stream
+    "selective_scan_fwd": (*(_P,) * 8, _I32, *(_I64,) * 4, _P),
+}
+API = {"wire": WIRE_API, "flash_attention": FLASH_API, "mlstm": MLSTM_API,
+       "selective_scan": SCAN_API}
 
 #: compiler output (``-Xptxas -v``) of the builds this process ran
 BUILD_LOGS = {}

@@ -1,10 +1,11 @@
-"""Dispatch for the wire kernels K1-K4, flash attention K5 and mLSTM K7.
+"""Dispatch for the wire kernels K1-K4, flash attention K5, the selective
+scan K6 and mLSTM K7.
 
 There is no ``impl`` knob: a tensor on the CPU goes to the plain version
 (``ref.py``), a CUDA tensor to the hand-written kernel's wrapper
-(``quantize.py`` / ``comm.py`` / ``flash_attention.py`` / ``mlstm.py``),
-which launches it or raises. Nothing falls back from the kernel to the
-plain version.
+(``quantize.py`` / ``comm.py`` / ``flash_attention.py`` /
+``selective_scan.py`` / ``mlstm.py``), which launches it or raises.
+Nothing falls back from the kernel to the plain version.
 
 ``KERNELS`` names each kernel's wrapper; ``launch_counts`` /
 ``reset_launch_counts`` read and zero the per-wrapper launch counters.
@@ -16,6 +17,7 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import mlstm as _ml
 from repro_torch.kernels import quantize as _qz
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import selective_scan as _ss
 
 KERNELS = {
     "wire_quantize": _qz.quantize_blockwise_fwd,                 # K1
@@ -23,6 +25,7 @@ KERNELS = {
     "wire_quant_avg_dequant": _comm.quant_avg_dequant_fwd,       # K3
     "wire_quant_avg_dequant_ef": _comm.quant_avg_dequant_ef_fwd,  # K4
     "flash_attention": _fa.flash_attention_fwd,                  # K5
+    "selective_scan": _ss.selective_scan_fwd,                    # K6
     "mlstm": _ml.mlstm_fwd,                                      # K7
 }
 
@@ -87,6 +90,15 @@ def flash_attention(q, k, v, *, n_kv_heads, window=0, softmax_scale=None):
     return _ref.flash_attention_ref(q, k, v, n_kv_heads=n_kv_heads,
                                     window=window,
                                     softmax_scale=softmax_scale)
+
+
+def selective_scan(xc, dt, Bm, Cm, A, D):
+    """Mamba selective scan from a zero state, forward only. xc, dt:
+    (B,S,di), Bm, Cm: (B,S,st), A: (di,st), D: (di,) -> (y (B,S,di) f32,
+    h_final (B,di,st) f32)."""
+    if _on_cuda(xc, dt, Bm, Cm, A, D):
+        return _ss.selective_scan_fwd(xc, dt, Bm, Cm, A, D)
+    return _ref.selective_scan_ref(xc, dt, Bm, Cm, A, D)
 
 
 def mlstm(q, k, v, ig, fg):

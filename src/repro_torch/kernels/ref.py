@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the wire kernels K1-K4, flash attention K5 and
-the mLSTM recurrence K7.
+"""Plain PyTorch versions of the wire kernels K1-K4, flash attention K5,
+the Mamba selective scan K6 and the mLSTM recurrence K7.
 
 The wire versions repeat ``repro/kernels/ref.py`` (``_code_blocks_ref`` ..
 ``quant_avg_dequant_ef_ref``) op for op: absmax or mean-|x| per 256-wide
@@ -16,8 +16,9 @@ width needs one temporary of its size instead of four.
 
 ``flash_attention_ref`` repeats ``repro/kernels/ref.py``
 ``flash_attention_ref``: it materialises the whole score matrix.
-``mlstm_ref`` names ``models.xlstm.mlstm_cell_ref``, as the reference's
-does, so the plain recurrence exists once.
+``selective_scan_ref`` and ``mlstm_ref`` name
+``models.mamba.selective_scan_ref`` and ``models.xlstm.mlstm_cell_ref``,
+as the reference's do, so each plain recurrence exists once.
 """
 from __future__ import annotations
 
@@ -149,6 +150,12 @@ def flash_attention_ref(q, k, v, *, n_kv_heads, window=0, softmax_scale=None):
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", w, v.float())
     return o.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
+
+
+def selective_scan_ref(xc, dt, Bm, Cm, A, D, h0=None):
+    """Sequential Mamba scan; identical math to models.mamba."""
+    from repro_torch.models.mamba import selective_scan_ref as _impl
+    return _impl(xc, dt, Bm, Cm, A, D, h0)
 
 
 def mlstm_ref(q, k, v, ig, fg, state=None):

@@ -3,14 +3,15 @@
 Ported from ``repro/launch/serve.py``: a thin CLI over
 :class:`repro_torch.serving.ServeLoop` that prefills a batch of prompts
 and then greedily decodes through the loop's one decode step, against a
-KV cache (``--arch internlm2-1.8b``) or the recurrent state
-(``--arch xlstm-1.3b``). It takes the JAX CLI's flags plus ``--device``,
+KV cache (``--arch internlm2-1.8b``), the recurrent state
+(``--arch xlstm-1.3b``) or both, the Mamba layers' conv tail and SSM
+state beside the attention layer's KV cache (``--arch jamba-v0.1-52b``). It takes the JAX CLI's flags plus ``--device``,
 which defaults to cuda and raises without a card unless ``cpu`` is
 passed. Params come from the port's own initializer and the prompts from
 numpy, both seeded by ``--seed``.
 
 Usage: PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
-           [--arch xlstm-1.3b] --batch 4 --prompt-len 16 --new-tokens 16 \
+           [--arch xlstm-1.3b|jamba-v0.1-52b] --batch 4 --prompt-len 16 --new-tokens 16 \
            --max-seq 64
 """
 from __future__ import annotations

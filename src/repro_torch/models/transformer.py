@@ -3,18 +3,22 @@
 A config's ``segments`` is a sequence of (pattern, repeats); each pattern
 entry is "<mixer>:<ffn>". Parameters for each pattern position carry a
 leading ``repeats`` dim, as in the JAX tree, and ``forward`` loops over
-it. The port runs ``gqa:dense``, ``mlstm:-`` and ``slstm:-`` layers; the
-other mixers and FFNs (MLA, Mamba, MoE), the multi-token-prediction head
-and the prefix input mode are still to port (ROADMAP.md).
+it. The port runs ``gqa:dense``, ``mamba:dense``, ``mamba:moe``,
+``mlstm:-`` and ``slstm:-`` layers; ``layer_apply`` returns the layer's
+MoE aux loss beside its output and ``forward`` sums it over the layers.
+The other mixers and FFNs (MLA, Arctic's ``moe_dense``), the
+multi-token-prediction head and the prefix input mode are still to port
+(ROADMAP.md).
 
 Serving: ``prefill`` is the full-sequence forward with the LM head on the
-last position only (``impl="kernel"`` runs attention through K5 and the
-mLSTM recurrence through K7); ``init_cache`` / ``decode_step`` run one
-token against a per-layer cache: a KV cache for attention, the recurrent
-state for xLSTM. The cache is a list of segments, each ``{"p<j>": ...}``
-with a leading ``repeats`` dim as in the JAX tree, allocated for real
-(JAX broadcasts one layer's zeros) because ``decode_step`` updates it in
-place.
+last position only (``impl="kernel"`` runs attention through K5, the
+Mamba scan through K6 and the mLSTM recurrence through K7);
+``init_cache`` / ``decode_step`` run one token against a per-layer cache:
+a KV cache for attention, the conv tail and SSM state for Mamba, the
+recurrent state for xLSTM. The cache is a list of segments, each
+``{"p<j>": ...}`` with a leading ``repeats`` dim as in the JAX tree,
+allocated for real (JAX broadcasts one layer's zeros) because
+``decode_step`` updates it in place.
 """
 from __future__ import annotations
 
@@ -22,6 +26,8 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mam
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import xlstm as xl
 from repro_torch.models.layers import (dense_init, embed_apply, embed_init,
                                        ffn_apply, ffn_init, lm_head_apply,
@@ -29,20 +35,25 @@ from repro_torch.models.layers import (dense_init, embed_apply, embed_init,
                                        softmax_xent)
 from repro_torch.tree import leaves, tree_map
 
-PORTED_KINDS = ("gqa:dense", "mlstm:-", "slstm:-")
-_MIXER_INIT = {"gqa": attn.attn_init, "mlstm": xl.mlstm_init,
-               "slstm": xl.slstm_init}
-_MIXER_DECODE = {"gqa": attn.attn_decode, "mlstm": xl.mlstm_decode,
-                 "slstm": xl.slstm_decode}
+PORTED_KINDS = ("gqa:dense", "mamba:dense", "mamba:moe", "mlstm:-",
+                "slstm:-")
+_MIXER_INIT = {"gqa": attn.attn_init, "mamba": mam.mamba_init,
+               "mlstm": xl.mlstm_init, "slstm": xl.slstm_init}
+_MIXER_DECODE = {"gqa": attn.attn_decode, "mamba": mam.mamba_decode,
+                 "mlstm": xl.mlstm_decode, "slstm": xl.slstm_decode}
+
+
+def _check_kind(kind):
+    if kind not in PORTED_KINDS:
+        raise NotImplementedError(
+            f"layer kind {kind!r} not yet ported, see ROADMAP.md "
+            f"(ported: {PORTED_KINDS})")
 
 
 def _check_supported(cfg):
     for pattern, _ in cfg.segments:
         for kind in pattern:
-            if kind not in PORTED_KINDS:
-                raise NotImplementedError(
-                    f"layer kind {kind!r} not yet ported, see ROADMAP.md "
-                    f"(ported: {PORTED_KINDS})")
+            _check_kind(kind)
     if cfg.mtp_depth:
         raise NotImplementedError(
             "multi-token prediction not yet ported, see ROADMAP.md")
@@ -57,53 +68,66 @@ def layer_init(gen, kind, cfg, dtype, stack=()):
     p["mixer"] = _MIXER_INIT[mixer](gen, cfg, dtype, stack)
     if ffn != "-":
         p["norm2"] = rmsnorm_init(cfg.d_model, dtype, stack, gen.device)
-        p["ffn"] = ffn_init(gen, cfg.d_model, cfg.d_ff, dtype, stack)
+        p["ffn"] = (ffn_init(gen, cfg.d_model, cfg.d_ff, dtype, stack)
+                    if ffn == "dense" else
+                    moe_mod.moe_init(gen, cfg, dtype, stack))
     return p
 
 
-def _ffn_residual(p, x, cfg):
-    if "ffn" in p:
+def _ffn_residual(p, kind, x, cfg):
+    """The FFN half of a layer -> (x, the MoE aux loss or None)."""
+    ffn = kind.split(":")[1]
+    aux = None
+    if ffn != "-":
         h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
-        x = x + ffn_apply(p["ffn"], h)
-    return x
+        if ffn == "dense":
+            y = ffn_apply(p["ffn"], h)
+        else:
+            y, aux = moe_mod.moe_apply(p["ffn"], h, cfg)
+        x = x + y
+    return x, aux
 
 
 def layer_apply(p, kind, x, cfg, positions, impl="ref"):
+    """One layer over a whole sequence -> (x, aux loss)."""
     mixer = kind.split(":")[0]
     h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
     if mixer == "gqa":
         y, _ = attn.attn_apply(p["mixer"], h, cfg, positions, impl)
+    elif mixer == "mamba":
+        y = mam.mamba_apply(p["mixer"], h, cfg, impl)
     elif mixer == "mlstm":
         y = xl.mlstm_apply(p["mixer"], h, cfg, impl)
     else:
         y = xl.slstm_apply(p["mixer"], h, cfg, impl)
-    return _ffn_residual(p, x + y, cfg)
-
-
-def _check_decodable(kind):
-    mixer = kind.split(":")[0]
-    if mixer not in _MIXER_DECODE:
-        raise NotImplementedError(
-            f"decode for layer kind {kind!r} not yet ported, see ROADMAP.md")
-    return mixer
+    x, aux = _ffn_residual(p, kind, x + y, cfg)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def layer_cache_init(kind, cfg, batch, seq_len, dtype, device, stack=()):
-    mixer = _check_decodable(kind)
+    _check_kind(kind)
+    mixer = kind.split(":")[0]
     if mixer == "gqa":
         return attn.attn_cache_init(cfg, batch, seq_len, dtype, device,
                                     stack)
+    if mixer == "mamba":
+        return mam.mamba_state_init(cfg, batch, dtype, device, stack)
     if mixer == "mlstm":
         return xl.mlstm_state_init(cfg, batch, dtype, device, stack)
     return xl.slstm_state_init(cfg, batch, dtype, device, stack)
 
 
 def layer_decode(p, kind, x, cfg, cache, pos):
-    """One token through one layer; ``cache`` is updated in place."""
-    mixer = _check_decodable(kind)
+    """One token through one layer; ``cache`` is updated in place. The
+    MoE aux loss is dropped, as in the reference."""
+    _check_kind(kind)
     h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
-    y, cache = _MIXER_DECODE[mixer](p["mixer"], h, cfg, cache, pos)
-    return _ffn_residual(p, x + y, cfg), cache
+    y, cache = _MIXER_DECODE[kind.split(":")[0]](p["mixer"], h, cfg, cache,
+                                                 pos)
+    x, _ = _ffn_residual(p, kind, x + y, cfg)
+    return x, cache
 
 
 def init_params(seed, cfg, dtype=torch.bfloat16, device=None):
@@ -135,7 +159,8 @@ def init_params(seed, cfg, dtype=torch.bfloat16, device=None):
 def forward(params, cfg, batch, impl="ref", return_hidden=False,
             apply_head=True):
     """Returns (logits, aux_loss[, hidden]); ``logits`` is None when
-    ``apply_head`` is False. Every layer's activations are kept for the
+    ``apply_head`` is False; ``aux_loss`` sums the MoE layers' Switch
+    losses (0 without MoE). Every layer's activations are kept for the
     backward pass: the per-layer recomputation of the JAX package
     (``remat``) is not ported yet (ROADMAP.md)."""
     _check_supported(cfg)
@@ -143,18 +168,19 @@ def forward(params, cfg, batch, impl="ref", return_hidden=False,
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for seg_params, (pattern, repeats) in zip(params["segments"],
                                               cfg.segments):
         for r in range(repeats):
             for j, kind in enumerate(pattern):
                 p_r = tree_map(lambda t, _r=r: t[_r], seg_params[f"p{j}"])
-                x = layer_apply(p_r, kind, x, cfg, positions, impl)
+                x, a = layer_apply(p_r, kind, x, cfg, positions, impl)
+                aux = aux + a
     h = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     logits = None
     if apply_head:
         logits = lm_head_apply(params["embed"], params.get("head"), h,
                                cfg.tie_embeddings)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if return_hidden:
         return logits, aux, h
     return logits, aux
@@ -174,7 +200,8 @@ def loss_fn(params, cfg, batch, impl="ref"):
 def init_cache(cfg, batch, seq_len, dtype=torch.bfloat16, device=None):
     """Per pattern position of every segment, with a leading ``repeats``
     dim: a zero ``(repeats, B, S, KV, hd)`` k/v pair for attention, the
-    f32 recurrent state (``xlstm.*_state_init``) for xLSTM."""
+    conv tail and f32 SSM state (``mamba.mamba_state_init``) for Mamba,
+    the f32 recurrent state (``xlstm.*_state_init``) for xLSTM."""
     _check_supported(cfg)
     dev = resolve_device(device)
     return [{f"p{j}": layer_cache_init(kind, cfg, batch, seq_len, dtype,

@@ -11,8 +11,9 @@ structure, leaf shapes, dtypes and device). Capturing the step as a CUDA
 graph is later work (ROADMAP.md).
 
 The cache is ``transformer.init_cache``'s: a KV cache for attention
-layers, the recurrent state for xLSTM layers, made anew for each prompt
-batch and updated in place by the step. Prefill goes token by token
+layers, the conv tail and SSM state for Mamba layers, the recurrent state
+for xLSTM layers, made anew for each prompt batch and updated in place by
+the step. Prefill goes token by token
 through the same step, as in the JAX loop. Positions are 0-d slices of
 one device tensor made in ``__init__``, and the next token is an argmax on
 the device, so nothing on the decode loop waits for the host;

@@ -1,6 +1,7 @@
-"""On the card: each hand-written CUDA kernel (K1-K5, K7) against its plain
+"""On the card: each hand-written CUDA kernel (K1-K7) against its plain
 PyTorch version on the same CUDA inputs, at the JAX suite's tolerances
-(tests/test_kernels.py). Every test is marked ``gpu`` and skips without a
+(tests/test_kernels.py), and the MoE FFN on the card under the sync guard
+against the same call on the CPU. Every test is marked ``gpu`` and skips without a
 card; the file imports no JAX, so it runs where the card is:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -157,3 +158,81 @@ def test_gpu_k7_matches_plain(cuda, dtype, S, hd, gates):
     want16, _ = tref.mlstm_ref(q, k, v, ig.bfloat16(), fg.bfloat16())
     torch.testing.assert_close(got16, want16, rtol=2e-4, atol=2e-4)
     torch.cuda.synchronize()
+
+
+def scan_inputs(B, S, di, st, dev, x_dtype, seed=0):
+    """K6's inputs drawn as tests/test_kernels.py draws them: xc, Bm, Cm
+    ~ N(0, 1), dt = softplus(N(0, 1)) * 0.1, A = -exp(0.3 N(0, 1)),
+    D = 1; xc in ``x_dtype``, the rest f32."""
+    rng = np.random.default_rng(seed)
+    xc = rng.standard_normal((B, S, di))
+    dt = np.logaddexp(rng.standard_normal((B, S, di)), 0.0) * 0.1
+    Bm = rng.standard_normal((B, S, st))
+    Cm = rng.standard_normal((B, S, st))
+    A = -np.exp(rng.standard_normal((di, st)) * 0.3)
+    f32 = [torch.tensor(a, dtype=torch.float32, device=dev)
+           for a in (xc, dt, Bm, Cm, A, np.ones(di))]
+    return (f32[0].to(x_dtype), *f32[1:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,di,st", [
+    (1, 64, 128, 8), (2, 128, 256, 16), (1, 256, 128, 4),   # JAX sweep
+    (2, 1, 128, 16),                                        # one step
+    (2, 37, 200, 8),                                        # ragged di, S
+    (1, 19, 8192, 16),                                      # jamba's di
+])
+def test_gpu_k6_matches_plain(cuda, x_dtype, B, S, di, st):
+    """K6 against ``ref.selective_scan_ref`` on the same CUDA inputs at
+    1e-5 (the JAX suite's tolerance for K6): y and the final state."""
+    from repro_torch.kernels import selective_scan as tss
+    xs = scan_inputs(B, S, di, st, cuda, x_dtype)
+    before = tss.selective_scan_fwd.launches
+    y, h = tss.selective_scan_fwd(*xs)
+    wy, wh = tref.selective_scan_ref(*xs)
+    assert y.dtype == h.dtype == torch.float32
+    assert y.shape == (B, S, di) and h.shape == (B, di, st)
+    torch.testing.assert_close(y, wy, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(h, wh, rtol=1e-5, atol=1e-5)
+    assert tss.selective_scan_fwd.launches == before + 1
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_gpu_k6_takes_f32_dt_only(cuda):
+    """dt is the softplus output, f32 in ``models.mamba``: K6 reads it as
+    f32 and refuses any other dtype before launching."""
+    from repro_torch.kernels import selective_scan as tss
+    xs = list(scan_inputs(1, 8, 128, 8, cuda, torch.float32))
+    xs[1] = xs[1].to(torch.bfloat16)
+    before = tss.selective_scan_fwd.launches
+    with pytest.raises(ValueError, match="dt must be torch.float32"):
+        tss.selective_scan_fwd(*xs)
+    assert tss.selective_scan_fwd.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S", [(8, 1), (4, 64)])
+def test_gpu_moe_apply_under_sync_guard_matches_cpu(cuda, B, S):
+    """``moe_apply`` on the card asks the host nothing (it runs under
+    ``set_sync_debug_mode("error")``) and equals the same call on the CPU
+    at 1e-5: routing, drops (capacity factor 0.5 drops tokens at 4 x 64),
+    the scatter and the combine."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import moe as tmoe
+    cfg = get_smoke_config("jamba-v0.1-52b").with_(capacity_factor=0.5)
+    gen = torch.Generator().manual_seed(0)
+    p = tmoe.moe_init(gen, cfg, torch.float32)
+    x = torch.tensor(_x((B, S, cfg.d_model), seed=3, scale=1.0))
+    want_y, want_aux = tmoe.moe_apply(p, x, cfg)
+    pc = {k: v.to(cuda) for k, v in p.items()}
+    xc = x.to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, aux = tmoe.moe_apply(pc, xc, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.testing.assert_close(y.cpu(), want_y, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-5, atol=1e-5)

@@ -92,9 +92,9 @@ def test_unported_paths_raise_not_implemented():
         api.get_sync_policy("divtrigger")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tr.init_params(0, get_smoke_config("internlm2-1.8b").with_(
-            n_layers=1, segments=((("mamba:dense",), 1),)), device="cpu")
+            n_layers=1, segments=((("mla:dense",), 1),)), device="cpu")
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_smoke_config("jamba-v0.1-52b")
+        get_smoke_config("deepseek-v3-671b")
     # the flat codec's standalone roundtrip serves only unported aggregators
     flat = api.get_codec("fused", bits=4, error_feedback=True)
     x = {"w": torch.zeros((2, 256))}

@@ -1,5 +1,5 @@
-"""Wire kernels K1-K4, flash attention K5 and mLSTM K7 of the PyTorch port
-against the JAX package.
+"""Wire kernels K1-K4, flash attention K5, the selective scan K6 and mLSTM
+K7 of the PyTorch port against the JAX package.
 
 CPU half: the port's plain versions (``repro_torch/kernels/ref.py``) are
 held against the JAX oracles (``repro/kernels/ref.py``, ``impl="ref"``)
@@ -18,6 +18,11 @@ K7's plain version (``ref.mlstm_ref``, the model's ``mlstm_cell_ref``) is
 held against the JAX oracle at 1e-5, from the zero state and from a
 carried one, and against the Pallas kernel in interpret mode over
 ``test_kernels.py``'s sweep at 2e-4 (the JAX suite's tolerance for K7).
+
+K6's plain version (``ref.selective_scan_ref``, the model's) is held
+against the JAX oracle, from the zero state and from a carried one, and
+against the Pallas kernel in interpret mode over ``test_kernels.py``'s
+sweep, at the JAX suite's 1e-5 (y and the final state).
 
 The card half — each hand-written CUDA kernel against its plain version
 on the same CUDA inputs — is ``tests/test_torch_gpu.py``, which imports no
@@ -261,13 +266,15 @@ def test_build_tables_are_per_library(monkeypatch, tmp_path):
     part of the library's path."""
     from repro_torch.kernels import _build
     assert set(_build.API) == set(_build.NVCC_FLAGS) == {
-        "wire", "flash_attention", "mlstm"}
+        "wire", "flash_attention", "mlstm", "selective_scan"}
     assert "-fmad=false" in _build.NVCC_FLAGS["wire"]
-    assert "-fmad=false" not in _build.NVCC_FLAGS["flash_attention"]
-    assert "-fmad=false" not in _build.NVCC_FLAGS["mlstm"]
+    for name in ("flash_attention", "mlstm", "selective_scan"):
+        assert "-fmad=false" not in _build.NVCC_FLAGS[name]
     assert set(_build.API["flash_attention"]) == {"flash_attention_fwd"}
     assert set(_build.API["mlstm"]) == {"mlstm_fwd"}
     assert len(_build.API["mlstm"]["mlstm_fwd"]) == 14
+    assert set(_build.API["selective_scan"]) == {"selective_scan_fwd"}
+    assert len(_build.API["selective_scan"]["selective_scan_fwd"]) == 14
     path = _build.lib_path("flash_attention")
     assert path.name == "libflash_attention.so"
     monkeypatch.setitem(_build.NVCC_FLAGS, "flash_attention",
@@ -360,3 +367,82 @@ def test_k7_wrapper_refuses_cpu_tensors_and_grad():
     with pytest.raises(ValueError, match="one device"):
         tops.mlstm(xs[0], xs[1].to("meta"), *xs[2:])
     assert tops.launch_counts()["mlstm"] == 0
+
+
+# ---------------------------------------------------------------------------
+# K6: the Mamba selective scan, plain version against the JAX oracle and
+# kernel
+# ---------------------------------------------------------------------------
+def _scan_inputs(B, S, di, st, seed=21):
+    """Drawn as tests/test_kernels.py draws them: xc, Bm, Cm ~ N(0, 1),
+    dt = softplus(N(0, 1)) * 0.1, A = -exp(0.3 N(0, 1)), D = 1."""
+    rng = np.random.default_rng(seed)
+    xc = rng.standard_normal((B, S, di)).astype(np.float32)
+    dt = (np.logaddexp(rng.standard_normal((B, S, di)), 0.0)
+          * 0.1).astype(np.float32)
+    Bm = rng.standard_normal((B, S, st)).astype(np.float32)
+    Cm = rng.standard_normal((B, S, st)).astype(np.float32)
+    A = (-np.exp(rng.standard_normal((di, st)) * 0.3)).astype(np.float32)
+    D = np.ones(di, np.float32)
+    return xc, dt, Bm, Cm, A, D
+
+
+@pytest.mark.parametrize("carried", [False, True])
+def test_k6_selective_scan_plain_matches_jax_ref(carried):
+    """y and the final state at 1e-5, from the zero state and from a
+    carried one, which the port updates in place."""
+    xs = _scan_inputs(2, 40, 24, 8)
+    h0 = (np.random.default_rng(22).standard_normal((2, 24, 8))
+          .astype(np.float32) if carried else None)
+    jy, jh = jref.selective_scan_ref(*(jnp.asarray(a) for a in xs),
+                                     None if h0 is None else jnp.asarray(h0))
+    th0 = None if h0 is None else torch.tensor(h0)
+    ty, th = tref.selective_scan_ref(*(torch.tensor(a) for a in xs), th0)
+    if carried:
+        assert th is th0                      # updated in place
+    assert ty.dtype == th.dtype == torch.float32
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("B,S,di,st,bd,ck", [
+    (1, 64, 128, 8, 128, 32),
+    (2, 128, 256, 16, 128, 64),
+    (1, 256, 128, 4, 64, 256),
+])
+def test_k6_selective_scan_plain_matches_jax_interpret(B, S, di, st, bd,
+                                                       ck):
+    """tests/test_kernels.py's sweep: the Pallas kernel in interpret mode
+    against the port's ``ops.selective_scan`` on CPU tensors, at 1e-5."""
+    xs = _scan_inputs(B, S, di, st)
+    jy, jh = jops.selective_scan(*(jnp.asarray(a) for a in xs),
+                                 impl="interpret", block_d=bd, chunk=ck)
+    ty, th = tops.selective_scan(*(torch.tensor(a) for a in xs))
+    assert ty.shape == (B, S, di) and th.shape == (B, di, st)
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_k6_wrapper_refuses_cpu_tensors_and_grad():
+    """No fallback: K6's wrapper takes CUDA tensors only, and it is
+    forward only."""
+    from repro_torch.kernels import selective_scan as tss
+    xs = [torch.tensor(a) for a in _scan_inputs(1, 5, 16, 4)]
+    with pytest.raises(ValueError, match="CUDA"):
+        tss.selective_scan_fwd(*xs)
+    xg = xs[0].clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="forward only"):
+        tss.selective_scan_fwd(xg, *xs[1:])
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+        tss.selective_scan_fwd(xg, *xs[1:])
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tss.selective_scan_fwd(xs[0].double(), *xs[1:])
+    y, h = tops.selective_scan(*xs)
+    assert y.shape == (1, 5, 16) and h.shape == (1, 16, 4)
+    with pytest.raises(ValueError, match="one device"):
+        tops.selective_scan(xs[0], xs[1].to("meta"), *xs[2:])
+    assert tops.launch_counts()["selective_scan"] == 0

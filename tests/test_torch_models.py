@@ -15,6 +15,14 @@ the bf16 tree keeps the JAX keys, shapes and dtypes (``w_if``, ``b_if``,
 loss, ``prefill(impl="kernel")`` against JAX ``prefill(impl="pallas")``
 (the mLSTM kernel in interpret mode) and ``decode_step`` over the
 recurrent states, which the port updates in place, agree at 1e-5.
+
+jamba-v0.1-52b's smoke config (one ``mamba:moe`` and one ``gqa:dense``
+layer): the Mamba mixer (prefill and in-place decode) and the MoE FFN
+(grouped sort-based dispatch, at a capacity factor that drops tokens and
+at drop-free ones, with and without a shared expert, y and aux loss), the
+bf16 tree (``A_log``, ``D`` and the router stay f32) and its npz round
+trip, the loss with the aux term, ``prefill`` against JAX ``"pallas"``
+(K5 and K6 in interpret mode) and ``decode_step`` agree at 1e-5.
 """
 import jax
 import jax.numpy as jnp
@@ -216,7 +224,8 @@ def test_decode_step_matches_jax(window):
 def test_decode_of_unported_mixers_raises():
     cfg = _cfg()
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        ttr.layer_cache_init("mamba:dense", cfg, 1, 8, torch.float32, "cpu")
+        ttr.layer_cache_init("gqa:moe_dense", cfg, 1, 8, torch.float32,
+                             "cpu")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         ttr.layer_decode({}, "mla:dense", None, cfg, {}, torch.tensor(0))
 
@@ -319,6 +328,201 @@ def test_xlstm_decode_step_matches_jax_with_states_in_place():
         [tuple(t.shape) for t in jax.tree.leaves(jc)]
     for t, j in zip(leaves(tc), jax.tree.leaves(jc)):
         _close(t, j)
+    ptrs = [t.data_ptr() for t in leaves(tc)]
+    jtok, ttok = jnp.asarray(prompt[:, :1]), torch.tensor(prompt[:, :1])
+    for pos in range(14):
+        jl, jc = jtr.decode_step(jp, cfg, jc, jtok, jnp.int32(pos))
+        tl, tc2 = ttr.decode_step(tp, cfg, tc, ttok, torch.tensor(pos))
+        assert tc2 is tc
+        _close(tl, jl)
+        if pos + 1 < prompt.shape[1]:
+            jtok = jnp.asarray(prompt[:, pos + 1:pos + 2])
+            ttok = torch.tensor(prompt[:, pos + 1:pos + 2])
+        else:
+            jtok = jnp.argmax(jl, -1).astype(jnp.int32)
+            ttok = torch.argmax(tl, -1)
+            np.testing.assert_array_equal(ttok.numpy(), np.asarray(jtok))
+    assert [t.data_ptr() for t in leaves(tc)] == ptrs
+    for t, j in zip(leaves(tc), jax.tree.leaves(jc)):
+        _close(t, j)
+
+
+# ---------------------------------------------------------------------------
+# jamba-v0.1-52b: Mamba and MoE layers, the Mamba decode state
+# ---------------------------------------------------------------------------
+def _jcfg():
+    return get_smoke_config("jamba-v0.1-52b")
+
+
+def _layer_np(init, cfg, seed):
+    return _np(init(jax.random.PRNGKey(seed), cfg, jnp.float32))
+
+
+@pytest.mark.parametrize("impl", ["kernel", "ref"])
+def test_mamba_apply_matches_jax(impl):
+    """One Mamba mixer over 24 tokens against JAX ``mamba_apply(impl=
+    "pallas")`` (K6 in interpret mode) at 1e-5; the port's ``"kernel"``
+    reaches ``ops.selective_scan`` (its plain version on CPU tensors)."""
+    from repro.models import mamba as jmam
+    from repro_torch.models import mamba as tmam
+    cfg = _jcfg()
+    p = _layer_np(jmam.mamba_init, cfg, 5)
+    x = np.random.default_rng(5).standard_normal(
+        (2, 24, cfg.d_model)).astype(np.float32)
+    want = jmam.mamba_apply(jax.tree.map(jnp.asarray, p), jnp.asarray(x),
+                            cfg, impl="pallas")
+    got = tmam.mamba_apply(tio.params_from_numpy(p, "cpu"), torch.tensor(x),
+                           cfg, impl=impl)
+    _close(got, want)
+
+
+def test_mamba_decode_matches_jax_with_state_in_place():
+    """Twelve tokens one at a time: outputs every step and the conv tail
+    and SSM state at the end agree at 1e-5; the state is updated in place
+    and equals the state a 12-token scan leaves."""
+    from repro.models import mamba as jmam
+    from repro_torch.models import mamba as tmam
+    cfg = _jcfg()
+    p = _layer_np(jmam.mamba_init, cfg, 6)
+    jp, tp = jax.tree.map(jnp.asarray, p), tio.params_from_numpy(p, "cpu")
+    x = np.random.default_rng(6).standard_normal(
+        (2, 12, cfg.d_model)).astype(np.float32)
+    jst = jmam.mamba_state_init(cfg, 2, jnp.float32)
+    tst = tmam.mamba_state_init(cfg, 2, torch.float32, "cpu")
+    ptrs = {k: t.data_ptr() for k, t in tst.items()}
+    for t in range(12):
+        jy, jst = jmam.mamba_decode(jp, jnp.asarray(x[:, t:t + 1]), cfg, jst,
+                                    t)
+        ty, tst2 = tmam.mamba_decode(tp, torch.tensor(x[:, t:t + 1]), cfg,
+                                     tst, torch.tensor(t))
+        assert tst2 is tst
+        _close(ty, jy)
+    assert {k: t.data_ptr() for k, t in tst.items()} == ptrs
+    for key in ("conv", "ssm"):
+        _close(tst[key], jst[key])
+    _close(tmam.mamba_apply(tp, torch.tensor(x), cfg)[:, -1:], jy)
+
+
+@pytest.mark.parametrize("factor,B,S,shared", [
+    (0.5, 4, 32, 0),       # drops tokens, 8 dispatch groups
+    (1.25, 2, 16, 0),      # the config's factor, 2 groups
+    (1.25, 2, 16, 1),      # with a shared expert
+    (4.0, 1, 8, 0),        # drop-free, one group
+])
+def test_moe_apply_matches_jax(factor, B, S, shared):
+    """``moe_apply`` y and Switch aux loss at 1e-5 against JAX, over the
+    grouped sort-based dispatch, including dropped tokens."""
+    from repro.models import moe as jmoe
+    from repro_torch.models import moe as tmoe
+    cfg = _jcfg().with_(capacity_factor=factor, n_shared_experts=shared)
+    T, E, k = B * S, cfg.n_experts, cfg.top_k
+    G = tmoe.n_groups(T, E)
+    assert G == jmoe.n_groups(T, E)
+    cap = tmoe.capacity(T // G, cfg)
+    assert cap == jmoe.capacity(T // G, cfg)
+    if factor == 0.5:
+        assert G == 8 and G * E * cap < T * k      # some tokens must drop
+    p = _layer_np(jmoe.moe_init, cfg, 7)
+    assert ("shared" in p) == bool(shared)
+    x = np.random.default_rng(7).standard_normal(
+        (B, S, cfg.d_model)).astype(np.float32)
+    jy, jaux = jmoe.moe_apply(jax.tree.map(jnp.asarray, p), jnp.asarray(x),
+                              cfg)
+    ty, taux = tmoe.moe_apply(tio.params_from_numpy(p, "cpu"),
+                              torch.tensor(x), cfg)
+    assert ty.dtype == torch.float32 and taux.dtype == torch.float32
+    _close(ty, jy)
+    _close(taux, jaux)
+
+
+def test_jamba_params_tree_matches_jax_layout_bf16():
+    """Keys, order, shapes and dtypes of the bf16 tree: ``A_log``, ``D``
+    and the router are f32 in both packages, and ``params_from_numpy``
+    keeps each leaf's dtype."""
+    cfg = _jcfg()
+    jp = jtr.init_params(jax.random.PRNGKey(0), cfg, jnp.bfloat16)
+    tp = ttr.init_params(0, cfg, torch.bfloat16, device="cpu")
+    jpaths = ["/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                       for k in path)
+              for path, _ in jax.tree_util.tree_flatten_with_path(jp)[0]]
+    assert [p for p, _ in leaves_with_path(tp)] == jpaths
+    assert [tuple(t.shape) for t in leaves(tp)] == \
+        [tuple(x.shape) for x in jax.tree.leaves(jp)]
+    want = _dtype_names(jp, torch_side=False)
+    assert _dtype_names(tp, torch_side=True) == want
+    f32 = {p.rsplit("/", 1)[1] for p, d in zip(jpaths, want)
+           if d == "float32"}
+    assert f32 == {"A_log", "D", "router"}
+    assert _dtype_names(tio.params_from_numpy(_np(jp), "cpu"),
+                        torch_side=True) == want
+    assert ttr.count_params(tp) == jtr.count_params(jp)
+
+
+def test_jamba_npz_checkpoint_keeps_f32_leaves(tmp_path):
+    """A bf16 jamba tree written by JAX restores bit for bit in the port
+    with its f32 leaves f32, and back."""
+    from repro.checkpoint import io as jio
+    cfg = _jcfg()
+    jp = jtr.init_params(jax.random.PRNGKey(3), cfg, jnp.bfloat16)
+    jio.save_pytree(str(tmp_path / "j.npz"), jp)
+    like = ttr.init_params(1, cfg, torch.bfloat16, device="cpu")
+    tp = tio.restore_pytree(str(tmp_path / "j.npz"), like)
+    assert _dtype_names(tp, True) == _dtype_names(jp, False)
+    for t, j in zip(leaves(tp), jax.tree.leaves(jp)):
+        np.testing.assert_array_equal(tio.params_to_numpy(t), np.asarray(j))
+    tio.save_pytree(str(tmp_path / "t.npz"), tp)
+    back = jio.restore_pytree(str(tmp_path / "t.npz"), jp)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(jp)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_jamba_loss_with_aux_matches_jax():
+    """The loss sums the MoE layers' aux losses, as in JAX: total, LM and
+    aux loss at 1e-5."""
+    cfg = _jcfg()
+    jp = jtr.init_params(jax.random.PRNGKey(0), cfg, jnp.float32)
+    x, y = _tokens(cfg)
+    jl, jm = jtr.loss_fn(jp, cfg, {"tokens": jnp.asarray(x),
+                                   "labels": jnp.asarray(y)})
+    tl, tm = ttr.loss_fn(tio.params_from_numpy(_np(jp), "cpu"), cfg,
+                         {"tokens": torch.tensor(x),
+                          "labels": torch.tensor(y)})
+    assert float(jm["aux_loss"]) > 0
+    _close(tl, jl)
+    _close(tm["lm_loss"], jm["lm_loss"])
+    _close(tm["aux_loss"], jm["aux_loss"])
+
+
+@pytest.mark.parametrize("impl", ["kernel", "ref"])
+def test_jamba_prefill_matches_jax_pallas(impl):
+    """Last-position logits over 32 tokens against JAX ``prefill(impl=
+    "pallas")`` (K5 and K6 in interpret mode) at 1e-5."""
+    cfg = _jcfg()
+    jp = jtr.init_params(jax.random.PRNGKey(1), cfg, jnp.float32)
+    x, _ = _tokens(cfg, B=2, S=32, seed=4)
+    want = jtr.prefill(jp, cfg, {"tokens": jnp.asarray(x)}, impl="pallas")
+    got = ttr.prefill(tio.params_from_numpy(_np(jp), "cpu"), cfg,
+                      {"tokens": torch.tensor(x)}, impl=impl)
+    assert tuple(got.shape) == (2, cfg.vocab_size)
+    _close(got, want)
+
+
+def test_jamba_decode_step_matches_jax_with_states_in_place():
+    """A 6-token prompt then 8 greedy tokens through the Mamba + MoE layer
+    and the attention layer: logits every step, the greedy tokens, and
+    every cache leaf at the end agree at 1e-5; ``decode_step`` updates the
+    cache it was given in place."""
+    cfg = _jcfg()
+    jp = jtr.init_params(jax.random.PRNGKey(2), cfg, jnp.float32)
+    tp = tio.params_from_numpy(_np(jp), "cpu")
+    prompt, _ = _tokens(cfg, B=2, S=6, seed=3)
+    jc = jtr.init_cache(cfg, 2, 16, jnp.float32)
+    tc = ttr.init_cache(cfg, 2, 16, torch.float32, device="cpu")
+    assert [p for p, _ in leaves_with_path(tc)] == [
+        "0/p0/conv", "0/p0/ssm", "0/p1/k", "0/p1/v"]
+    assert [tuple(t.shape) for t in leaves(tc)] == \
+        [tuple(t.shape) for t in jax.tree.leaves(jc)]
     ptrs = [t.data_ptr() for t in leaves(tc)]
     jtok, ttok = jnp.asarray(prompt[:, :1]), torch.tensor(prompt[:, :1])
     for pos in range(14):

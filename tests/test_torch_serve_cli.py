@@ -53,6 +53,20 @@ def test_serve_cli_runs_xlstm_on_the_cpu(capsys):
     assert len(toks) == 3 and all(0 <= t < 256 for t in toks)
 
 
+def test_serve_cli_runs_jamba_on_the_cpu(capsys):
+    """``--arch jamba-v0.1-52b`` goes to its smoke config (Mamba + MoE and
+    attention layers), as the JAX CLI's does."""
+    argv = ARGS + ["--arch", "jamba-v0.1-52b"]
+    assert tserve.main(argv + ["--device", "cpu"]) == 0
+    t_out = capsys.readouterr().out.splitlines()
+    assert jserve.main(argv) == 0
+    j_out = capsys.readouterr().out.splitlines()
+    assert LINE.match(t_out[0]).groups() == LINE.match(j_out[0]).groups()
+    assert t_out[0].startswith("jamba-smoke:") and "device=cpu" in t_out[0]
+    toks = ast.literal_eval(t_out[1].split(":", 1)[1].strip())
+    assert len(toks) == 3 and all(0 <= t < 512 for t in toks)
+
+
 def test_serve_cli_needs_a_card_unless_told_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

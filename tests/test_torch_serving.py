@@ -1,8 +1,9 @@
 """The port's serving stack against the JAX package's: ``core/ensemble``,
 ``ModelBank`` (versioning, staleness, ensemble mode, persistence across
 packages), ``ServeLoop`` (greedy tokens, hot swap without a new build,
-the error cases; internlm2 over a KV cache and xlstm over its recurrent
-state) and ``launch/steps.make_prefill_step``.
+the error cases; internlm2 over a KV cache, xlstm over its recurrent
+state, jamba over its Mamba state, KV cache and MoE FFN) and
+``launch/steps.make_prefill_step``.
 
 Params are JAX-initialised and carried across with ``params_from_numpy``;
 inputs come from numpy with a fixed seed. Greedy tokens must be equal;
@@ -279,6 +280,53 @@ def test_xlstm_make_prefill_step_matches_jax():
     cfg = get_smoke_config("xlstm-1.3b")
     jp = jtr.init_params(jax.random.PRNGKey(7), cfg, jnp.float32)
     x = np.random.default_rng(7).integers(0, cfg.vocab_size,
+                                          (2, 24)).astype(np.int32)
+    want = jsteps.make_prefill_step(cfg, impl="pallas")(
+        jp, {"tokens": jnp.asarray(x)})
+    got = tsteps.make_prefill_step(cfg, impl="kernel")(
+        _t(jp), {"tokens": torch.tensor(x)})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_jamba_serveloop_tokens_equal_jax_and_swap_needs_no_build():
+    """jamba-v0.1-52b's smoke config through the loop at its own capacity
+    factor: greedy tokens equal the JAX loop's before and after a
+    ModelBank swap, with one decode-step build. At a drop-free capacity
+    factor (capacity dropping depends on how many tokens a call sees) the
+    loop's last-prompt logits are ``prefill(impl="kernel")``'s at 1e-5."""
+    cfg = get_smoke_config("jamba-v0.1-52b")
+    p0 = jtr.init_params(jax.random.PRNGKey(0), cfg, jnp.float32)
+    p1 = jtr.init_params(jax.random.PRNGKey(1), cfg, jnp.float32)
+    prompts = np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 5)).astype(np.int32)
+    jloop = JLoop(cfg, p0, batch=2, max_seq=12)
+    loop = ServeLoop(cfg, _t(p0), batch=2, max_seq=12, device="cpu")
+    gen0, _ = loop.generate(torch.tensor(prompts), 4)
+    jgen0, _ = jloop.generate(jnp.asarray(prompts), 4)
+    np.testing.assert_array_equal(gen0.numpy(), np.asarray(jgen0))
+    free = cfg.with_(capacity_factor=float(cfg.n_experts))
+    logits, _ = ServeLoop(free, loop.params, batch=2, max_seq=12,
+                          device="cpu").prefill(torch.tensor(prompts))
+    torch.testing.assert_close(
+        logits[:, 0], ttr.prefill(loop.params, free,
+                                  {"tokens": torch.tensor(prompts)},
+                                  impl="kernel"), rtol=1e-5, atol=1e-5)
+    bank, jbank = ModelBank(), JBank()
+    bank.publish(_t(p1), round_i=1)
+    jbank.publish(p1, round_i=1)
+    assert loop.poll(bank) and jloop.poll(jbank)
+    gen1, stats1 = loop.generate(torch.tensor(prompts), 4)
+    jgen1, _ = jloop.generate(jnp.asarray(prompts), 4)
+    np.testing.assert_array_equal(gen1.numpy(), np.asarray(jgen1))
+    assert not torch.equal(gen1, gen0)
+    assert loop.compile_count() == 1 and stats1["version"] == 1
+
+
+def test_jamba_make_prefill_step_matches_jax():
+    cfg = get_smoke_config("jamba-v0.1-52b")
+    jp = jtr.init_params(jax.random.PRNGKey(8), cfg, jnp.float32)
+    x = np.random.default_rng(8).integers(0, cfg.vocab_size,
                                           (2, 24)).astype(np.int32)
     want = jsteps.make_prefill_step(cfg, impl="pallas")(
         jp, {"tokens": jnp.asarray(x)})
