@@ -15,7 +15,12 @@ Phases:
      selective-scan loops of 2048 steps, >= 3) beside the plain version,
      the bound and, for K5, ``F.scaled_dot_product_attention`` (the
      library yardstick, which the port never calls; no PyTorch call
-     computes K6's or K7's recurrence);
+     computes K6's or K7's recurrence). K5 and K7 run their products on
+     the tensor cores in 3xTF32: their bound is taken at a third of the
+     TF32 rate, with the CUDA-core bound they were held to before beside
+     it (``bound_f32_cuda_ms``), their achieved TFLOP/s, each kernel's
+     registers and spills from ``-Xptxas -v``, and K7's device time per
+     pass (``torch.profiler``);
   4. a small Algorithm 1 run (smoke config, K=3, 2 rounds, fused codec) on
      the card against the same run on the CPU;
   5. the main path at internlm2-1.8b's full width (depth cut to 16 of 24
@@ -25,7 +30,8 @@ Phases:
      after; each must show its kernels launched;
   6. serving at internlm2-1.8b's full width and all 24 layers, f32:
      (a) ``make_prefill_step(cfg, impl="kernel")`` over 8 x 2048-token
-     prompts, twice, K5 launched once per layer per prefill; (b)
+     prompts, twice, K5 launched once per layer per prefill, the second
+     with a synchronised span around K5; (b)
      ``ServeLoop``, batch 8, a 128-token prompt, 64 new tokens, max_seq
      256, its decode loop under ``torch.cuda.set_sync_debug_mode("error")``;
      (c) a second model published to a ``ModelBank`` and polled in, whose
@@ -49,7 +55,7 @@ Phases:
      with 16 experts top-2 in 4 of them, dense FFNs in 4), f32: (a) two
      prefills of 8 x 2048 tokens, K6 launched 7 times and K5 once in
      each, the second with synchronised spans around the Mamba layers,
-     K6, the MoE FFNs, the dense FFNs and the attention layer; (b) the
+     K6, the MoE FFNs, the dense FFNs, the attention layer and K5; (b) the
      ServeLoop as in phase 6, at the config's capacity factor 1.25; (c)
      the loop's tokens against an eager ``decode_step`` loop of the SAME
      model (two f32 copies of 53 GB do not fit the card, so no second
@@ -110,7 +116,13 @@ FA_SMALL = [(1, 128, 128, 4, 4, 32, 32, 0), (2, 256, 256, 8, 2, 64, 64, 0),
             (1, 128, 128, 4, 1, 32, 32, 0), (2, 512, 512, 4, 2, 128, 128, 0),
             (2, 200, 200, 4, 2, 128, 128, 0), (1, 77, 333, 4, 2, 128, 96, 0),
             (1, 256, 256, 4, 2, 32, 32, 32), (1, 256, 256, 4, 2, 32, 32, 128),
-            (2, 150, 300, 6, 3, 16, 16, 100), (1, 1, 70, 2, 1, 128, 128, 0)]
+            (2, 150, 300, 6, 3, 16, 16, 100), (1, 1, 70, 2, 1, 128, 128, 0),
+            # one below and one above K5's tiles: a block holds 128 rows of
+            # one GQA group (128 / (H/KV) positions) and walks 64-key tiles;
+            # GQA ratios 1, 2 and 4, hd_v != hd
+            (1, 127, 127, 4, 4, 64, 64, 0), (1, 129, 129, 4, 4, 64, 48, 0),
+            (2, 63, 63, 8, 4, 64, 64, 0), (2, 65, 129, 8, 4, 128, 96, 0),
+            (1, 31, 65, 8, 2, 32, 32, 0), (1, 33, 63, 8, 2, 128, 64, 0)]
 # K5 at the serving paths' shapes, 8 x 2048 tokens: internlm2-1.8b's heads
 # (phase 6, the kernels line's K5 entry) and jamba-v0.1-52b's attention
 # layer (phase 8: 4 query heads per KV head)
@@ -121,7 +133,11 @@ FA_PATH_JAMBA = (8, 2048, 2048, 32, 8, 128, 128, 0)
 # sweep's shapes and xlstm-1.3b's head size
 ML_TOL = {"rtol": 2e-4, "atol": 2e-4}
 ML_SMALL = [(2, 1, 3, 64), (2, 37, 3, 128), (2, 300, 3, 1024),
-            (1, 64, 2, 32), (2, 128, 4, 64)]
+            (1, 64, 2, 32), (2, 128, 4, 64),
+            # around K7's chunk of 128 steps (L - 1, L, L + 1, 2L + 3), and
+            # head sizes that are not multiples of the products' depth of 8
+            (2, 127, 3, 64), (2, 128, 2, 36), (1, 129, 2, 100),
+            (1, 259, 2, 128)]
 # gate regimes: (ig shift, fg shift, q and k drawn >= 0); see
 # tests/test_torch_gpu.py mlstm_inputs for why "positive" draws q, k >= 0
 ML_GATES = {"standard": (0.0, 2.0, False), "negative": (-8.0, -8.0, False),
@@ -179,6 +195,49 @@ def f32_peak(name):
     if "H100" in name and "NVL" in name:
         return 60e12
     return 67e12                        # H100 SXM, H200
+
+
+def tf32_peak(name):
+    """Published dense TF32 tensor-core rate (flop/s); K5 and K7 take three
+    TF32 products per f32-accurate product (3xTF32), so their rate is a
+    third of it."""
+    if "H100" in name and "PCIe" in name:
+        return 378e12
+    if "H100" in name and "NVL" in name:
+        return 417e12
+    return 495e12                       # H100 SXM, H200
+
+
+def tc_bound(name, bw, flops, nbytes, cuda_flops):
+    """K5's and K7's bound: the larger of ``flops`` at the 3xTF32 rate and
+    ``nbytes`` over the memory rate; beside it the CUDA-core bound they were
+    held to before (``cuda_flops`` at the f32 rate, or the bytes)."""
+    t_ops = 1e3 * flops / (tf32_peak(name) / 3)
+    t_bytes = 1e3 * nbytes / bw
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": ("operations (3xTF32 tensor cores)"
+                         if t_ops >= t_bytes else "bytes"),
+            "bound_f32_cuda_ms": max(1e3 * cuda_flops / f32_peak(name),
+                                     t_bytes)}
+
+
+def ptxas_lines(library):
+    """``-Xptxas -v``'s registers, spills and shared memory of each kernel
+    of ``library`` this process built: {kernel: [lines]}."""
+    import re
+    from repro_torch.kernels import _build
+    out, fn = {}, None
+    for line in _build.BUILD_LOGS.get(library, "").splitlines():
+        if "Compiling entry function" in line:
+            # e.g. ..16flash_fwd_kernelIfLb1EE.. -> flash_fwd_kernel<f32,1>
+            m = re.search(r"\d+([a-z_]+_kernel)I(13__nv_bfloat16|f)(Lb([01])E)?",
+                          line)
+            fn = (f"{m[1]}<{'bf16' if m[2] != 'f' else 'f32'}"
+                  f"{',' + m[4] if m[4] else ''}>" if m
+                  else line.split("'")[1])
+        elif fn and ("registers" in line or "spill" in line):
+            out.setdefault(fn, []).append(line.split(":", 1)[-1].strip())
+    return out
 
 
 def attention_pairs(Sq, Sk, window):
@@ -362,14 +421,12 @@ def phase_flash_full(torch, dev, errs, name, bw, shape, seed):
     pairs = attention_pairs(Sq, Sk, window)
     flops = 2 * B * H * pairs * (hd + hd_v)
     nbytes = 4 * (q.numel() + k.numel() + v.numel() + B * Sq * H * hd_v)
-    bound = max(1e3 * flops / f32_peak(name), 1e3 * nbytes / bw)
     errs["flash_attention"] = max(errs["flash_attention"], err)
     out = {"shape": list(shape), "dtype": "float32", "ms": ms,
            "plain_ms": plain, "library_ms": lib, "flops": flops,
-           "bytes": nbytes, "bound_ms": bound,
-           "bound_by": "operations" if 1e3 * flops / f32_peak(name)
-           >= 1e3 * nbytes / bw else "bytes",
-           "tflops": flops / ms / 1e9, "library_max_abs_diff": lib_err}
+           "bytes": nbytes, **tc_bound(name, bw, flops, nbytes, flops),
+           "tflops": flops / ms / 1e9, "library_max_abs_diff": lib_err,
+           "ptxas": ptxas_lines("flash_attention")}
     say("kernels-full", kernel="flash_attention", **out, max_abs_err=err)
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
@@ -435,18 +492,50 @@ def phase_mlstm_full(torch, dev, errs, name, bw):
     ms = cuda_ms(torch, lambda: ml.mlstm_fwd(q, k, v, ig, fg))
     plain = cuda_ms(torch, lambda: ref.mlstm_ref(q, k, v, ig, fg), reps=3,
                     warmup=1)
-    flops = 5 * hd * hd * B * H * S
+    # the least work: the state update and the read-out, 2 hd^2 flop each
+    # per step (the chunkwise count as the chunk tends to 0); the CUDA-core
+    # bound counted the stepwise form's 5 hd^2 (an extra multiply per
+    # element of C)
+    flops = 4 * hd * hd * B * H * S
     nbytes = 4 * (4 * B * S * H * hd + 2 * B * S * H)
-    t_ops, t_bytes = 1e3 * flops / f32_peak(name), 1e3 * nbytes / bw
     errs["mlstm"] = max(errs["mlstm"], err)
+    torch.cuda.reset_peak_memory_stats()
+    passes = device_ms_by_kernel(torch, lambda: ml.mlstm_fwd(q, k, v, ig, fg),
+                                 ("gates_kernel", "states_kernel",
+                                  "intra_kernel", "out_kernel"))
+    peak = torch.cuda.max_memory_allocated()
     out = {"shape": list(ML_PATH), "dtype": "float32", "ms": ms,
            "plain_ms": plain, "library_ms": None, "flops": flops,
-           "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
-           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-           "tflops": flops / ms / 1e9}
+           "bytes": nbytes,
+           **tc_bound(name, bw, flops, nbytes, 5 * hd * hd * B * H * S),
+           "tflops": flops / ms / 1e9,
+           "scratch_GB": 4 * ml.scratch_floats(B, S, H, hd) / 1e9,
+           "passes_ms": passes,
+           "peak_mem_GB": peak / 1e9, "ptxas": ptxas_lines("mlstm")}
     say("kernels-full", kernel="mlstm", **out, max_abs_err=err)
     del q, k, v, ig, fg
     torch.cuda.empty_cache()
+    return out
+
+
+def device_ms_by_kernel(torch, fn, names, reps=5):
+    """Mean device milliseconds per call of ``fn`` spent in each kernel
+    whose name contains one of ``names`` (``torch.profiler``), or None
+    where the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names)
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None)
+        t = t if t is not None else getattr(e, "cuda_time_total", 0)
+        for n in names:
+            if n in e.key and t:
+                out[n] = (out[n] or 0.0) + t / 1e3 / reps
     return out
 
 
@@ -1005,9 +1094,10 @@ def _loop_swap(torch, dev, cfg, params, g, tol, tag, end_to_end=True,
             "loop_vs_prefill": d, "tol": tol, "peak_mem_GB": peak / 1e9}
 
 
-def phase_serving(torch, dev, launches_out):
-    """Phase 6: prefill through K5, the ServeLoop, a hot swap from a
-    ModelBank, at internlm2-1.8b's full width and all 24 layers."""
+def phase_serving(torch, dev, launches_out, k5_ms):
+    """Phase 6: prefill through K5 (K5's synchronised span in the second),
+    the ServeLoop, a hot swap from a ModelBank, at internlm2-1.8b's full
+    width and all 24 layers."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as tr
@@ -1021,8 +1111,10 @@ def phase_serving(torch, dev, launches_out):
     tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
                            device=dev)
     ops.reset_launch_counts()
-    prefill_s, _ = _prefills(torch, cfg, params, tokens,
-                             {"flash_attention": cfg.n_layers}, "6")
+    prefill_s, spans = _prefills(torch, cfg, params, tokens,
+                                 {"flash_attention": cfg.n_layers}, "6",
+                                 span_targets=[(ops, "flash_attention",
+                                                "k5")])
     peak_prefill = torch.cuda.max_memory_allocated()
     del tokens
     torch.cuda.empty_cache()
@@ -1039,6 +1131,10 @@ def phase_serving(torch, dev, launches_out):
         prefill={"seq_len": S, "seconds": prefill_s,
                  "tokens_per_s": [B * S / x for x in prefill_s],
                  "k5_launches_per_prefill": cfg.n_layers,
+                 "spans_s_second_prefill": spans,
+                 "k5_share_second_prefill": spans["k5"] / prefill_s[1],
+                 "k5_share_from_phase3_ms": cfg.n_layers * k5_ms / 1e3
+                 / prefill_s[0],
                  "peak_mem_GB": peak_prefill / 1e9},
         launches=counts, **rec)
     del params
@@ -1101,6 +1197,7 @@ def phase_xlstm_serving(torch, dev, launches_out, k7_ms, bw):
                  "tokens_per_s": [B * S / x for x in prefill_s],
                  "k7_launches_per_prefill": n_mlstm,
                  "spans_s_second_prefill": spans,
+                 "k7_share_second_prefill": spans["k7"] / prefill_s[1],
                  "k7_share_from_phase3_ms": n_mlstm * k7_ms / 1e3
                  / prefill_s[0],
                  "peak_mem_GB": peak_prefill / 1e9},
@@ -1151,7 +1248,8 @@ def phase_jamba_serving(torch, dev, launches_out, k6_ms, bw):
                       (ops, "selective_scan", "k6"),
                       (moe_mod, "moe_apply", "moe_ffns"),
                       (tr, "ffn_apply", "dense_ffns"),
-                      (attn, "attn_apply", "attention_layer")])
+                      (attn, "attn_apply", "attention_layer"),
+                      (ops, "flash_attention", "k5")])
     peak_prefill = torch.cuda.max_memory_allocated()
     del tokens
     torch.cuda.empty_cache()
@@ -1185,6 +1283,7 @@ def phase_jamba_serving(torch, dev, launches_out, k6_ms, bw):
                  "spans_s_second_prefill": spans,
                  "k6_share_from_phase3_ms": n_mamba * k6_ms / 1e3
                  / prefill_s[1],
+                 "k5_share_second_prefill": spans["k5"] / prefill_s[1],
                  "peak_mem_GB": peak_prefill / 1e9},
         decode_state_GB=state_bytes / 1e9,
         decode_bound_ms_per_step=1e3 * (decode_weight_bytes(params, cfg, B)
@@ -1253,7 +1352,7 @@ def main(argv=None):
                         launches)
     check(c_c["wire_quantize"] > 0 and c_c["wire_dequantize"] > 0,
           "5c: K1/K2 not launched")
-    phase_serving(torch, dev, launches)
+    phase_serving(torch, dev, launches, timing["flash_attention"]["ms"])
     phase_xlstm_serving(torch, dev, launches, timing["mlstm"]["ms"], bw)
     phase_jamba_serving(torch, dev, launches,
                         timing["selective_scan"]["ms"], bw)
@@ -1266,7 +1365,9 @@ def main(argv=None):
             "replaces": replaces, "launches": launches[kname],
             "max_abs_err": errs[kname], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t.get("library_ms")})
+            "bound_by": t["bound_by"], "library_ms": t.get("library_ms"),
+            **({"bound_f32_cuda_ms": t["bound_f32_cuda_ms"]}
+               if "bound_f32_cuda_ms" in t else {})})
     RECORD["kernels"] = kernels
     RECORD["seconds"] = time.time() - t_start
     out = ROOT / "build"

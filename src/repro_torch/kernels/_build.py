@@ -9,7 +9,10 @@ path, and its own C entry points (``API``): the wire kernels build with
 ``-fmad=false``, which keeps every multiply and add separately rounded as
 XLA's dequantize-then-sum is; flash attention (held to 2e-5), the
 mLSTM recurrence (2e-4) and the selective scan (1e-5) keep fused
-multiply-adds. Nothing here runs at import time.
+multiply-adds. Flash attention and the mLSTM share ``csrc/tf32_mma.cuh``
+(the 3xTF32 tensor-core products and cp.async staging): every ``*.cuh``
+there is hashed into each library's path and ``csrc/`` is on the include
+path. Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -44,8 +47,9 @@ FLASH_API = {
     "flash_attention_fwd": (_P, _P, _P, _P, _I32, *(_I64,) * 8, _F32, _P),
 }
 MLSTM_API = {
-    # q, k, v, ig, fg, h, dtype, gate_dtype, B, S, H, hd, scale, stream
-    "mlstm_fwd": (*(_P,) * 6, _I32, _I32, *(_I64,) * 4, _F32, _P),
+    # q, k, v, ig, fg, h, scratch, dtype, gate_dtype, B, S, H, hd, scale,
+    # stream
+    "mlstm_fwd": (*(_P,) * 7, _I32, _I32, *(_I64,) * 4, _F32, _P),
 }
 SCAN_API = {
     # xc, dt, Bm, Cm, A, D, y, h, x_dtype, B, S, di, st, stream
@@ -71,15 +75,19 @@ def nvcc_path():
 
 
 def lib_path(name="wire"):
-    src = CSRC / f"{name}.cu"
-    flags = " ".join(NVCC_FLAGS[name]).encode()
-    h = hashlib.sha256(src.read_bytes() + flags)
+    """``build/kernels/<hash>/lib<name>.so``, the hash over the source, every
+    header under ``csrc/`` (by name and bytes) and the flags, so a changed
+    header never leaves a stale library in place."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS[name]).encode())
     return REPO_ROOT / "build" / "kernels" / h.hexdigest()[:16] / \
         f"lib{name}.so"
 
 
 def build_cmd(name, out):
-    return [nvcc_path(), *NVCC_FLAGS[name], "-o", str(out),
+    return [nvcc_path(), *NVCC_FLAGS[name], "-I", str(CSRC), "-o", str(out),
             str(CSRC / f"{name}.cu")]
 
 

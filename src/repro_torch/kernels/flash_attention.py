@@ -9,10 +9,13 @@ the tensors' device.
 
 Forward only, as the reference is: there is no backward kernel, and the
 model trains through ``models.attention.chunked_attention``. The TPU
-tiling (``block_q`` / ``block_k``) is not carried over; the kernel tiles
-by 64 and masks ragged tails, so no length needs to be a multiple of a
-block. Query rows must not outnumber keys (``Sq <= Sk``): a row before
-the first key would see no key at all.
+tiling (``block_q`` / ``block_k``) is not carried over: a block serves 128
+query rows of the heads that share one KV head and walks 64-key tiles,
+both products on the tensor cores in 3xTF32 (f32-accurate; bf16 inputs
+are widened to f32), and ragged tails are masked, so no length needs to
+be a multiple of a tile. Head sizes run up to ``HD_MAX`` (128), the
+widest tile a block keeps in shared memory. Query rows must not outnumber
+keys (``Sq <= Sk``): a row before the first key would see no key at all.
 """
 from __future__ import annotations
 
@@ -49,7 +52,9 @@ def flash_attention_fwd(q, k, v, *, n_kv_heads, window=0,
     if max(hd, hd_v) > HD_MAX:
         raise NotImplementedError(
             f"head sizes above {HD_MAX} (hd={hd}, hd_v={hd_v}) are not yet "
-            "ported: they come with MLA, see ROADMAP.md")
+            "ported: a block keeps 128 query rows and a 64-key tile of K "
+            "and V, 128 wide, in shared memory; wider heads come with MLA, "
+            "see ROADMAP.md")
     if Sq > Sk:
         raise ValueError(f"Sq={Sq} > Sk={Sk}: the first query rows would "
                          "see no key")

@@ -94,6 +94,14 @@ def test_gpu_k3_k4_kernels_match_plain(cuda, bits, K, n):
     (1, 77, 333, 4, 2, 128, 96, 0),       # Sq < Sk, hd_v != hd, odd
     (1, 256, 256, 4, 2, 32, 32, 32),      # window
     (2, 150, 300, 6, 3, 16, 16, 100),     # window, Sq < Sk, odd
+    # one below and one above the kernel's tiles (128 rows of one GQA
+    # group a block, 64-key tiles), GQA ratios 1, 2 and 4, hd_v != hd
+    (1, 127, 127, 4, 4, 64, 64, 0),
+    (1, 129, 129, 4, 4, 64, 48, 0),
+    (2, 63, 63, 8, 4, 64, 64, 0),
+    (2, 65, 129, 8, 4, 128, 96, 0),
+    (1, 31, 65, 8, 2, 32, 32, 0),
+    (1, 33, 63, 8, 2, 128, 64, 0),
 ])
 def test_gpu_k5_matches_plain(cuda, dtype, B, Sq, Sk, H, KV, hd, hd_v,
                               window):
@@ -157,6 +165,25 @@ def test_gpu_k7_matches_plain(cuda, dtype, S, hd, gates):
     got16 = tml.mlstm_fwd(q, k, v, ig.bfloat16(), fg.bfloat16())
     want16, _ = tref.mlstm_ref(q, k, v, ig.bfloat16(), fg.bfloat16())
     torch.testing.assert_close(got16, want16, rtol=2e-4, atol=2e-4)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [127, 128, 129, 259])
+@pytest.mark.parametrize("hd", [36, 100])
+@pytest.mark.parametrize("gates", list(MLSTM_GATES))
+def test_gpu_k7_chunk_boundaries_match_plain(cuda, dtype, S, hd, gates):
+    """K7 runs in chunks of 128 steps: lengths one below, at and one above
+    a chunk and two chunks and a tail, at head sizes that are not
+    multiples of the products' depth of 8, against ``ref.mlstm_ref`` at
+    2e-4, with f32 and bf16 gates."""
+    from repro_torch.kernels import mlstm as tml
+    q, k, v, ig, fg = mlstm_inputs(1, S, 2, hd, gates, cuda, dtype, seed=S)
+    for a, b in ((ig, fg), (ig.bfloat16(), fg.bfloat16())):
+        got = tml.mlstm_fwd(q, k, v, a, b)
+        want, _ = tref.mlstm_ref(q, k, v, a, b)
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
     torch.cuda.synchronize()
 
 

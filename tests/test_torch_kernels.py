@@ -24,6 +24,14 @@ against the JAX oracle, from the zero state and from a carried one, and
 against the Pallas kernel in interpret mode over ``test_kernels.py``'s
 sweep, at the JAX suite's 1e-5 (y and the final state).
 
+The arithmetic of K5's and K7's tensor-core designs is held here too, in
+plain torch helpers on no path: 3xTF32 products (TF32 rounding emulated)
+inside causal attention against the JAX oracle at 2e-5, with plain TF32
+shown to miss it; and K7's chunkwise passes (stepwise m, within-chunk F,
+weighted scores G, boundary states, outputs) against the JAX oracle and
+the Pallas kernel at 2e-4, around chunk boundaries and in the three gate
+regimes of ``chip_smoke.py``.
+
 The card half — each hand-written CUDA kernel against its plain version
 on the same CUDA inputs — is ``tests/test_torch_gpu.py``, which imports no
 JAX so that it runs on a machine with a card.
@@ -272,7 +280,7 @@ def test_build_tables_are_per_library(monkeypatch, tmp_path):
         assert "-fmad=false" not in _build.NVCC_FLAGS[name]
     assert set(_build.API["flash_attention"]) == {"flash_attention_fwd"}
     assert set(_build.API["mlstm"]) == {"mlstm_fwd"}
-    assert len(_build.API["mlstm"]["mlstm_fwd"]) == 14
+    assert len(_build.API["mlstm"]["mlstm_fwd"]) == 15
     assert set(_build.API["selective_scan"]) == {"selective_scan_fwd"}
     assert len(_build.API["selective_scan"]["selective_scan_fwd"]) == 14
     path = _build.lib_path("flash_attention")
@@ -290,6 +298,189 @@ def test_build_tables_are_per_library(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_LOADED", {})
     lib = _build.load("flash_attention")
     assert len(lib.flash_attention_fwd.argtypes) == 15
+
+
+def test_build_path_hashes_the_shared_headers(monkeypatch, tmp_path):
+    """A library's path changes with the bytes of any header under
+    ``csrc/`` (K5 and K7 include ``tf32_mma.cuh``), so a changed header
+    never loads a stale library; ``csrc/`` is on nvcc's include path."""
+    from repro_torch.kernels import _build
+    for f in ("mlstm.cu", "tf32_mma.cuh"):
+        (tmp_path / f).write_bytes((_build.CSRC / f).read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    path = _build.lib_path("mlstm")
+    assert path == _build.lib_path("mlstm")
+    header = tmp_path / "tf32_mma.cuh"
+    header.write_bytes(header.read_bytes() + b"\n")
+    edited = _build.lib_path("mlstm")
+    assert edited != path
+    (tmp_path / "extra.cuh").write_bytes(b"// another header\n")
+    assert _build.lib_path("mlstm") not in (path, edited)
+    monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
+    cmd = _build.build_cmd("mlstm", "out.so")
+    assert cmd[cmd.index("-I") + 1] == str(tmp_path)
+
+
+# ---------------------------------------------------------------------------
+# The arithmetic of the tensor-core designs of K5 and K7, in plain torch (test
+# helpers on no path): 3xTF32 products and the chunkwise mLSTM
+# ---------------------------------------------------------------------------
+def _tf32(x):
+    """Round f32 to TF32 as ``cvt.rna.tf32.f32`` does: to nearest, ties
+    away from zero, keeping 10 mantissa bits."""
+    b = x.contiguous().view(torch.int32)
+    return ((b + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as K5 and K7 take it on the tensor cores: each operand split
+    into hi = tf32(x) and lo = tf32(x - hi), then lo·hi + hi·lo + hi·hi
+    (the products of TF32 values are exact in f32)."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _mm_tf32(a, b):
+    return _tf32(a) @ _tf32(b)
+
+
+def _attention_with(mm, q, k, v, scale):
+    """Causal MHA (B,S,H,hd) with both products through ``mm``, the
+    softmax in f32 with the -1e30 mask, as K5 computes it."""
+    qt, kt, vt = (torch.tensor(a).permute(0, 2, 1, 3) for a in (q, k, v))
+    s = mm(qt * scale, kt.transpose(-1, -2))
+    S = s.shape[-1]
+    s = torch.where(torch.ones(S, S, dtype=torch.bool).tril(), s, -1e30)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    o = mm(p, vt) / p.sum(-1, keepdim=True).clamp_min(1e-30)
+    return o.permute(0, 2, 1, 3).numpy()
+
+
+def test_tf32_rounding_keeps_ten_mantissa_bits():
+    x = torch.tensor([1 + 2 ** -11, 1 + 3 * 2 ** -11, -(1 + 2 ** -11),
+                      1 + 2 ** -12, 3.0])
+    np.testing.assert_array_equal(
+        _tf32(x).numpy(),
+        np.array([1 + 2 ** -10, 1 + 2 ** -9, -(1 + 2 ** -10), 1.0, 3.0],
+                 np.float32))
+    y = torch.tensor(np.random.default_rng(0).standard_normal(1000),
+                     dtype=torch.float32)
+    hi = _tf32(y)
+    assert float(((y - hi) / y).abs().max()) <= 2 ** -11
+    assert float(((y - hi - _tf32(y - hi)) / y).abs().max()) <= 2 ** -21
+
+
+@pytest.mark.parametrize("split", ["3xtf32", "tf32"])
+@pytest.mark.parametrize("B,S,H,hd", [(1, 128, 2, 128), (2, 96, 2, 64)])
+def test_k5_3xtf32_split_holds_2e_5_and_plain_tf32_does_not(split, B, S, H,
+                                                            hd):
+    """K5's products in 3xTF32 inside causal attention agree with the JAX
+    oracle at K5's f32 tolerance, 2e-5; the same attention with plain TF32
+    products misses it by far, which is why the kernel splits."""
+    q, k, v = _qkv(B, S, S, H, H, hd)
+    want = np.asarray(jref.flash_attention_ref(
+        *(jnp.asarray(a) for a in (q, k, v)), n_kv_heads=H), np.float32)
+    mm = _mm_3xtf32 if split == "3xtf32" else _mm_tf32
+    got = _attention_with(mm, q, k, v, hd ** -0.5)
+    err = float(np.abs(got - want).max())
+    if split == "3xtf32":
+        np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+    else:
+        assert err > 2e-5 * 10, err
+
+
+def _mlstm_chunkwise(q, k, v, ig, fg, L, mm=torch.matmul):
+    """csrc/mlstm.cu's four passes in plain torch, f32 (numpy in, h out):
+    the stepwise m and F (summed in double from each chunk start), the
+    weighted intra-chunk scores G, the boundary states C and n, and the
+    outputs a·sc·Q C^T + G V over max(|n·q|, exp(-m))."""
+    B, S, H, hd = q.shape
+    sc = hd ** -0.25
+    q, k, v = (torch.tensor(a).permute(0, 2, 1, 3) for a in (q, k, v))
+    ig, fg = (torch.tensor(a).permute(0, 2, 1) for a in (ig, fg))
+    lf = -(torch.clamp(-fg, min=0) + torch.log1p(torch.exp(-fg.abs())))
+    M, F = torch.empty_like(ig), torch.empty_like(ig)
+    m = torch.full((B, H), -1e30)
+    Fd = torch.zeros((B, H), dtype=torch.float64)
+    for t in range(S):                       # pass 1: gates
+        Fd = (Fd if t % L else 0 * Fd) + lf[..., t].double()
+        m = torch.maximum(lf[..., t] + m, ig[..., t])
+        M[..., t], F[..., t] = m, Fd.float()
+    C = torch.zeros((B, H, hd, hd))
+    n = torch.zeros((B, H, hd, 1))
+    h = torch.empty((B, H, S, hd))
+    for c0 in range(0, S, L):
+        sl = slice(c0, min(S, c0 + L))
+        Fc, Mc, Ic = F[..., sl], M[..., sl], ig[..., sl]
+        qc, kc, vc = q[:, :, sl], k[:, :, sl], v[:, :, sl]
+        mc = M[..., c0 - 1] if c0 else torch.full((B, H), -1e30)
+        n_t = Fc.shape[-1]
+        causal = torch.ones(n_t, n_t, dtype=torch.bool).tril()
+        W = torch.exp((Fc[..., :, None] - Fc[..., None, :])
+                      + (Ic[..., None, :] - Mc[..., :, None]))
+        G = torch.where(causal, mm(qc, kc.transpose(-1, -2)) * (sc * sc) * W,
+                        0.0)                 # pass 3: intra
+        a = torch.exp(Fc + mc[..., None] - Mc)
+        nq = a * sc * mm(qc, n)[..., 0] + G.sum(-1)
+        den = torch.maximum(nq.abs(), torch.exp(-Mc))
+        num = ((a * sc)[..., None] * mm(qc, C.transpose(-1, -2))
+               + mm(G, vc))                  # pass 4: outputs
+        h[:, :, sl] = num / den[..., None]
+        we = torch.exp((Fc[..., -1:] - Fc) + (Ic - Mc[..., -1:])) * sc
+        ae = a[..., -1, None, None]          # pass 2: boundary states
+        C = ae * C + mm((vc * we[..., None]).transpose(-1, -2), kc)
+        n = ae * n + mm((kc * we[..., None]).transpose(-1, -2),
+                        torch.ones(n_t, 1))
+    return h.permute(0, 2, 1, 3).numpy()
+
+
+def _mlstm_regime(B, S, H, hd, gates, seed=0):
+    """chip_smoke.py's ML_GATES regimes: (ig shift, fg shift, q and k
+    drawn >= 0)."""
+    ish, fsh, nonneg = {"standard": (0.0, 2.0, False),
+                        "negative": (-8.0, -8.0, False),
+                        "positive": (8.0, 8.0, True)}[gates]
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((B, S, H, hd)).astype(np.float32)
+               for _ in range(3))
+    if nonneg:
+        q, k = np.abs(q), np.abs(k)
+    ig = (rng.standard_normal((B, S, H)) + ish).astype(np.float32)
+    fg = (rng.standard_normal((B, S, H)) + fsh).astype(np.float32)
+    return q, k, v, ig, fg
+
+
+@pytest.mark.parametrize("gates", ["standard", "negative", "positive"])
+@pytest.mark.parametrize("hd", [32, 36, 128])
+@pytest.mark.parametrize("L", [1, 16, 64, 128])
+def test_k7_chunkwise_passes_match_jax_ref(L, hd, gates):
+    """K7's chunkwise arithmetic against the JAX oracle at 2e-4, at the
+    lengths around chunk boundaries (1, L - 1, L, L + 1, 2L + 3), with its
+    products in f32 and, at the largest length, in 3xTF32 as on the card."""
+    for S in sorted({1, L - 1, L, L + 1, 2 * L + 3} - {0}):
+        xs = _mlstm_regime(1, S, 2, hd, gates, seed=S)
+        want, _ = jref.mlstm_ref(*(jnp.asarray(a) for a in xs))
+        want = np.asarray(want)
+        got = _mlstm_chunkwise(*xs, L)
+        np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4,
+                                   err_msg=f"S={S}")
+    got = _mlstm_chunkwise(*xs, L, mm=_mm_3xtf32)
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4,
+                               err_msg=f"S={S} 3xTF32")
+
+
+@pytest.mark.parametrize("B,S,H,hd,ck", [(1, 64, 2, 32, 32),
+                                         (2, 256, 2, 64, 64)])
+def test_k7_chunkwise_passes_match_jax_interpret(B, S, H, hd, ck):
+    """The same transcription (L = 128, 3xTF32 products) against the
+    Pallas kernel in interpret mode, tests/test_kernels.py's sweep, at
+    2e-4."""
+    xs = _mlstm_inputs(B, S, H, hd)
+    jh, _ = jops.mlstm(*(jnp.asarray(a) for a in xs), impl="interpret",
+                       chunk=ck)
+    np.testing.assert_allclose(_mlstm_chunkwise(*xs, 128, mm=_mm_3xtf32),
+                               np.asarray(jh), rtol=2e-4, atol=2e-4)
 
 
 # ---------------------------------------------------------------------------
