@@ -20,7 +20,11 @@ Phases:
      TF32 rate, with the CUDA-core bound they were held to before beside
      it (``bound_f32_cuda_ms``), their achieved TFLOP/s, each kernel's
      registers and spills from ``-Xptxas -v``, and K7's device time per
-     pass (``torch.profiler``);
+     pass (``torch.profiler``). K6 is held at 1e-5 with dt and A drawn
+     three ways (``SS_REGIMES``) and reports its registers, its SASS
+     instructions per state update (``cuobjdump``), the share of its exps
+     on the SFU (MUFU.EX2 in that loop), and the SFU's exp time beside its
+     byte bound;
   4. a small Algorithm 1 run (smoke config, K=3, 2 rounds, fused codec) on
      the card against the same run on the CPU;
   5. the main path at internlm2-1.8b's full width (depth cut to 16 of 24
@@ -149,7 +153,12 @@ ML_PATH = (8, 2048, 4, 1024)
 # step, a ragged length and width, jamba's width
 SS_TOL = {"rtol": 1e-5, "atol": 1e-5}
 SS_SMALL = [(1, 64, 128, 8), (2, 128, 256, 16), (1, 256, 128, 4),
-            (2, 1, 128, 16), (2, 37, 200, 8), (1, 64, 8192, 16)]
+            (2, 1, 128, 16), (2, 37, 200, 8), (1, 64, 8192, 16),
+            # around K6's chunks of 8 steps (two whole, two and a step)
+            (2, 16, 64, 16), (1, 17, 64, 16)]
+# how dt and A are drawn (_ss_inputs): the JAX suite's draw, Mamba's
+# initialisation (models/mamba.py), strong decay (|dt A| up to 48)
+SS_REGIMES = ("jax", "mamba_init", "strong")
 # K6 at the serving path's shape: jamba's d_inner and state, 8 x 2048
 SS_PATH = (8, 2048, 8192, 16)
 # depth of the full-width model: 16 of internlm2-1.8b's 24 layers. The
@@ -230,14 +239,49 @@ def ptxas_lines(library):
     for line in _build.BUILD_LOGS.get(library, "").splitlines():
         if "Compiling entry function" in line:
             # e.g. ..16flash_fwd_kernelIfLb1EE.. -> flash_fwd_kernel<f32,1>
-            m = re.search(r"\d+([a-z_]+_kernel)I(13__nv_bfloat16|f)(Lb([01])E)?",
-                          line)
+            # and selective_scan_kernelIfLi16EEv.. -> <f32,16>
+            m = re.search(r"\d+([a-z_]+_kernel)I(13__nv_bfloat16|f)"
+                          r"((?:L[ib]\d+E)*)", line)
             fn = (f"{m[1]}<{'bf16' if m[2] != 'f' else 'f32'}"
-                  f"{',' + m[4] if m[4] else ''}>" if m
-                  else line.split("'")[1])
+                  + "".join("," + a for a in re.findall(r"L[ib](\d+)E",
+                                                         m[3])) + ">"
+                  if m else line.split("'")[1])
         elif fn and ("registers" in line or "spill" in line):
             out.setdefault(fn, []).append(line.split(":", 1)[-1].strip())
     return out
+
+
+def sass_loop(so, kernel, per_iter):
+    """The SASS (``cuobjdump -sass``) of the steady-state loop of the
+    kernel whose mangled name matches the regex ``kernel`` in the library
+    ``so`` (the loop with the fewest branches inside, then the longest):
+    its instructions by opcode and their count per unit of work, where one
+    iteration does ``per_iter`` units. None if cuobjdump is missing."""
+    import re
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    res = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                         text=True, timeout=120, check=False)
+    funcs = [f for f in res.stdout.split("Function : ")[1:]
+             if re.match(kernel, f.split(None, 1)[0])]
+    check(len(funcs) == 1, f"SASS: {len(funcs)} functions match {kernel}")
+    ins = [(int(m[1], 16), m[2], m[3]) for m in re.finditer(
+        r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
+        r"([^;]*);", funcs[0])]
+    loops = [(int(t, 16), a) for a, op, args in ins
+             if op.startswith("BRA")
+             for t in re.findall(r"0x([0-9a-f]+)", args) if int(t, 16) < a]
+    check(bool(loops), f"SASS: no loop in {kernel}")
+    bodies = [[op for a, op, _ in ins if lo <= a <= hi] for lo, hi in loops]
+    body = min(bodies, key=lambda b: (sum(op.startswith("BRA") for op in b),
+                                      -len(b)))
+    by_op = {}
+    for op in body:
+        by_op[op] = by_op.get(op, 0) + 1
+    return {"loop_instructions": len(body), "per_iter": per_iter,
+            "per_unit": len(body) / per_iter,
+            "by_opcode": dict(sorted(by_op.items(), key=lambda kv: -kv[1]))}
 
 
 def attention_pairs(Sq, Sk, window):
@@ -549,60 +593,86 @@ def sm_clock_hz():
         return None
 
 
-def _ss_inputs(torch, dev, g, shape, x_dtype):
-    """K6's inputs drawn as tests/test_kernels.py draws them: xc, Bm, Cm
-    ~ N(0, 1), dt = softplus(N(0, 1)) * 0.1, A = -exp(0.3 N(0, 1)),
-    D = 1; xc in ``x_dtype``, the rest f32."""
+def _ss_inputs(torch, dev, g, shape, x_dtype, regime="jax"):
+    """K6's inputs: xc, Bm, Cm ~ N(0, 1), D = 1, and dt, A by ``regime``:
+    "jax" as tests/test_kernels.py draws them (dt = softplus(N(0, 1)) *
+    0.1, A = -exp(0.3 N(0, 1))); "mamba_init" as models/mamba.py
+    initialises a layer (A = -[1..st], dt = softplus(N(0, 1) - 4.6));
+    "strong" decay (A = -[1..st], dt ~ U(0, 3)). xc in ``x_dtype``, the
+    rest f32."""
     import torch.nn.functional as F
     B, S, di, st = shape
     xc = torch.randn((B, S, di), generator=g, device=dev)
-    dt = F.softplus(torch.randn((B, S, di), generator=g, device=dev)) * 0.1
+    n = torch.randn((B, S, di), generator=g, device=dev)
+    dt = {"jax": lambda: F.softplus(n) * 0.1,
+          "mamba_init": lambda: F.softplus(n - 4.6),
+          "strong": lambda: 3 * torch.rand((B, S, di), generator=g,
+                                           device=dev)}[regime]()
+    del n
     Bm = torch.randn((B, S, st), generator=g, device=dev)
     Cm = torch.randn((B, S, st), generator=g, device=dev)
-    A = -torch.exp(torch.randn((di, st), generator=g, device=dev) * 0.3)
+    A = (-torch.exp(torch.randn((di, st), generator=g, device=dev) * 0.3)
+         if regime == "jax" else
+         -torch.arange(1, st + 1, dtype=torch.float32, device=dev)
+         .expand(di, st).contiguous())
     return xc.to(x_dtype), dt, Bm, Cm, A, torch.ones(di, device=dev)
 
 
 def phase_scan_small(torch, dev, errs):
-    """K6 at small odd shapes, f32 and bf16 xc, against its plain version
-    at 1e-5: y and the final state. The kernels line carries the f32
-    error (the serving path's dtype)."""
+    """K6 at small odd shapes, f32 and bf16 xc, in every regime of dt and
+    A, against its plain version at 1e-5: y and the final state. The
+    kernels line carries the f32 error (the serving path's dtype)."""
     from repro_torch.kernels import ref, selective_scan as ss
     g = torch.Generator(device=dev).manual_seed(10)
     worst = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        dname = str(dtype).split(".")[1]
-        for shape in SS_SMALL:
-            B, S, di, st = shape
-            xs = _ss_inputs(torch, dev, g, shape, dtype)
-            y, h = ss.selective_scan_fwd(*xs)
-            check(y.dtype == h.dtype == torch.float32
-                  and y.shape == (B, S, di) and h.shape == (B, di, st),
-                  f"K6 outputs {y.dtype} {tuple(y.shape)}, {h.dtype} "
-                  f"{tuple(h.shape)} at {shape}")
-            wy, wh = ref.selective_scan_ref(*xs)
-            err = max(_close(torch, y, wy, SS_TOL, f"K6 y {shape} {dname}"),
-                      _close(torch, h, wh, SS_TOL, f"K6 h {shape} {dname}"))
-            worst[dname] = max(worst.get(dname, 0.0), err)
+    for regime in SS_REGIMES:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[1]
+            for shape in SS_SMALL:
+                B, S, di, st = shape
+                xs = _ss_inputs(torch, dev, g, shape, dtype, regime)
+                y, h = ss.selective_scan_fwd(*xs)
+                check(y.dtype == h.dtype == torch.float32
+                      and y.shape == (B, S, di) and h.shape == (B, di, st),
+                      f"K6 outputs {y.dtype} {tuple(y.shape)}, {h.dtype} "
+                      f"{tuple(h.shape)} at {shape}")
+                wy, wh = ref.selective_scan_ref(*xs)
+                what = f"{shape} {dname} {regime}"
+                err = max(_close(torch, y, wy, SS_TOL, f"K6 y {what}"),
+                          _close(torch, h, wh, SS_TOL, f"K6 h {what}"))
+                key = f"{regime}/{dname}"
+                worst[key] = max(worst.get(key, 0.0), err)
     torch.cuda.synchronize()
-    errs["selective_scan"] = max(errs["selective_scan"], worst["float32"])
+    errs["selective_scan"] = max(errs["selective_scan"],
+                                 *(e for k, e in worst.items()
+                                   if k.endswith("float32")))
     say("kernels-small", kernel="selective_scan", shapes=SS_SMALL,
         max_abs_err=worst, tol=SS_TOL)
+
+
+def scan_chunk(src=ROOT / SCAN_SRC):
+    """K6's steps a staged chunk (``CH``) as its source sets them."""
+    import re
+    return int(re.search(r"\bCH = (\d+);", Path(src).read_text())[1])
 
 
 def phase_scan_full(torch, dev, errs, name, bw):
     """K6 at the serving path's shape, f32: against the plain version
     (y and the final state), timed beside it. No PyTorch call computes the
     scan, so there is no library time."""
-    from repro_torch.kernels import ref, selective_scan as ss
+    from repro_torch.kernels import _build, ref, selective_scan as ss
     B, S, di, st = SS_PATH
     g = torch.Generator(device=dev).manual_seed(11)
-    xs = _ss_inputs(torch, dev, g, SS_PATH, torch.float32)
-    wy, wh = ref.selective_scan_ref(*xs)
-    y, h = ss.selective_scan_fwd(*xs)
-    err = max(_close(torch, y, wy, SS_TOL, f"K6 y at {SS_PATH}"),
-              _close(torch, h, wh, SS_TOL, f"K6 h at {SS_PATH}"))
-    del wy, wh, y, h
+    regime_errs = {}
+    for regime in SS_REGIMES[::-1]:     # the JAX suite's draw is timed
+        xs = _ss_inputs(torch, dev, g, SS_PATH, torch.float32, regime)
+        wy, wh = ref.selective_scan_ref(*xs)
+        y, h = ss.selective_scan_fwd(*xs)
+        regime_errs[regime] = max(
+            _close(torch, y, wy, SS_TOL, f"K6 y at {SS_PATH} {regime}"),
+            _close(torch, h, wh, SS_TOL, f"K6 h at {SS_PATH} {regime}"))
+        del wy, wh, y, h
+    err = max(regime_errs.values())
     ms = cuda_ms(torch, lambda: ss.selective_scan_fwd(*xs))
     plain = cuda_ms(torch, lambda: ref.selective_scan_ref(*xs), reps=3,
                     warmup=1)
@@ -614,15 +684,25 @@ def phase_scan_full(torch, dev, errs, name, bw):
               + 4 * n + 4 * B * di * st)
     t_ops, t_bytes = 1e3 * flops / f32_peak(name), 1e3 * nbytes / bw
     clock = sm_clock_hz()
+    ch = scan_chunk()
+    sass = sass_loop(_build.lib_path("selective_scan"),
+                     r".*selective_scan_kernelIfLi16E", ch * st)
     errs["selective_scan"] = max(errs["selective_scan"], err)
     out = {"shape": list(SS_PATH), "dtype": "float32", "ms": ms,
            "plain_ms": plain, "library_ms": None, "flops": flops,
            "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
            "GB_per_s": nbytes / ms / 1e6,
-           # the exps on the SFU, 16 per SM per clock (132 SMs)
+           # every exp on the SFU, 16 per SM per clock (132 SMs)
            "sfu_exp_ms": (1e3 * n * st / (16 * 132 * clock) if clock
-                          else None), "sm_clock_max_hz": clock}
+                          else None), "sm_clock_max_hz": clock,
+           "steps_per_chunk": ch, "max_abs_err_by_regime": regime_errs,
+           "ptxas": ptxas_lines("selective_scan"),
+           "sass_per_state_update": sass,
+           # MUFU.EX2 per state update in the chunk loop: the share of the
+           # exps on the SFU (the rest would be on the FMA pipe)
+           "sfu_exp_share": (sass["by_opcode"].get("MUFU.EX2", 0)
+                             / sass["per_iter"] if sass else None)}
     say("kernels-full", kernel="selective_scan", **out, max_abs_err=err)
     del xs
     torch.cuda.empty_cache()

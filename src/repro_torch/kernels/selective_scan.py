@@ -54,8 +54,10 @@ def selective_scan_fwd(xc, dt, Bm, Cm, A, D):
         raise NotImplementedError(
             f"state size {st} not in {STATE_DIMS}: the kernel keeps the "
             "states in registers at a compile-time size")
-    if B > 65535:
-        raise ValueError(f"B={B} must be <= 65535 (grid)")
+    if B > 65535 or S > 2 ** 31 - 17 or di > 2 ** 28:
+        raise ValueError(f"B={B}, S={S}, di={di}: the kernel takes B <= "
+                         "65535 (grid), S < 2^31 - 16 and di <= 2^28 "
+                         "(32-bit step offsets)")
     y = torch.empty((B, S, di), dtype=torch.float32, device=xc.device)
     h = torch.empty((B, di, st), dtype=torch.float32, device=xc.device)
     from repro_torch.kernels._build import load

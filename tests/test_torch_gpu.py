@@ -187,34 +187,45 @@ def test_gpu_k7_chunk_boundaries_match_plain(cuda, dtype, S, hd, gates):
     torch.cuda.synchronize()
 
 
-def scan_inputs(B, S, di, st, dev, x_dtype, seed=0):
-    """K6's inputs drawn as tests/test_kernels.py draws them: xc, Bm, Cm
-    ~ N(0, 1), dt = softplus(N(0, 1)) * 0.1, A = -exp(0.3 N(0, 1)),
-    D = 1; xc in ``x_dtype``, the rest f32."""
+def scan_inputs(B, S, di, st, dev, x_dtype, seed=0, regime="jax"):
+    """K6's inputs: xc, Bm, Cm ~ N(0, 1), D = 1, and dt, A by ``regime``:
+    "jax" as tests/test_kernels.py draws them (dt = softplus(N(0, 1)) *
+    0.1, A = -exp(0.3 N(0, 1))); "mamba_init" as ``models/mamba.py``
+    initialises a layer (A = -[1..st], dt = softplus(N(0, 1) - 4.6));
+    "strong" decay (A = -[1..st], dt ~ U(0, 3), |dt·A| up to 48). xc in
+    ``x_dtype``, the rest f32."""
     rng = np.random.default_rng(seed)
     xc = rng.standard_normal((B, S, di))
-    dt = np.logaddexp(rng.standard_normal((B, S, di)), 0.0) * 0.1
+    n = rng.standard_normal((B, S, di))
+    dt = {"jax": lambda: np.logaddexp(n, 0.0) * 0.1,
+          "mamba_init": lambda: np.logaddexp(n - 4.6, 0.0),
+          "strong": lambda: rng.uniform(0.0, 3.0, (B, S, di))}[regime]()
     Bm = rng.standard_normal((B, S, st))
     Cm = rng.standard_normal((B, S, st))
-    A = -np.exp(rng.standard_normal((di, st)) * 0.3)
+    A = (-np.exp(rng.standard_normal((di, st)) * 0.3) if regime == "jax"
+         else -np.broadcast_to(np.arange(1.0, st + 1), (di, st)))
     f32 = [torch.tensor(a, dtype=torch.float32, device=dev)
            for a in (xc, dt, Bm, Cm, A, np.ones(di))]
     return (f32[0].to(x_dtype), *f32[1:])
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("regime", ["jax", "mamba_init", "strong"])
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,di,st", [
     (1, 64, 128, 8), (2, 128, 256, 16), (1, 256, 128, 4),   # JAX sweep
     (2, 1, 128, 16),                                        # one step
     (2, 37, 200, 8),                                        # ragged di, S
     (1, 19, 8192, 16),                                      # jamba's di
+    (2, 16, 64, 16), (1, 17, 64, 16),                       # K6's chunk
 ])
-def test_gpu_k6_matches_plain(cuda, x_dtype, B, S, di, st):
+def test_gpu_k6_matches_plain(cuda, regime, x_dtype, B, S, di, st):
     """K6 against ``ref.selective_scan_ref`` on the same CUDA inputs at
-    1e-5 (the JAX suite's tolerance for K6): y and the final state."""
+    1e-5 (the JAX suite's tolerance for K6): y and the final state, with
+    dt and A drawn as the JAX suite draws them, as Mamba initialises them
+    and with strong decay."""
     from repro_torch.kernels import selective_scan as tss
-    xs = scan_inputs(B, S, di, st, cuda, x_dtype)
+    xs = scan_inputs(B, S, di, st, cuda, x_dtype, regime=regime)
     before = tss.selective_scan_fwd.launches
     y, h = tss.selective_scan_fwd(*xs)
     wy, wh = tref.selective_scan_ref(*xs)

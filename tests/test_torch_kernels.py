@@ -32,6 +32,14 @@ weighted scores G, boundary states, outputs) against the JAX oracle and
 the Pallas kernel at 2e-4, around chunk boundaries and in the three gate
 regimes of ``chip_smoke.py``.
 
+K6's arithmetic (``csrc/selective_scan.cu``) is held here the same way:
+its order — A's row prescaled by log2(e), exp2(dt·a2) as the SFU's
+``ex2.approx`` (exact, or off by its 2-ulp bound in either direction in
+every exp), (dt·B)·x as the plain version forms it, h and y_t by fused
+multiply-adds, y_t summed in one chain — against the JAX
+oracle at 1e-5 in three regimes (the JAX suite's draw, Mamba's
+initialisation, strong decay).
+
 The card half — each hand-written CUDA kernel against its plain version
 on the same CUDA inputs — is ``tests/test_torch_gpu.py``, which imports no
 JAX so that it runs on a machine with a card.
@@ -564,18 +572,27 @@ def test_k7_wrapper_refuses_cpu_tensors_and_grad():
 # K6: the Mamba selective scan, plain version against the JAX oracle and
 # kernel
 # ---------------------------------------------------------------------------
-def _scan_inputs(B, S, di, st, seed=21):
-    """Drawn as tests/test_kernels.py draws them: xc, Bm, Cm ~ N(0, 1),
-    dt = softplus(N(0, 1)) * 0.1, A = -exp(0.3 N(0, 1)), D = 1."""
+def _scan_inputs(B, S, di, st, seed=21, regime="jax"):
+    """xc, Bm, Cm ~ N(0, 1), D = 1, and dt, A by ``regime``: "jax" as
+    tests/test_kernels.py draws them (dt = softplus(N(0, 1)) * 0.1,
+    A = -exp(0.3 N(0, 1))); "mamba_init" as ``models/mamba.py`` initialises
+    a layer (A = -[1..st], dt = softplus(N(0, 1) - 4.6)); "strong" decay
+    (A = -[1..st], dt ~ U(0, 3), so |dt·A| reaches 48)."""
     rng = np.random.default_rng(seed)
     xc = rng.standard_normal((B, S, di)).astype(np.float32)
-    dt = (np.logaddexp(rng.standard_normal((B, S, di)), 0.0)
-          * 0.1).astype(np.float32)
+    n = rng.standard_normal((B, S, di))
+    if regime == "jax":
+        dt = np.logaddexp(n, 0.0) * 0.1
+    elif regime == "mamba_init":
+        dt = np.logaddexp(n - 4.6, 0.0)
+    else:
+        dt = rng.uniform(0.0, 3.0, (B, S, di))
     Bm = rng.standard_normal((B, S, st)).astype(np.float32)
     Cm = rng.standard_normal((B, S, st)).astype(np.float32)
-    A = (-np.exp(rng.standard_normal((di, st)) * 0.3)).astype(np.float32)
+    A = (-np.exp(rng.standard_normal((di, st)) * 0.3) if regime == "jax"
+         else -np.broadcast_to(np.arange(1.0, st + 1), (di, st)))
     D = np.ones(di, np.float32)
-    return xc, dt, Bm, Cm, A, D
+    return (xc, dt.astype(np.float32), Bm, Cm, A.astype(np.float32), D)
 
 
 @pytest.mark.parametrize("carried", [False, True])
@@ -637,3 +654,67 @@ def test_k6_wrapper_refuses_cpu_tensors_and_grad():
     with pytest.raises(ValueError, match="one device"):
         tops.selective_scan(xs[0], xs[1].to("meta"), *xs[2:])
     assert tops.launch_counts()["selective_scan"] == 0
+
+
+# ---------------------------------------------------------------------------
+# K6's arithmetic (csrc/selective_scan.cu) in plain torch (test helpers on no
+# path): prescaled exp2 on the SFU, fused multiply-adds, y_t in one chain
+# ---------------------------------------------------------------------------
+_LOG2E = torch.tensor(1.4426950408889634, dtype=torch.float32)
+
+
+def _fma32(a, b, c):
+    """fmaf in f32: the product and sum in float64, rounded once (a product
+    of two f32 values is exact in float64)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _ex2_sfu(z, ulps=0):
+    """``ex2.approx.ftz.f32`` on f32 tensors: exp2 moved ``ulps`` ulps
+    (toward +inf if positive, toward 0 if negative) to stand for its error,
+    taken as at most 2 ulp (the CUDA C++ Programming Guide's bound for
+    ``exp2f``), then results below 2^-126 flushed to 0. Only the card tests
+    hold the instruction itself."""
+    r = torch.exp2(z)
+    to = torch.tensor(float("inf") if ulps > 0 else 0.0)
+    for _ in range(abs(ulps)):
+        r = torch.nextafter(r, to)
+    return torch.where(r < 2.0 ** -126, torch.zeros_like(r), r)
+
+
+def _scan_kernel_order(xc, dt, Bm, Cm, A, D, ulps=0):
+    """K6's arithmetic on numpy inputs -> (y, h) in f32: a2 = A·log2(e);
+    per step, per state in order, dA = ex2(dt·a2[s]) (off by ``ulps``),
+    h = fmaf(dA, h, (dt·B)·x), acc = fmaf(h, C, acc); y = fmaf(x, D,
+    acc)."""
+    xc, dt, Bm, Cm, A, D = (torch.tensor(a) for a in (xc, dt, Bm, Cm, A, D))
+    B, S, di = xc.shape
+    st = A.shape[-1]
+    a2 = A * _LOG2E
+    h = torch.zeros((B, di, st))
+    y = torch.empty((B, S, di))
+    for t in range(S):
+        x, d = xc[:, t, :, None], dt[:, t, :, None]
+        dA = _ex2_sfu(d * a2, ulps)
+        h = _fma32(dA, h, (d * Bm[:, t, None, :]) * x)
+        acc = torch.zeros((B, di))
+        for s in range(st):
+            acc = _fma32(h[..., s], Cm[:, t, None, s], acc)
+        y[:, t] = _fma32(x[..., 0], D, acc)
+    return y.numpy(), h.numpy()
+
+
+@pytest.mark.parametrize("ulps", [0, 2, -2])
+@pytest.mark.parametrize("regime", ["jax", "mamba_init", "strong"])
+@pytest.mark.parametrize("B,S,di,st", [(2, 300, 24, 16), (1, 97, 16, 8),
+                                       (2, 64, 8, 4)])
+def test_k6_kernel_order_matches_jax_ref(ulps, regime, B, S, di, st):
+    """K6's order of operations holds the JAX oracle at K6's 1e-5, y and
+    the final state, with the SFU's exp2 exact and with every exp off by
+    its 2-ulp bound the same way (errors that add up along the sequence
+    instead of cancelling)."""
+    xs = _scan_inputs(B, S, di, st, seed=23, regime=regime)
+    jy, jh = jref.selective_scan_ref(*(jnp.asarray(a) for a in xs))
+    ty, th = _scan_kernel_order(*xs, ulps)
+    np.testing.assert_allclose(ty, np.asarray(jy), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(th, np.asarray(jh), rtol=1e-5, atol=1e-5)
