@@ -25,13 +25,24 @@ Phases:
      instructions per state update (``cuobjdump``), the share of its exps
      on the SFU (MUFU.EX2 in that loop), and the SFU's exp time beside its
      byte bound;
-  4. a small Algorithm 1 run (smoke config, K=3, 2 rounds, fused codec) on
-     the card against the same run on the CPU;
+  4. a small Algorithm 1 run (smoke config, K=3, 3 rounds, fused codec)
+     through the fused engine: the card's captured rounds (one capture,
+     two replays, each window under ``set_sync_debug_mode("error")``, K3
+     counted once per replayed round) against the same rounds run
+     uncaptured on the CPU;
   5. the main path at internlm2-1.8b's full width (depth cut to 16 of 24
-     layers, f32): (a) fused codec, K=5, 2 rounds; (b) fused int4 with
-     error feedback, K=3, 1 round; (c) leafwise codec, K=3, 1 round. The
-     kernels' launch counters are zeroed just before each and read just
-     after; each must show its kernels launched;
+     layers, f32, T fixed at 1) through the fused engine, the CLI's
+     default: (a) fused
+     codec, K=5, 3 rounds (the first captures, two replay), and the same
+     cell under the python engine, 2 rounds, for the side-by-side
+     numbers; (b) fused int4 with error feedback, K=3, 2 rounds; (c)
+     leafwise codec, K=3, 2 rounds. Each round reports its host seconds
+     and its epochs / aggregation device time from CUDA events (the
+     middle one recorded inside the captured graph, no host sync), and
+     the peak memory. The kernels' launch counters are zeroed just
+     before each run and read just after (replays add the launches their
+     graph recorded); each must show its kernels launched once per round
+     (K1/K2 once per quantized leaf);
   6. serving at internlm2-1.8b's full width and all 24 layers, f32:
      (a) ``make_prefill_step(cfg, impl="kernel")`` over 8 x 2048-token
      prompts, twice, K5 launched once per layer per prefill, the second
@@ -76,6 +87,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import math
 import os
@@ -828,17 +840,22 @@ def phase_kernels_full(torch, dev, errs, bw):
 
 
 # ---------------------------------------------------------------------------
-def _learner(torch, cfg, codec, K, dev, eta0=0.05, rounds=2):
+def _learner(torch, cfg, codec, K, dev, engine="fused", eta0=0.05,
+             rounds=2, rule="ile"):
     from repro_torch.configs.base import CoLearnConfig
     from repro_torch.core.colearn import CoLearner
     from repro_torch.launch.train import make_loss_fn
     ccfg = CoLearnConfig(n_participants=K, T0=1, eta0=eta0, epsilon=0.05,
-                         max_rounds=rounds)
-    return CoLearner(ccfg, make_loss_fn(cfg), codec=codec, device=dev)
+                         epochs_rule=rule, max_rounds=rounds)
+    return CoLearner(ccfg, make_loss_fn(cfg), codec=codec,
+                     round_engine=engine, device=dev)
 
 
 def phase_small_round(torch, dev):
-    """Smoke config, K=3, 2 rounds, fused codec: card against CPU."""
+    """Smoke config, K=3, 3 rounds of the fused engine (fused codec): the
+    card's captured rounds (one capture, two replays) against the same
+    rounds run uncaptured on the CPU, each round's window under the sync
+    guard."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.core import api, flatbuf
     from repro_torch.kernels import ops, ref
@@ -846,22 +863,36 @@ def phase_small_round(torch, dev):
     from repro_torch.models import transformer as tr
     from repro_torch.tree import leaves
     cfg = get_smoke_config("internlm2-1.8b")
-    K = 3
+    K, rounds = 3, 3
     data = build_data(cfg, K, 4, 16, 48, seed=0)
     params = tr.init_params(0, cfg, torch.float32, device="cpu")
     runs = {}
     for d in ("cpu", dev):
-        learner = _learner(torch, cfg, api.get_codec("fused"), K, d)
+        learner = _learner(torch, cfg, api.get_codec("fused"), K, d,
+                           rounds=rounds, rule="fle")
+        runner = learner._runner
+        captured, guard = runner._round, []
+
+        def round_graph(*a, _captured=captured, _guard=guard):
+            _guard.append(torch.cuda.get_sync_debug_mode())
+            return _captured(*a)
+        runner._round = round_graph
         state = learner.init(params)
         ops.reset_launch_counts()
-        for _ in range(2):
+        for _ in range(rounds):
             state = learner.run_round(state, epoch_batches_fn(data, d, 2))
-        runs[str(d)] = (state, ops.launch_counts())
-    (cs, c_counts), (gs, g_counts) = runs["cpu"], runs[str(dev)]
+        runs[str(d)] = (state, ops.launch_counts(), captured, guard)
+    (cs, c_counts, _, _), (gs, g_counts, graph, guard) = (runs["cpu"],
+                                                         runs[str(dev)])
     check(c_counts["wire_quant_avg_dequant"] == 0, "CPU run launched K3")
-    check(g_counts["wire_quant_avg_dequant"] == 2,
+    check(g_counts["wire_quant_avg_dequant"] == rounds,
           f"card run launched K3 {g_counts['wire_quant_avg_dequant']} "
           "times, not once per round")
+    check((graph.captures, graph.replays) == (1, rounds - 1),
+          f"round graph captured {graph.captures} times and replayed "
+          f"{graph.replays} in {rounds} rounds at one T")
+    check(guard == [2] * rounds,
+          f"round windows ran at sync debug modes {guard}, not 'error'")
     worst = 0.0
     for a, b in zip(cs["log"], gs["log"]):
         check(a.T == b.T and a.comm_bytes == b.comm_bytes,
@@ -881,42 +912,81 @@ def phase_small_round(torch, dev):
                 for a, b in zip(leaves(cs["params"]), leaves(gs["params"])))
     check(pdiff <= quantum, f"card vs CPU params differ by {pdiff} > one "
                             f"wire quantum {quantum}")
-    say("small-round", rounds=2, K=K, log_max_rel_diff=worst,
-        param_max_abs_diff=pdiff, wire_quantum=quantum,
-        card_launches=g_counts,
+    say("small-round", engine="fused", rounds=rounds, K=K,
+        log_max_rel_diff=worst, param_max_abs_diff=pdiff,
+        wire_quantum=quantum, card_launches=g_counts,
+        captures=graph.captures, replays=graph.replays,
+        window_sync_debug_modes=guard,
         losses_card=[round(float(sum(l.local_losses) / len(l.local_losses)),
                            6) for l in gs["log"]])
 
 
-def phase_main(torch, dev, label, codec, K, rounds, launches_out):
+def _round_events(torch, learner):
+    """CUDA events per round without a host sync: at the start of the
+    round's device work, before the aggregation and at the end. On the
+    fused engine the middle one is recorded inside the captured round
+    graph (an external event node); the outer two around the replay. On
+    the python engine all three are recorded between its eager calls.
+    Returns ``read()`` -> (epochs ms, aggregation ms) of the last round:
+    the fused engine's second part is its whole finalize (aggregation,
+    Eq. 4, optimizer reset), the python engine's the aggregation alone."""
+    ev = [torch.cuda.Event(enable_timing=True, external=True)
+          for _ in range(3)]
+    python = learner.round_engine.name == "python"
+    agg = learner._aggregate_fn
+
+    def marked(*a):
+        ev[1].record()
+        out = agg(*a)
+        if python:
+            ev[2].record()
+        return out
+    learner._aggregate_fn = marked
+    learner._runner = learner.round_engine.bind(learner)
+    round_start = [True]
+    if python:
+        epoch = learner._epoch
+
+        def timed(*a):
+            if round_start[0]:
+                ev[0].record()
+                round_start[0] = False
+            return epoch(*a)
+        learner._epoch = timed
+    else:
+        graph = learner._runner._round
+
+        def timed(*a):
+            ev[0].record()
+            out = graph(*a)
+            ev[2].record()
+            return out
+        learner._runner._round = timed
+
+    def read():
+        ev[2].synchronize()
+        round_start[0] = True
+        return ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+    return read
+
+
+def phase_main(torch, dev, label, codec, K, rounds, launches_out,
+               engine="fused"):
     """One main-path run at full width; returns the launch counts."""
     from repro_torch.data.synthetic import lm_examples
     from repro_torch.kernels import ops
     from repro_torch.launch.train import (build_data, epoch_batches_fn,
                                           eval_loss)
     from repro_torch.models import transformer as tr
+    from repro_torch.tree import leaves
     cfg = full_cfg()
     B, S, steps = 8, 256, 2
     data = build_data(cfg, K, B, S, K * B * steps, seed=0)
     ex, ey = lm_examples(99, 32, S, cfg.vocab_size)
-    learner = _learner(torch, cfg, codec, K, dev, rounds=rounds)
-    # spans: synchronised host time and the allocator's running peak
-    # around the round's two parts (the local epochs, the Eq. 2 step)
-    spans = {"epochs": [0.0, 0], "aggregate": [0.0, 0]}
-
-    def span(name, fn):
-        def run(*a):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a)
-            torch.cuda.synchronize()
-            spans[name][0] += time.perf_counter() - t0
-            spans[name][1] = max(spans[name][1],
-                                 torch.cuda.max_memory_allocated())
-            return out
-        return run
-    learner._epoch = span("epochs", learner._epoch)
-    learner._aggregate_fn = span("aggregate", learner._aggregate_fn)
+    learner = _learner(torch, cfg, codec, K, dev, engine=engine,
+                       rounds=rounds, rule="fle")
+    split = _round_events(torch, learner)
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -932,35 +1002,51 @@ def phase_main(torch, dev, label, codec, K, rounds, launches_out):
         state = learner.run_round(state, batches)
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
+        epochs_ms, agg_ms = split()
         log = state["log"][-1]
         per_round.append({
             "round": log.round, "T": log.T, "seconds": sec,
             "tokens_per_s": K * steps * B * S * log.T / sec,
+            "device_ms": {"epochs": epochs_ms, "aggregation": agg_ms},
             "local_loss": float(sum(log.local_losses)
                                 / len(log.local_losses)),
-            "rel_change": log.rel_change, "comm_MiB": log.comm_bytes / 2**20})
+            "rel_change": log.rel_change, "comm_MiB": log.comm_bytes / 2**20,
+            "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9,
+            "reserved_GB": torch.cuda.memory_reserved() / 1e9})
     counts = ops.launch_counts()
     ev = eval_loss(learner.shared_model(state), cfg, ex, ey, batch=8)
     peak = torch.cuda.max_memory_allocated()
-    say("main", run=label, codec=learner.codec.name, K=K,
+    graphs = ({f.name: {"captures": f.captures, "replays": f.replays}
+               for f in learner._runner.graphs.functions}
+              if engine == "fused" else None)
+    say("main", run=label, engine=engine, codec=learner.codec.name, K=K,
         reduced=f"n_layers 24 -> {LAYERS} (K f32 model copies + the "
                 "(K, N_pad) flat buffer must fit in 80 GB)",
         params_per_participant=tr.count_params(state["params"]) // K,
         d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads],
         d_ff=cfg.d_ff, vocab=cfg.vocab_size, batch=B, seq_len=S,
         steps_per_epoch=steps, rounds=per_round, eval_loss=ev,
-        peak_mem_GB=peak / 1e9, launches=counts,
+        peak_mem_GB=peak / 1e9,
+        peak_reserved_GB=torch.cuda.max_memory_reserved() / 1e9,
+        launches=counts, graphs=graphs,
+        quantized_leaves=sum(t.ndim > 0 and t.numel() >= 256
+                             for t in leaves(state["params"])),
         mem_GB={"before_init": base / 1e9,
                 "peak_through_init": mem_init[0] / 1e9,
-                "live_after_init": mem_init[1] / 1e9,
-                "peak_through_epochs": spans["epochs"][1] / 1e9,
-                "peak_through_aggregate": spans["aggregate"][1] / 1e9},
-        span_s={k: v[0] for k, v in spans.items()})
+                "live_after_init": mem_init[1] / 1e9})
     losses = [r["local_loss"] for r in per_round] + [ev]
     check(all(math.isfinite(x) for x in losses), f"{label}: non-finite loss")
+    if engine == "fused":
+        rnd = graphs["round"]
+        check(rnd["captures"] == len({r["T"] for r in per_round})
+              and rnd["replays"] == rounds - 1,
+              f"{label}: round graph captured / replayed {rnd}")
     for name, n in counts.items():
         launches_out[name] = launches_out.get(name, 0) + n
-    del state, learner
+    # the timer's closures tie the learner and its runner into a cycle:
+    # collect it, so the runner's graph pool goes back to the card now
+    del state, learner, split
+    gc.collect()
     torch.cuda.empty_cache()
     return per_round, counts
 
@@ -1397,13 +1483,19 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     t_start = time.time()
+    marks = [("start", t_start)]
+
+    def mark(phase):
+        marks.append((phase, time.time()))
     name, smi = phase_device(torch)
     phase_build()
+    mark("1-2 device, build")
     errs = {k: 0.0 for k in KERNEL_META}
     phase_kernels_small(torch, dev, errs)
     phase_flash_small(torch, dev, errs)
     phase_mlstm_small(torch, dev, errs)
     phase_scan_small(torch, dev, errs)
+    mark("3 small shapes")
     if args.quick:
         return 0
     bw = mem_bandwidth(name)
@@ -1414,28 +1506,47 @@ def main(argv=None):
         torch, dev, errs, name, bw, FA_PATH_JAMBA, 12)
     timing["mlstm"] = phase_mlstm_full(torch, dev, errs, name, bw)
     timing["selective_scan"] = phase_scan_full(torch, dev, errs, name, bw)
+    mark("3 path shapes")
     phase_small_round(torch, dev)
+    mark("4")
 
     launches = {}
+    # 5(a) under the python engine first, for the side-by-side numbers;
+    # its launches are not the fused main path's, so they are not counted
+    rounds_py, c_py = phase_main(torch, dev, "5a-python",
+                                 api.get_codec("fused"), 5, 2, {},
+                                 engine="python")
+    mark("5a python")
     rounds_a, c_a = phase_main(torch, dev, "5a", api.get_codec("fused"),
-                               5, 2, launches)
-    check(c_a["wire_quant_avg_dequant"] == len(rounds_a),
-          f"5a: K3 launched {c_a['wire_quant_avg_dequant']} times for "
-          f"{len(rounds_a)} synced rounds")
-    check(rounds_a[1]["local_loss"] < rounds_a[0]["local_loss"],
-          f"5a: loss did not fall ({rounds_a[0]['local_loss']} -> "
-          f"{rounds_a[1]['local_loss']})")
+                               5, 3, launches)
+    mark("5a")
+    for label, rounds, counts in (("5a-python", rounds_py, c_py),
+                                  ("5a", rounds_a, c_a)):
+        check(counts["wire_quant_avg_dequant"] == len(rounds),
+              f"{label}: K3 launched {counts['wire_quant_avg_dequant']} "
+              f"times for {len(rounds)} synced rounds")
+        check(rounds[1]["local_loss"] < rounds[0]["local_loss"],
+              f"{label}: loss did not fall ({rounds[0]['local_loss']} -> "
+              f"{rounds[1]['local_loss']})")
     _, c_b = phase_main(torch, dev, "5b", api.get_codec(
-        "fused", bits=4, error_feedback=True), 3, 1, launches)
-    check(c_b["wire_quant_avg_dequant_ef"] == 1, "5b: K4 not launched once")
-    _, c_c = phase_main(torch, dev, "5c", api.get_codec("leafwise"), 3, 1,
+        "fused", bits=4, error_feedback=True), 3, 2, launches)
+    check(c_b["wire_quant_avg_dequant_ef"] == 2,
+          "5b: K4 not launched once per round")
+    mark("5b")
+    _, c_c = phase_main(torch, dev, "5c", api.get_codec("leafwise"), 3, 2,
                         launches)
-    check(c_c["wire_quantize"] > 0 and c_c["wire_dequantize"] > 0,
-          "5c: K1/K2 not launched")
+    n_leaves = RECORD["main"][-1]["quantized_leaves"]
+    check(c_c["wire_quantize"] == c_c["wire_dequantize"] == 2 * n_leaves,
+          f"5c: K1/K2 launched {c_c['wire_quantize']} / "
+          f"{c_c['wire_dequantize']} times, not {n_leaves} per round")
+    mark("5c")
     phase_serving(torch, dev, launches, timing["flash_attention"]["ms"])
+    mark("6")
     phase_xlstm_serving(torch, dev, launches, timing["mlstm"]["ms"], bw)
+    mark("7")
     phase_jamba_serving(torch, dev, launches,
                         timing["selective_scan"]["ms"], bw)
+    mark("8")
 
     kernels = []
     for kname, (tag, replaces, source) in KERNEL_META.items():
@@ -1450,6 +1561,8 @@ def main(argv=None):
                if "bound_f32_cuda_ms" in t else {})})
     RECORD["kernels"] = kernels
     RECORD["seconds"] = time.time() - t_start
+    RECORD["phase_seconds"] = {p: t - t0 for (_, t0), (p, t)
+                               in zip(marks, marks[1:])}
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(RECORD, indent=1,

@@ -4,16 +4,18 @@ WireCodec x Aggregator x RoundEngine x LRSchedule x SyncPolicy.
 Ported here: the codecs :class:`ExactF32`, :class:`LeafwiseIntN` /
 :class:`LeafwiseInt8` and :class:`FlatFusedIntN` / :class:`FlatFusedInt8`
 (with error feedback), the :class:`FullAverage` aggregator (uniform Eq. 2
-and example-count weights), the :class:`PythonEngine` reference loop, the
-:class:`CLR` / :class:`ELR` schedules and the :class:`ILE` / :class:`FLE`
-sync policies, with the registries and ``get_*`` resolvers.
+and example-count weights), the :class:`PythonEngine` reference loop and
+the :class:`FusedEngine` (every round as replays of CUDA graphs captured
+once, ``core/graphs.py``), the :class:`CLR` / :class:`ELR` /
+:class:`WarmupCLR` / :class:`CosineCyclical` schedules and the
+:class:`ILE` / :class:`FLE` sync policies, with the registries and
+``get_*`` resolvers.
 
 Registry names whose strategies are still to port (partial participation,
-gossip aggregators, the fused engine, warmup/cosine schedules, the
-divergence trigger) resolve to a factory that raises
-``NotImplementedError`` — never to a silent substitute. The elastic-
-membership arguments (``live=``, ``dynamic=``) and the pod mesh raise the
-same way.
+gossip aggregators, the divergence trigger) resolve to a factory that
+raises ``NotImplementedError`` — never to a silent substitute. The
+elastic-membership arguments (``live=``, ``dynamic=``) and the pod mesh
+raise the same way.
 
 Aggregation runs IN PLACE on the stacked params where the codec allows
 (the exact mean, the fused flat-buffer mean): at full width another K
@@ -23,13 +25,19 @@ from __future__ import annotations
 
 import abc
 import dataclasses
+import weakref
 
 import numpy as np
 import torch
 
 from repro_torch.core import averaging, compression, flatbuf
 from repro_torch.core import engine as engine_mod
-from repro_torch.core.schedule import clr_lr, elr_lr, relative_change
+from repro_torch.core.graphs import GraphSet, allow_sync
+from repro_torch.core.schedule import (LR_COS_ROUND, LR_EXP_GLOBAL,
+                                       LR_EXP_ROUND, N_SCHED_PARAMS, clr_lr,
+                                       cosine_lr, elr_lr, relative_change,
+                                       switch_lr)
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.quantize import DEFAULT_BLOCK, check_bits
 from repro_torch.tree import leaves, tree_map, unflatten_like
@@ -373,14 +381,54 @@ class FullAverage(Aggregator):
 # LRSchedule (Eq. 3 family)
 # ---------------------------------------------------------------------------
 class LRSchedule(abc.ABC):
-    """The per-epoch learning rate policy, evaluated on the host once per
-    epoch by the python engine."""
+    """The per-epoch learning rate policy (the Eq. 3 axis).
+
+    Two surfaces, one semantics:
+
+    * ``lr(round_i, epoch_j, T_i, global_epoch, total_budget)`` — the
+      host rate the python engine evaluates once per epoch.
+    * ``round_params(round_i)`` — the per-round host hook: ``(kind, p)``,
+      the branch index and scalar pack that ``schedule.switch_lr`` (the
+      shared device body, :attr:`traced_lr`) consumes as device tensors
+      inside the fused engine's captured graphs. A schedule whose
+      parameters move per round (a warmup ramping η^i) therefore never
+      captures again, and swapping between built-ins reuses the graphs.
+
+    A subclass may override :attr:`traced_lr` with its own device
+    function; swapping to or from it rebinds the fused engine
+    (``CoLearner.set_schedule``), whose graphs are then captured anew.
+    """
 
     name: str = "schedule"
+    #: the device body the fused engine embeds; shared by every built-in
+    traced_lr = staticmethod(switch_lr)
 
     @abc.abstractmethod
     def lr(self, round_i, epoch_j, T_i, global_epoch, total_budget):
-        """The epoch's learning rate."""
+        """The epoch's learning rate (host form)."""
+
+    @abc.abstractmethod
+    def round_params(self, round_i):
+        """Host hook: ``(kind, (p0, p1, p2, p3))`` for ``switch_lr``."""
+
+    def device_round_params(self, round_i, device=None):
+        """``round_params`` as the device pack the fused engine takes,
+        staged explicitly (``engine.stage``) onto ``device`` (the card
+        unless the caller passes ``"cpu"``)."""
+        kind, p = self.round_params(round_i)
+        p = tuple(p) + (0.0,) * (N_SCHED_PARAMS - len(p))
+        dev = resolve_device(device)
+        return {"kind": engine_mod.stage(kind, np.int32, dev),
+                "p": engine_mod.stage(p, np.float32, dev)}
+
+
+def traced_body(schedule: LRSchedule):
+    """The schedule's device lr function as a plain callable: unwraps the
+    bound method a subclass gets when it overrides ``traced_lr`` with a
+    plain function, so identity comparison (the hot-swap check) works and
+    the engine calls it as ``lr_fn(sched, j, T_i, ge, total)``."""
+    fn = schedule.traced_lr
+    return getattr(fn, "__func__", fn)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -392,16 +440,21 @@ class CLR(LRSchedule):
     name = "clr"
 
     def round_eta(self, round_i) -> float:
+        """The round's shared base rate η^i (constant for plain CLR)."""
         return self.eta0
 
     def lr(self, round_i, epoch_j, T_i, global_epoch, total_budget):
         return clr_lr(self.round_eta(round_i), self.decay_rate, epoch_j, T_i)
 
+    def round_params(self, round_i):
+        return LR_EXP_ROUND, (self.round_eta(round_i), self.decay_rate)
+
 
 @dataclasses.dataclass(frozen=True)
 class ELR(LRSchedule):
     """The non-cyclical baseline: one exponential anneal over the run's
-    whole epoch budget, never restarting."""
+    whole epoch budget, never restarting. The budget arrives as a device
+    tensor each round (``SyncPolicy.epochs_budget``)."""
 
     eta0: float = 0.01
     decay_rate: float = 0.25
@@ -410,6 +463,41 @@ class ELR(LRSchedule):
     def lr(self, round_i, epoch_j, T_i, global_epoch, total_budget):
         return elr_lr(self.eta0, self.decay_rate, global_epoch,
                       max(total_budget, 1))
+
+    def round_params(self, round_i):
+        return LR_EXP_GLOBAL, (self.eta0, self.decay_rate)
+
+
+@dataclasses.dataclass(frozen=True)
+class WarmupCLR(CLR):
+    """CLR with η^i ramped linearly over the first ``warmup_rounds``
+    rounds: η^i = η0 · min(1, (i+1)/warmup_rounds). The ramp lives in the
+    per-round host hook, so the fused engine sees only another η^i in its
+    parameter pack."""
+
+    warmup_rounds: int = 3
+    name = "warmup_clr"
+
+    def round_eta(self, round_i) -> float:
+        ramp = min(1.0, (round_i + 1) / max(self.warmup_rounds, 1))
+        return self.eta0 * ramp
+
+
+@dataclasses.dataclass(frozen=True)
+class CosineCyclical(LRSchedule):
+    """SGDR-style cyclical cosine: within round i the rate anneals from
+    η^i to ``eta_min`` on a half-cosine over the round's T_i epochs and
+    restarts at η^i at the next round."""
+
+    eta0: float = 0.01
+    eta_min: float = 0.0
+    name = "cosine"
+
+    def lr(self, round_i, epoch_j, T_i, global_epoch, total_budget):
+        return cosine_lr(self.eta0, self.eta_min, epoch_j, T_i)
+
+    def round_params(self, round_i):
+        return LR_COS_ROUND, (self.eta0, 0.0, self.eta_min)
 
 
 # ---------------------------------------------------------------------------
@@ -532,6 +620,155 @@ class _PythonRunner:
                                      residual=new_res)
 
 
+@dataclasses.dataclass(frozen=True)
+class FusedEngine(RoundEngine):
+    """Every round as the fused functions of ``core/engine.py``: T_i
+    epochs with the Eq. 3 rate computed on the device, the aggregation and
+    the Eq. 4 metric, and one host sync to fetch the losses, rates and
+    ``rel``. On the card each is a CUDA graph captured once per layout
+    (``core/graphs.py``) and replayed: rounds of up to ``chunk`` epochs
+    replay one round graph, longer ones a chunk graph per ``chunk``
+    epochs and then a finalize graph (staged-batch memory stays bounded).
+    On the CPU the same functions run uncaptured."""
+
+    chunk: int = 32
+    name = "fused"
+
+    def bind(self, learner):
+        return _FusedRunner(learner, self.chunk)
+
+
+def _live_loss_means(losses, live_np=None):
+    """Per-epoch mean loss over the K participants (the static half; the
+    live-row weighting of elastic membership is still to port)."""
+    if live_np is not None:
+        _not_ported("elastic membership")
+    return [float(np.asarray(x).mean()) for x in losses]
+
+
+class _FusedRunner:
+    """Drives one learner's rounds through its graphs.
+
+    Every result that outlives a replay lives in storage allocated outside
+    capture: the state's params, optimizer state and residual (updated in
+    place), the last shared model ``state["prev_avg"]`` (Eq. 4 reads it,
+    then the finalize overwrites it with the new one), and the static
+    per-round buffers below, which the round writes with ``copy_`` before
+    it replays. Only temporaries live in the graph pool."""
+
+    def __init__(self, learner, chunk):
+        # a weak reference: no cycle keeps a dead learner's graphs and their
+        # pool alive until the collector runs
+        self.learner = weakref.proxy(learner)
+        self.chunk = chunk
+        self._traced_lr = traced_body(learner.schedule)
+        self._stateful = learner._round_stateful
+        dev = learner.device
+        if dev.type == "cuda" and isinstance(learner.codec,
+                                             (LeafwiseIntN, FlatFusedIntN)):
+            # the wire kernels are built and loaded before any capture
+            from repro_torch.kernels._build import load
+            load("wire")
+        self.graphs = GraphSet(dev)
+        lead = 3 if self._stateful else 2
+        rnd = engine_mod.make_fused_round(
+            learner.loss_fn, learner.opt, lr_fn=self._traced_lr,
+            aggregate_fn=learner._aggregate_fn, stateful=self._stateful)
+        epochs = engine_mod.make_fused_epochs(
+            learner.loss_fn, learner.opt, lr_fn=self._traced_lr)
+        fin = engine_mod.make_fused_finalize(
+            learner.opt, aggregate_fn=learner._aggregate_fn,
+            stateful=self._stateful)
+        # a graph's outputs are only its temporaries: the state it writes
+        # is reached through the arguments
+        def round_graph(*args):
+            aux = rnd(*args)[2]
+            return aux["losses"], aux["lrs"], aux["rel"]
+        self._round = self.graphs.capture(round_graph, "round",
+                                          inputs=(lead,))
+        self._epochs = self.graphs.capture(lambda *a: epochs(*a)[2:],
+                                           "epochs", inputs=(2,))
+        self._finalize = self.graphs.capture(lambda *a: fin(*a)[2],
+                                             "finalize")
+
+        def scalar(dtype, shape=()):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+        self._j0, self._T, self._ge0, self._total = (
+            scalar(torch.int32) for _ in range(4))
+        self._sched = {"kind": scalar(torch.int32),
+                       "p": scalar(torch.float32, (N_SCHED_PARAMS,))}
+
+    def run_round(self, state, epoch_batches_fn):
+        """One round: the staging, then a window free of host syncs (the
+        scalar copies and the replays), then one fetch of the losses, the
+        rates and ``rel``."""
+        learner = self.learner
+        if traced_body(learner.schedule) is not self._traced_lr:
+            raise RuntimeError(
+                "the learner's schedule carries a different traced_lr than "
+                "the captured round graphs; swap schedules with "
+                "CoLearner.set_schedule(...) so the engine can rebind")
+        dev = learner.device
+        i = state["round"]
+        T_i = state["ctrl"].T
+        K = learner.cfg.n_participants
+        # the last shared model: read by Eq. 4, then overwritten in place
+        # by the new one (before the first round a copy of slot 0, whose
+        # rel is reported as inf)
+        first = state["prev_avg"] is None
+        prev_avg = (averaging.unstack_participant(state["params"], 0)
+                    if first else state["prev_avg"])
+        chunks = ([(0, T_i)] if T_i <= self.chunk else
+                  [(j0, min(self.chunk, T_i - j0))
+                   for j0 in range(0, T_i, self.chunk)])
+
+        def staged(j0, C):
+            return engine_mod.stack_epoch_batches(
+                [epoch_batches_fn(i, j) for j in range(j0, j0 + C)], dev)
+
+        # the staging: every host-to-device transfer of the round
+        sched = learner.schedule.device_round_params(i, dev)
+        ints = engine_mod.stage(
+            [state["global_epoch"], learner.epochs_budget(state), T_i]
+            + [j0 for j0, _ in chunks], np.int32, dev)
+        agg_w = learner.round_weights(i, state)
+        batches = staged(*chunks[0])
+        lead = ((state["params"], state["opt"], state["residual"])
+                if self._stateful else (state["params"], state["opt"]))
+        with self.graphs.no_sync():
+            self._sched["kind"].copy_(sched["kind"])
+            self._sched["p"].copy_(sched["p"])
+            for buf, k in ((self._ge0, 0), (self._total, 1), (self._T, 2)):
+                buf.copy_(ints[k])
+            if len(chunks) == 1:
+                losses, lrs, rel = self._round(
+                    *lead, batches, prev_avg, self._ge0, self._sched,
+                    self._total, agg_w)
+            else:
+                lparts, rparts = [], []
+                for c, (j0, C) in enumerate(chunks):
+                    if c:
+                        with allow_sync():
+                            batches = staged(j0, C)
+                    self._j0.copy_(ints[3 + c])
+                    l, r = self._epochs(
+                        state["params"], state["opt"], batches, self._j0,
+                        self._T, self._ge0, self._sched, self._total)
+                    lparts.append(l.clone())
+                    rparts.append(r.clone())
+                rel = self._finalize(*lead, prev_avg, agg_w)
+                losses, lrs = torch.cat(lparts), torch.cat(rparts)
+            fetch = torch.cat([losses.reshape(-1), lrs, rel.reshape(1)])
+        host = fetch.cpu().numpy()            # the round's one host sync
+        losses = host[:T_i * K].reshape(T_i, K)
+        lrs = host[T_i * K:T_i * K + T_i]
+        rel = float("inf") if first else float(host[-1])
+        return learner._finish_round(
+            state, i, T_i, rel, _live_loss_means(losses), float(lrs[0]),
+            float(lrs[-1]), state["params"], state["opt"], prev_avg,
+            residual=state["residual"] if self._stateful else None)
+
+
 # ---------------------------------------------------------------------------
 # registries
 # ---------------------------------------------------------------------------
@@ -603,13 +840,16 @@ register_aggregator("full", FullAverage)
 for _name in ("partial", "ring", "graph", "d2"):
     register_aggregator(_name, _not_ported_factory("aggregator", _name))
 register_engine("python", lambda chunk=32: PythonEngine())
-register_engine("fused", _not_ported_factory("engine", "fused"))
+register_engine("fused", FusedEngine)
 register_schedule("clr", lambda eta0=0.01, decay_rate=0.25:
                   CLR(eta0, decay_rate))
 register_schedule("elr", lambda eta0=0.01, decay_rate=0.25:
                   ELR(eta0, decay_rate))
-for _name in ("warmup_clr", "warmup", "cosine"):
-    register_schedule(_name, _not_ported_factory("schedule", _name))
+register_schedule("warmup_clr", lambda eta0=0.01, decay_rate=0.25:
+                  WarmupCLR(eta0, decay_rate))
+register_schedule("warmup", SCHEDULES["warmup_clr"])       # alias
+register_schedule("cosine", lambda eta0=0.01, decay_rate=0.25:
+                  CosineCyclical(eta0))
 register_sync_policy("ile", lambda epsilon=None, delta=None,
                      cfg_epsilon=None:
                      ILE(epsilon=next(e for e in (epsilon, cfg_epsilon,

@@ -8,9 +8,12 @@ the Eq. 2 average over the codec's wire, the Eq. 4 relative change and
 the next T_i. The params live on ``device`` (the card unless the caller
 passes ``"cpu"``) and are updated in place.
 
-Static membership only: elastic membership (churn), ragged-shard batch
-masks, shard-size-weighted partial participation and the fused engine
-are still to port (ROADMAP.md).
+The round engine is ``PythonEngine`` (a host loop, one epoch at a time)
+by default or ``FusedEngine`` (every round as replays of CUDA graphs
+captured once on the card; ``set_schedule`` swaps among the built-in
+schedules without a new capture). Static membership only: elastic
+membership (churn), ragged-shard batch masks, shard-size-weighted partial
+participation and the divergence trigger are still to port (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from collections.abc import Callable
 from dataclasses import dataclass
 from typing import Any
 
+import numpy as np
 import torch
 
 from repro_torch.core import api, averaging, engine as engine_mod
@@ -71,6 +75,7 @@ class CoLearner:
         self._epoch = engine_mod.make_epoch_fn(self.loss_fn, self.opt)
         self._aggregate_fn = self.aggregator.make_aggregate_fn(self.codec)
         self._comm_cache = None
+        self._weights = self._weights_np = None
         self._runner = self.round_engine.bind(self)
 
     # -- Algorithm 1 ---------------------------------------------------------
@@ -92,14 +97,47 @@ class CoLearner:
             state["ctrl"].T, state["round"], state["global_epoch"],
             self.cfg.max_rounds)
 
+    def set_schedule(self, spec):
+        """Swap the learning-rate schedule mid-run.
+
+        All built-in schedules share one device body, so swapping among
+        them (or re-parameterising one) replays the fused engine's
+        captured graphs: the new parameters ride in with the next round's
+        parameter pack. A custom schedule with its own ``traced_lr``
+        rebinds the engine, whose graphs are then captured anew."""
+        self.schedule = api.get_schedule(spec, self.cfg)
+        # compare against the runner's captured body (not the previous
+        # schedule attribute) so a swap also repairs a direct assignment
+        bound = getattr(self._runner, "_traced_lr", None)
+        if bound is not None and api.traced_body(self.schedule) is not bound:
+            self._runner = self.round_engine.bind(self)
+        return self
+
+    def set_sync_policy(self, spec):
+        """Swap the sync policy mid-run. Every ported policy syncs every
+        round, so a swap (ILE <-> FLE, another ε) only changes the host's
+        next-T rule; the captured graphs stay."""
+        self.sync_policy = api.get_sync_policy(spec, self.cfg)
+        return self
+
     def round_weights(self, round_index, state=None):
         """The aggregator's (K, K) mixing matrix for this round as a device
-        tensor (None for statically-known schemes, e.g. Eq. 2)."""
+        tensor (None for statically-known schemes, e.g. Eq. 2). It lives in
+        one static buffer, staged again only when the matrix changes, so
+        the fused engine's graphs read it at one address."""
         if not self.aggregator.uses_weights:
             return None
-        return torch.as_tensor(self.aggregator.mixing_matrix(
-            round_index, self.cfg.n_participants), dtype=torch.float32,
-            device=self.device)
+        w = np.asarray(self.aggregator.mixing_matrix(
+            round_index, self.cfg.n_participants), np.float32)
+        if self._weights_np is None or not np.array_equal(w,
+                                                          self._weights_np):
+            if self._weights is None or self._weights.shape != w.shape:
+                self._weights = torch.empty(w.shape, dtype=torch.float32,
+                                            device=self.device)
+            self._weights.copy_(engine_mod.stage(w, np.float32,
+                                                 self.device))
+            self._weights_np = w.copy()
+        return self._weights
 
     def run_round(self, state, epoch_batches_fn):
         """One communication round. ``epoch_batches_fn(round, epoch)``
@@ -127,6 +165,28 @@ class CoLearner:
                                      local_losses, self._comm_cache,
                                      live=self.cfg.n_participants))
         return state
+
+    # handles on the fused engine's captured functions (their ``captures``
+    # and ``replays`` counts are what the tests pin)
+    def _fused_handle(self, attr):
+        if not hasattr(self._runner, attr):
+            raise AttributeError(
+                f"_fused{attr} is only available with "
+                f"round_engine=FusedEngine(); this learner runs "
+                f"{self.round_engine.name!r}")
+        return getattr(self._runner, attr)
+
+    @property
+    def _fused_round(self):
+        return self._fused_handle("_round")
+
+    @property
+    def _fused_epochs(self):
+        return self._fused_handle("_epochs")
+
+    @property
+    def _fused_finalize(self):
+        return self._fused_handle("_finalize")
 
     def shared_model(self, state):
         """A copy of the shared model (slot 0 after a synced round)."""

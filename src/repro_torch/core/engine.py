@@ -1,5 +1,5 @@
-"""The local epoch and the fused Eq. 2 wire step, ported from
-``repro/core/engine.py``.
+"""The local epoch, the fused round engine and the fused Eq. 2 wire step,
+ported from ``repro/core/engine.py``.
 
 ``make_epoch_fn`` is the port's counterpart of the JAX vmapped epoch: an
 explicit loop over the K participants. Each step takes
@@ -9,23 +9,87 @@ update back into the stacked storage IN PLACE. It holds one
 participant's gradients at a time, where the vmap holds K; the step
 losses stay on the device.
 
+The fused round (``make_fused_round``) is the T_i epochs with the Eq. 3
+schedule computed on the device (``schedule.switch_lr``: the parameter
+pack, ``j0``, ``T_i``, the global-epoch offset and the epoch budget are
+all 0-d device tensors), then the aggregation, the Eq. 4 metric and the
+optimizer reset. Long rounds chain ``make_fused_epochs`` chunks and one
+``make_fused_finalize``. Where JAX returns new arrays from a donated
+executable, these functions write their results into the storage they
+are given — the stacked params, the optimizer state, the residual and
+the last shared model ``old_avg`` — so the same functions run eagerly on
+the CPU and as CUDA graphs captured once and replayed on the card
+(``core/graphs.py``, driven by ``api.FusedEngine``): a captured graph
+reads and writes fixed addresses, and only its temporaries live in the
+graph pool. ``stage`` / ``stack_epoch_batches`` are the round's one
+designated host-to-device staging.
+
 ``make_fused_compressed_average`` is the simulation-path (``mesh=None``)
 Eq. 2 fast path of ``FlatFusedIntN``: the stacked params are flattened
 into one ``(K, N_pad)`` f32 buffer and ONE fused quantize -> average ->
 dequantize pass (K3, or K4 with error feedback) computes the mean, which
 is written back into the stacked params in place.
 
-The fused round engine (one captured round, chunked epochs, the
-divergence gate), the ragged-shard batch mask and the liveness row are
-still to port (ROADMAP.md).
+The divergence gate (``gated=``), the ragged-shard batch mask
+(``masked=``), the liveness row (``live=``) and the pod mesh are still to
+port (ROADMAP.md): asking for them raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from repro_torch.core import flatbuf
+from repro_torch.core import averaging, flatbuf
+from repro_torch.core.schedule import relative_change_tensor, switch_lr
 from repro_torch.kernels import ops as kops
 from repro_torch.tree import leaves, tree_map, unflatten_like
+
+
+def _refuse(**variants):
+    for name, on in variants.items():
+        if on:
+            raise NotImplementedError(
+                f"the fused engine's {name} variant not yet ported, see "
+                "ROADMAP.md")
+
+
+def _on(t, dev):
+    """Whether tensor ``t`` lies on ``dev`` (``cuda`` matches ``cuda:0``)."""
+    return t.device.type == dev.type and dev.index in (None, t.device.index)
+
+
+def stage(value, dtype=None, device=None):
+    """Explicitly stage a host value (python scalar, numpy array or CPU
+    tensor) onto ``device`` — the round's designated host-to-device
+    transfer. On the card it goes through pinned memory and does not wait
+    for the device. A tensor already on ``device`` passes through."""
+    dev = torch.device("cpu" if device is None else device)
+    if isinstance(value, torch.Tensor):
+        if _on(value, dev):
+            return value
+        value = value.numpy()
+    host = np.asarray(value, dtype)
+    if not host.flags.c_contiguous:       # (ascontiguousarray makes 0-d 1-d)
+        host = np.ascontiguousarray(host)
+    host = torch.from_numpy(host)
+    if dev.type != "cuda":
+        return host.to(dev)
+    return host.pin_memory().to(dev, non_blocking=True)
+
+
+def stack_epoch_batches(per_epoch, device=None):
+    """Stack a list of per-epoch ``(K, n_batches, ...)`` trees along a new
+    leading epoch axis — the shape the fused epoch loop consumes. Host
+    leaves (numpy, CPU tensors) are stacked host-side and staged with ONE
+    transfer per leaf; tensors on ``device`` stack there."""
+    dev = torch.device("cpu" if device is None else device)
+
+    def stack(*xs):
+        if all(isinstance(x, torch.Tensor) and _on(x, dev) for x in xs):
+            return torch.stack(xs)
+        return stage(np.stack([x.numpy() if isinstance(x, torch.Tensor)
+                               else np.asarray(x) for x in xs]), device=dev)
+    return tree_map(stack, *per_epoch)
 
 
 def init_stacked_opt(opt, stacked):
@@ -42,8 +106,10 @@ def make_epoch_fn(loss_fn, opt):
 
     Returns ``epoch_fn(stacked_params, opt_state, batches, lr) ->
     (stacked_params, opt_state, per-participant mean loss (K,))`` where
-    ``batches`` is a tree of ``(K, n_batches, ...)`` tensors. Params and
-    optimizer state are updated in place (and returned)."""
+    ``batches`` is a tree of ``(K, n_batches, ...)`` tensors and ``lr`` a
+    python float (the python engine) or a 0-d device tensor (the fused
+    engine). Params and optimizer state are updated in place (and
+    returned)."""
     def epoch_fn(stacked, opt_state, batches, lr):
         K = leaves(stacked)[0].shape[0]
         n_batches = leaves(batches)[0].shape[1]
@@ -71,6 +137,198 @@ def make_epoch_fn(loss_fn, opt):
         return stacked, opt_state, torch.stack(means)
 
     return epoch_fn
+
+
+def _make_epoch_scan(epoch_fn, lr_fn):
+    """scan_epochs(params, opt, batches, j0, T_i, ge0, sched, total) ->
+    ((params, opt), (losses (C, K), lrs (C,))): run the leading-dim epochs
+    of ``batches`` with the rate computed on the device by ``lr_fn(sched,
+    j, T_i, ge, total)``.
+
+    ``j0`` (round-local offset of the first staged epoch), ``T_i`` (the
+    round's cycle denominator), ``ge0`` (global epoch at round start) and
+    ``total`` (the run's epoch budget) are 0-d int32 device tensors and
+    ``sched`` the schedule's device parameter pack, so one captured chunk
+    is replayed unchanged as T_i doubles, as the budget updates and across
+    built-in schedule swaps."""
+    def scan_epochs(stacked, opt_state, batches, j0, T_i, global_epoch0,
+                    sched, total):
+        losses, lrs = [], []
+        for c in range(leaves(batches)[0].shape[0]):
+            j = j0 + c
+            lr = lr_fn(sched, j, T_i, global_epoch0 + j, total)
+            ebatches = tree_map(lambda t, _c=c: t[_c], batches)
+            stacked, opt_state, loss = epoch_fn(stacked, opt_state,
+                                                ebatches, lr)
+            losses.append(loss)
+            lrs.append(lr)
+        return (stacked, opt_state), (torch.stack(losses), torch.stack(lrs))
+    return scan_epochs
+
+
+def as_aggregate_fn(aggregate_fn=None, compress_fn=None, average_fn=None):
+    """Normalize the aggregation surface to ``aggregate(stacked, weights)``.
+
+    ``aggregate_fn`` (from a ``core/api.py`` aggregator) passes through;
+    the legacy pair — an optional stacked -> stacked ``compress_fn``
+    upload transform followed by a one-argument ``average_fn`` (default
+    ``averaging.average_pjit``) — is wrapped, ignoring weights. Passing
+    both surfaces is an error."""
+    if aggregate_fn is not None:
+        if compress_fn is not None or average_fn is not None:
+            raise ValueError(
+                "pass aggregate_fn OR compress_fn/average_fn, not both")
+        return aggregate_fn
+    if average_fn is None:
+        average_fn = averaging.average_pjit
+
+    def aggregate(stacked, weights=None):
+        del weights                     # legacy pair: statically uniform
+        uploaded = compress_fn(stacked) if compress_fn is not None else stacked
+        return average_fn(uploaded)
+    return aggregate
+
+
+@torch.no_grad()
+def _write_into(dst, src):
+    """Copy every leaf of ``src`` into the storage of ``dst`` (leaves that
+    already are that storage are skipped); returns ``dst``."""
+    for d, s in zip(leaves(dst), leaves(src)):
+        if s is not d:
+            d.copy_(s)
+    return dst
+
+
+def _make_finalize(opt, aggregate_fn, stateful=False):
+    """Aggregation (Eq. 2) + Eq. 4 metric + per-participant opt reset.
+
+    ``finalize(params, opt_state, old_avg, agg_weights=None) -> (params,
+    opt_state, rel, new_avg)``. Everything is written in place: the
+    aggregate into ``params``, the fresh optimizer state into
+    ``opt_state`` (the paper discards the local state), and the new shared
+    model (slot 0) into ``old_avg`` after ``rel`` has read it — so
+    ``new_avg`` IS ``old_avg``'s storage. ``agg_weights`` is the
+    aggregator's mixing matrix (None for uniform Eq. 2).
+
+    ``stateful=True`` (error feedback): the residual enters right after
+    ``opt_state``, the aggregate is ``aggregate_fn(params, agg_weights,
+    residual) -> (mixed, new_residual)``, the new residual is written into
+    ``residual`` and appended to the outputs."""
+    @torch.no_grad()
+    def finish(params, opt_state, averaged, old_avg):
+        _write_into(params, averaged)
+        new_avg = tree_map(lambda t: t[0], params)
+        rel = relative_change_tensor(new_avg, old_avg)
+        _write_into(old_avg, new_avg)
+        _write_into(opt_state, init_stacked_opt(opt, params))
+        return rel
+
+    if stateful:
+        def finalize_ef(params, opt_state, residual, old_avg,
+                        agg_weights=None):
+            averaged, new_res = aggregate_fn(params, agg_weights, residual)
+            rel = finish(params, opt_state, averaged, old_avg)
+            return params, opt_state, rel, old_avg, _write_into(residual,
+                                                                new_res)
+        return finalize_ef
+
+    def finalize(params, opt_state, old_avg, agg_weights=None):
+        averaged = aggregate_fn(params, agg_weights)
+        rel = finish(params, opt_state, averaged, old_avg)
+        return params, opt_state, rel, old_avg
+    return finalize
+
+
+def make_fused_round(loss_fn, opt, *, lr_fn=None, compress_fn=None,
+                     spmd_axis_name=None, average_fn=None, aggregate_fn=None,
+                     gated=False, gate_fn=None, masked=False, live=False,
+                     stateful=False):
+    """The whole round: epoch loop + aggregation + Eq. 4.
+
+    ``loss_fn(params, batch) -> (loss, aux)`` for ONE participant; ``opt``
+    an optimizer from ``repro_torch.optim.optimizers``; ``lr_fn(sched, j,
+    T_i, ge, total)`` the device schedule (default ``schedule.switch_lr``,
+    which every built-in ``api.LRSchedule`` shares); ``aggregate_fn(
+    stacked, weights)`` the round-strategy aggregation (or the legacy
+    ``compress_fn`` / ``average_fn`` pair).
+
+    Returns ``round_fn(params, opt_state, batches, old_avg, ge0, sched,
+    total, agg_weights=None) -> (params, opt_state, aux)`` with aux =
+    {losses (T, K), lrs (T,), rel (0-d), new_avg}. ``batches`` is a
+    ``(T_i, K, n_batches, ...)`` tree (T_i is read off its shape);
+    ``ge0`` / ``total`` are 0-d int32 device tensors and ``sched`` the
+    device parameter pack. Params, optimizer state and ``old_avg`` are
+    written in place (see ``_make_finalize``). ``stateful=True``: the
+    residual follows ``opt_state`` and aux grows ``{"residual"}``.
+    ``gated`` / ``masked`` / ``live`` and a pod axis raise
+    ``NotImplementedError``."""
+    _refuse(gated=gated or gate_fn is not None, masked=masked, live=live,
+            pod=spmd_axis_name is not None)
+    scan_epochs = _make_epoch_scan(make_epoch_fn(loss_fn, opt),
+                                   lr_fn or switch_lr)
+    finalize = _make_finalize(
+        opt, as_aggregate_fn(aggregate_fn, compress_fn, average_fn),
+        stateful=stateful)
+
+    def round_body(params, opt_state, residual, batches, old_avg, ge0,
+                   sched, total, agg_weights=None):
+        dev = ge0.device
+        T_i = torch.full((), leaves(batches)[0].shape[0], dtype=torch.int32,
+                         device=dev)
+        j0 = torch.zeros((), dtype=torch.int32, device=dev)
+        (params, opt_state), (losses, lrs) = scan_epochs(
+            params, opt_state, batches, j0, T_i, ge0, sched, total)
+        res_in = (residual,) if stateful else ()
+        out = finalize(params, opt_state, *res_in, old_avg, agg_weights)
+        aux = {"losses": losses, "lrs": lrs, "rel": out[2],
+               "new_avg": out[3]}
+        if stateful:
+            aux["residual"] = out[4]
+        return out[0], out[1], aux
+
+    if stateful:
+        return round_body
+
+    def round_fn(params, opt_state, batches, old_avg, ge0, sched, total,
+                 agg_weights=None):
+        return round_body(params, opt_state, None, batches, old_avg, ge0,
+                          sched, total, agg_weights)
+    return round_fn
+
+
+def make_fused_epochs(loss_fn, opt, *, lr_fn=None, spmd_axis_name=None,
+                      masked=False, live=False):
+    """Memory-bounded building block: ONE CHUNK of epochs.
+
+    Returns ``epochs_fn(params, opt_state, batches, j0, T_i, ge0, sched,
+    total) -> (params, opt_state, losses (C, K), lrs (C,))``, params and
+    optimizer state updated in place. ``j0`` / ``T_i`` / ``ge0`` /
+    ``total`` / ``sched`` are device tensors, so one captured graph serves
+    every chunk, every T_i doubling, budget update and built-in schedule
+    swap; only a distinct chunk length C captures again."""
+    _refuse(masked=masked, live=live, pod=spmd_axis_name is not None)
+    scan_epochs = _make_epoch_scan(make_epoch_fn(loss_fn, opt),
+                                   lr_fn or switch_lr)
+
+    def epochs_fn(params, opt_state, batches, j0, T_i, ge0, sched, total):
+        (params, opt_state), (losses, lrs) = scan_epochs(
+            params, opt_state, batches, j0, T_i, ge0, sched, total)
+        return params, opt_state, losses, lrs
+    return epochs_fn
+
+
+def make_fused_finalize(opt, *, compress_fn=None, average_fn=None,
+                        aggregate_fn=None, gated=False, gate_fn=None,
+                        live=False, stateful=False):
+    """End-of-round step for the chunked path: aggregation + Eq. 4 + opt
+    reset, ``finalize_fn(params, opt_state, [residual,] old_avg,
+    agg_weights=None) -> (params, opt_state, rel, new_avg[, residual])``,
+    all written in place (``_make_finalize``). ``gated`` / ``live`` raise
+    ``NotImplementedError``."""
+    _refuse(gated=gated or gate_fn is not None, live=live)
+    return _make_finalize(
+        opt, as_aggregate_fn(aggregate_fn, compress_fn, average_fn),
+        stateful=stateful)
 
 
 def make_fused_compressed_average(*, block=256, bits=8, mesh=None,

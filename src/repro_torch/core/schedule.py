@@ -5,12 +5,15 @@ CLR — the paper's "modified cyclical learning rate": within round *i* the
 rate decays exponentially from the shared η^i over the round's T_i epochs,
 ``η_j^i = η^i · r^(j/T_i)`` (r = 1/4), and restarts at η^i when the next
 round begins. ELR — the non-cyclical ablation baseline, annealed over
-global epochs. The rates are host scalars: the python engine evaluates
-them once per epoch.
+global epochs. The formulas take host scalars (the python engine
+evaluates them once per epoch) or 0-d device tensors.
 
-The traced combinator ``switch_lr`` and the divergence metric belong to
-the fused engine and the divergence-gated sync policy, which are still to
-port (ROADMAP.md).
+``switch_lr`` is the combinator the fused engine embeds: every built-in
+schedule selects among the same three branches (``LR_*``) with its
+branch index and parameter pack riding in as device tensors, so a
+schedule swap or a per-round re-parameterisation reuses the captured
+round graphs. The divergence metric of the divergence-gated sync policy
+is still to port (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -34,8 +37,55 @@ def elr_lr(eta_0: float, decay_rate: float, global_epoch, total_epochs):
 def cosine_lr(eta_i: float, eta_min: float, epoch_j, T_i):
     """Cosine anneal within the round, restarting at η^i each round (the
     SGDR-style cyclical variant of Eq. 3)."""
-    phase = math.cos(math.pi * (epoch_j / T_i))
+    x = math.pi * (epoch_j / T_i)
+    phase = torch.cos(x) if isinstance(x, torch.Tensor) else math.cos(x)
     return eta_min + 0.5 * (eta_i - eta_min) * (1.0 + phase)
+
+
+# --- the shared device combinator -------------------------------------------
+# Branch indices of ``switch_lr``. Every built-in LRSchedule lowers to the
+# same selection over these branches with (kind, p) as device tensors, so
+# the fused engine's captured graphs are reused across schedule swaps and
+# per-round re-parameterisations (e.g. a warmup ramping η^i).
+LR_EXP_ROUND = 0      # η · r^(j/T_i)            — CLR / WarmupCLR (Eq. 3)
+LR_EXP_GLOBAL = 1     # η · r^(ge/total)         — ELR
+LR_COS_ROUND = 2      # cosine anneal within the round, per-round restart
+N_SCHED_PARAMS = 4    # fixed length of the parameter vector ``p``
+
+
+def switch_lr(sched, epoch_j, T_i, global_epoch, total_epochs):
+    """The per-epoch learning rate shared by all built-in schedules, as a
+    0-d f32 device tensor.
+
+    ``sched`` is ``{"kind": int32 0-d, "p": float32[N_SCHED_PARAMS]}`` —
+    the device form of ``LRSchedule.round_params`` — with ``p = [eta_i,
+    decay_rate, aux0, aux1]``; ``epoch_j``, ``T_i``, ``global_epoch`` and
+    ``total_epochs`` are 0-d int32 device tensors. All three branches are
+    computed and ``torch.where`` selects one (an index outside the range
+    clamps to it, as ``lax.switch`` does): nothing here branches on a
+    device value on the host, and every quotient divides by a device
+    tensor.
+    """
+    p = sched["p"]
+    kind = sched["kind"].clamp(LR_EXP_ROUND, LR_COS_ROUND)
+    exp_round = clr_lr(p[0], p[1], epoch_j, T_i)
+    exp_global = elr_lr(p[0], p[1], global_epoch,
+                        torch.clamp(total_epochs, min=1))
+    cos_round = cosine_lr(p[0], p[2], epoch_j, T_i)
+    return torch.where(kind == LR_EXP_ROUND, exp_round,
+                       torch.where(kind == LR_EXP_GLOBAL, exp_global,
+                                   cos_round))
+
+
+def round_lr(colearn_cfg, round_i: int, epoch_j, T_i: int, global_epoch,
+             total_epochs: int):
+    """Legacy flag-surface helper: the per-epoch rate under the config's
+    ``schedule`` string ("clr" | "elr"); new code goes through
+    ``api.get_schedule(...).lr(...)``."""
+    if colearn_cfg.schedule == "clr":
+        return clr_lr(colearn_cfg.eta0, colearn_cfg.decay_rate, epoch_j, T_i)
+    return elr_lr(colearn_cfg.eta0, colearn_cfg.decay_rate, global_epoch,
+                  max(total_epochs, 1))
 
 
 @torch.no_grad()

@@ -49,9 +49,9 @@ def pack_codes(q, bits):
         u = q.view(torch.uint8) & 0xF
         return u[:, 0::2] | (u[:, 1::2] << 4)
     b = (q > 0).to(torch.uint8).reshape(q.shape[0], -1, 8)
-    w = torch.tensor([1 << i for i in range(8)], dtype=torch.uint8,
-                     device=q.device)
-    return (b * w).sum(dim=2).to(torch.uint8)
+    # bit i of each byte, built on q's device (no host transfer)
+    shift = torch.arange(8, dtype=torch.uint8, device=q.device)
+    return (b << shift).sum(dim=2).to(torch.uint8)
 
 
 def unpack_codes(p, bits):

@@ -9,11 +9,13 @@ Usage:
       --codec fused --steps-per-epoch 2
 
 Ported: the exact / leafwise / fused codecs at 8/4/1 bits with error
-feedback, the full Eq. 2 aggregator (``--weighted-avg`` included), the
-python engine, clr/elr schedules, ile/fle policies and the iid partition.
-Flags whose subsystems are still to port (the fused engine, partial /
-gossip aggregators, warmup/cosine schedules, the divergence trigger,
-non-IID partitions, churn, checkpoints) raise ``NotImplementedError``.
+feedback, the full Eq. 2 aggregator (``--weighted-avg`` included), both
+round engines (``--engine fused``, the default as in the JAX CLI: every
+round as replays of CUDA graphs captured once; ``--engine python``: the
+host loop), the clr/elr/warmup_clr/cosine schedules, ile/fle policies and
+the iid partition. Flags whose subsystems are still to port (partial /
+gossip aggregators, the divergence trigger, non-IID partitions, churn,
+checkpoints) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.configs.base import CoLearnConfig
 from repro_torch.core import api
 from repro_torch.core.colearn import CoLearner
+from repro_torch.core.engine import stage
 from repro_torch.data import partition as part_mod
 from repro_torch.data.pipeline import ParticipantData
 from repro_torch.data.synthetic import lm_examples
@@ -73,13 +76,13 @@ def make_loss_fn(cfg):
 
 def epoch_batches_fn(data, device, steps_per_epoch=0):
     """(round, epoch) -> the (K, n_batches, B, S) token/label tensors on
-    ``device``, truncated to ``steps_per_epoch`` batches when nonzero."""
+    ``device``, truncated to ``steps_per_epoch`` batches when nonzero and
+    staged through pinned memory (``engine.stage``: no host sync)."""
     def epoch_batches(round_i, epoch_j):
         bx, by = data.epoch_batches(round_i, epoch_j)
         if steps_per_epoch:
             bx, by = bx[:, :steps_per_epoch], by[:, :steps_per_epoch]
-        return (torch.as_tensor(bx, device=device),
-                torch.as_tensor(by, device=device))
+        return stage(bx, device=device), stage(by, device=device)
     return epoch_batches
 
 
@@ -144,9 +147,10 @@ def main(argv=None):
                              "exponential", "erdos_renyi", "complete"])
     ap.add_argument("--er-p", type=float, default=0.5)
     ap.add_argument("--er-seed", type=int, default=0)
-    ap.add_argument("--engine", default="python",
-                    choices=["fused", "python"],
-                    help="round engine; only python is ported")
+    ap.add_argument("--engine", default="fused", choices=["fused", "python"],
+                    help="round engine: fused = every round as replays of "
+                         "CUDA graphs captured once (core/graphs.py); "
+                         "python = reference loop")
     ap.add_argument("--churn", default="none",
                     choices=["none", "scripted", "random"])
     ap.add_argument("--churn-events", default="")
@@ -158,8 +162,7 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
-    for flag, on in (("--engine fused", args.engine == "fused"),
-                     (f"--aggregator {args.aggregator}",
+    for flag, on in ((f"--aggregator {args.aggregator}",
                       args.aggregator != "full"),
                      (f"--partition {args.partition}",
                       args.partition != "iid"),
@@ -167,8 +170,6 @@ def main(argv=None):
                      ("--k-max", bool(args.k_max)),
                      ("--naive-membership", args.naive_membership),
                      ("--checkpoint", bool(args.checkpoint)),
-                     (f"--lr-schedule {args.lr_schedule}",
-                      args.lr_schedule in ("warmup_clr", "cosine")),
                      ("--sync-policy divtrigger",
                       args.sync_policy == "divtrigger")):
         if on:

@@ -274,3 +274,285 @@ def test_gpu_moe_apply_under_sync_guard_matches_cpu(cuda, B, S):
         torch.cuda.set_sync_debug_mode("default")
     torch.testing.assert_close(y.cpu(), want_y, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The fused round engine on the card: every round as replays of CUDA graphs
+# captured once (core/graphs.py), against the python engine's eager rounds.
+# ---------------------------------------------------------------------------
+LOG_TOL = {"rtol": 1e-5, "atol": 1e-6}
+
+
+def _fused_setup():
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.train import build_data
+    from repro_torch.models import transformer as tr
+    cfg = get_smoke_config("internlm2-1.8b").with_(
+        n_layers=1, segments=((("gqa:dense",), 1),))
+    data = build_data(cfg, 3, 4, 16, 48, seed=0)
+    return cfg, data, tr.init_params(0, cfg, torch.float32, device="cpu")
+
+
+def _learner(dev, engine, *, codec=("exact", {}), T0=1, eps=1e-6,
+             rule="ile", schedule="clr", optimizer="sgd", loss=None,
+             chunk=32, max_rounds=3):
+    from repro_torch.configs.base import CoLearnConfig
+    from repro_torch.core import api
+    from repro_torch.core.colearn import CoLearner
+    from repro_torch.launch.train import make_loss_fn
+    cfg, data, params = _fused_setup()
+    ccfg = CoLearnConfig(n_participants=3, T0=T0, eta0=0.05, epsilon=eps,
+                         epochs_rule=rule, max_rounds=max_rounds)
+    learner = CoLearner(
+        ccfg, loss or make_loss_fn(cfg), optimizer_name=optimizer,
+        codec=api.get_codec(codec[0], **codec[1]),
+        round_engine=(api.FusedEngine(chunk) if engine == "fused"
+                      else "python"),
+        schedule=schedule, device=dev)
+    return learner, learner.init(params), data
+
+
+def _rounds(learner, state, data, n):
+    from repro_torch.launch.train import epoch_batches_fn
+    batches = epoch_batches_fn(data, learner.device, 2)
+    for _ in range(n):
+        state = learner.run_round(state, batches)
+    return state
+
+
+def _logs_close(a, b):
+    assert [x.T for x in a["log"]] == [x.T for x in b["log"]]
+    for x, y in zip(a["log"], b["log"]):
+        assert x.comm_bytes == y.comm_bytes
+        np.testing.assert_allclose(y.local_losses, x.local_losses, **LOG_TOL)
+        # the fused rate is f32 on the device, the python engine's a host
+        # double: 1 + cos near the cosine's tail cancels to ~1e-6 (rel)
+        np.testing.assert_allclose([y.lr_first, y.lr_last],
+                                   [x.lr_first, x.lr_last], rtol=1e-5,
+                                   atol=1e-8)
+        if np.isinf(x.rel_change):
+            assert np.isinf(y.rel_change)
+        else:
+            np.testing.assert_allclose(y.rel_change, x.rel_change, **LOG_TOL)
+
+
+def _param_diff(a, b):
+    from repro_torch.tree import leaves
+    return max(float((x - y).abs().max())
+               for x, y in zip(leaves(a["params"]), leaves(b["params"])))
+
+
+def _quantum(stacked, bits):
+    """Largest per-row wire scale of the flat buffer over K (rows of zero
+    padding excluded): one code step of the quantizing codecs."""
+    from repro_torch.core import flatbuf
+    from repro_torch.tree import tree_map
+    cpu = tree_map(lambda t: t.cpu(), stacked)
+    buf = flatbuf.flatten(cpu, flatbuf.make_layout(cpu))
+    live = buf.reshape(-1, 256).abs().amax(1) > 0
+    scale = tref.quantize_blockwise_ref(buf, bits=bits)[1]
+    return float(scale[live].max()) / buf.shape[0]
+
+
+FUSED_CASES = [
+    (("exact", {}), "sgd"), (("exact", {}), "adamw"),
+    (("exact", {}), "momentum"), (("fused", {}), "sgd"),
+    (("leafwise", {}), "sgd"),
+    (("fused", {"bits": 4, "error_feedback": True}), "sgd")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("codec,optimizer", FUSED_CASES)
+def test_gpu_fused_rounds_match_python(cuda, codec, optimizer):
+    """Captured rounds (a round graph per T; ε = 0.5 doubles T after the
+    second round except under AdamW) equal the python
+    engine's eager rounds on the card: logs at 1e-5, params at 1e-5 for
+    the exact codec and within one wire quantum for the quantizing ones
+    (the rate is f32 on the device, a host double in the python engine:
+    one ulp may move a value across a rounding boundary)."""
+    runs = {}
+    for engine in ("python", "fused"):
+        learner, state, data = _learner(cuda, engine, codec=codec, eps=0.5,
+                                        optimizer=optimizer)
+        runs[engine] = (learner, _rounds(learner, state, data, 3))
+    (_, sp), (fl, sf) = runs["python"], runs["fused"]
+    _logs_close(sp, sf)
+    # a round graph per distinct T; every round but the first replays
+    assert fl._fused_round.captures == len({x.T for x in sf["log"]})
+    assert fl._fused_round.replays == 2
+    bits = codec[1].get("bits", 8)
+    tol = 1e-5 if codec[0] == "exact" else _quantum(sp["params"], bits)
+    assert _param_diff(sp, sf) <= tol
+    if codec[1].get("error_feedback"):
+        assert float((sp["residual"] - sf["residual"]).abs().max()) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("codec", [("exact", {}), ("fused", {}), (
+    "fused", {"bits": 4, "error_feedback": True})])
+def test_gpu_captured_rounds_equal_uncaptured(cuda, codec):
+    """The same fused functions on the card, replayed from graphs and run
+    eagerly (the graph set told it is not on the card, as on the CPU):
+    logs and params at 1e-5."""
+    runs = []
+    for captured in (True, False):
+        learner, state, data = _learner(cuda, "fused", codec=codec,
+                                        rule="fle")
+        learner._runner.graphs.on_cuda = captured
+        runs.append((learner, _rounds(learner, state, data, 3)))
+    (cl, cs), (ul, us) = runs
+    assert cl._fused_round.replays == 2 and ul._fused_round.replays == 0
+    _logs_close(us, cs)
+    assert _param_diff(us, cs) <= 1e-5
+    if codec[1].get("error_feedback"):
+        assert float((us["residual"] - cs["residual"]).abs().max()) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_gpu_fused_restart_participant_between_replays(cuda):
+    """``restart_participant`` writes the state in place: the next round
+    replays the same graph (no capture) and equals the python engine
+    doing the same."""
+    from repro_torch.tree import leaves
+    runs = {}
+    for engine in ("python", "fused"):
+        learner, state, data = _learner(
+            cuda, engine, codec=("fused", {"bits": 4,
+                                           "error_feedback": True}),
+            rule="fle")
+        state = _rounds(learner, state, data, 2)
+        with torch.no_grad():
+            for t in leaves(state["params"]):
+                t[1].add_(1.0)                       # a failed participant
+        learner.restart_participant(state, 1)
+        runs[engine] = (learner, _rounds(learner, state, data, 1))
+    (_, sp), (fl, sf) = runs["python"], runs["fused"]
+    assert (fl._fused_round.captures, fl._fused_round.replays) == (1, 2)
+    _logs_close(sp, sf)
+    assert _param_diff(sp, sf) <= _quantum(sp["params"], 4)
+
+
+@pytest.mark.gpu
+def test_gpu_fused_chunked_first_round_matches_python(cuda):
+    """T0 = 5 over chunks of 2: the first key is a chunk graph (its eager
+    run is the set's warm-up) and the finalize is captured without one."""
+    runs = {}
+    for engine in ("python", "fused"):
+        learner, state, data = _learner(
+            cuda, engine, codec=("fused", {}), T0=5, rule="fle", chunk=2)
+        runs[engine] = (learner, _rounds(learner, state, data, 2))
+    (_, sp), (fl, sf) = runs["python"], runs["fused"]
+    _logs_close(sp, sf)
+    assert _param_diff(sp, sf) <= _quantum(sp["params"], 8)
+    assert (fl._fused_epochs.captures, fl._fused_finalize.captures,
+            fl._fused_round.captures) == (2, 1, 0)      # chunk lengths 2, 1
+
+
+@pytest.mark.gpu
+def test_gpu_fused_captures_stay_flat(cuda):
+    """T 2 -> 2 -> 4 -> 8 with chunk=2 captures the round graph once, the
+    chunk graph once and the finalize once; the budget updates with every
+    doubling; CLR -> ELR -> WarmupCLR -> cosine swaps capture nothing new.
+    The python engine runs the same sequence: the logs agree."""
+    from repro_torch.core import api
+    runs = {}
+    for engine in ("python", "fused"):
+        learner, state, data = _learner(cuda, engine, T0=2, eps=1e9,
+                                        chunk=2, max_rounds=8)
+        state = _rounds(learner, state, data, 4)
+        if engine == "fused":
+            counts = (learner._fused_round.captures,
+                      learner._fused_epochs.captures,
+                      learner._fused_finalize.captures)
+            assert counts == (1, 1, 1)
+        learner.set_sync_policy("fle")
+        for spec in ("elr", api.WarmupCLR(0.05, warmup_rounds=3),
+                     "cosine"):
+            learner.set_schedule(spec)
+            state = _rounds(learner, state, data, 1)
+        runs[engine] = (learner, state)
+    (_, sp), (fl, sf) = runs["python"], runs["fused"]
+    assert [x.T for x in sf["log"]] == [2, 2, 4, 8, 16, 16, 16]
+    assert (fl._fused_round.captures, fl._fused_epochs.captures,
+            fl._fused_finalize.captures) == (1, 1, 1)
+    assert fl._runner.graphs.captures == 3
+    _logs_close(sp, sf)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("codec", [("fused", {}), ("leafwise", {}), (
+    "fused", {"bits": 4, "error_feedback": True})])
+def test_gpu_fused_launch_counts_equal_launches(cuda, codec):
+    """Replays add the launches each graph recorded at capture, so the
+    counters over three rounds (one eager and capturing, two replays)
+    equal the python engine's eager launches."""
+    counts = {}
+    for engine in ("python", "fused"):
+        learner, state, data = _learner(cuda, engine, codec=codec)
+        tops.reset_launch_counts()
+        _rounds(learner, state, data, 3)
+        torch.cuda.synchronize()
+        counts[engine] = tops.launch_counts()
+    assert counts["fused"] == counts["python"]
+    assert sum(counts["fused"].values()) > 0
+    if codec == ("fused", {}):
+        assert counts["fused"]["wire_quant_avg_dequant"] == 3
+
+
+@pytest.mark.gpu
+def test_gpu_fused_window_is_sync_free(cuda):
+    """Replayed rounds run under ``set_sync_debug_mode("error")`` from the
+    end of staging to the one fetch; a host sync injected into that window
+    raises, and the guard is lifted again afterwards."""
+    learner, state, data = _learner(cuda, "fused", codec=("fused", {}))
+    state = _rounds(learner, state, data, 2)           # capture, replay
+    runner = learner._runner
+    captured = runner._round
+
+    def leaky(*args):
+        out = captured(*args)
+        float(out[2])                                   # a host sync
+        return out
+    runner._round = leaky
+    with pytest.raises(RuntimeError, match="synchroniz"):
+        _rounds(learner, state, data, 1)
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+@pytest.mark.gpu
+def test_gpu_fused_reinit_recaptures(cuda):
+    """A new ``learner.init`` moves the state's storage: the round graph is
+    captured again (never replayed on the old addresses) and the new run
+    equals the first one; the old state, run again, recaptures too."""
+    learner, s1, data = _learner(cuda, "fused")
+    s1 = _rounds(learner, s1, data, 2)
+    _, _, params = _fused_setup()
+    s2 = _rounds(learner, learner.init(params), data, 2)
+    assert learner._fused_round.captures == 2
+    _logs_close(s1, s2)
+    assert _param_diff(s1, s2) <= 1e-5
+    _rounds(learner, s1, data, 1)
+    assert learner._fused_round.captures == 3
+
+
+@pytest.mark.gpu
+def test_gpu_fused_capture_failure_raises(cuda):
+    """A host transfer inside the captured work makes the capture fail,
+    and the round raises: there is no eager fallback. The caller's stream
+    and the sync guard are restored."""
+    from repro_torch.launch.train import make_loss_fn
+    cfg, _, _ = _fused_setup()
+    inner = make_loss_fn(cfg)
+    calls = [0]
+
+    def loss(params, batch):
+        calls[0] += 1
+        if calls[0] > 6:                     # past the eager warm-up round
+            torch.tensor([1.0], device=batch[0].device)
+        return inner(params, batch)
+    learner, state, data = _learner(cuda, "fused", loss=loss)
+    with pytest.raises(RuntimeError):
+        _rounds(learner, state, data, 1)
+    assert calls[0] > 6
+    assert torch.cuda.current_stream() == torch.cuda.default_stream()
+    assert torch.cuda.get_sync_debug_mode() == 0

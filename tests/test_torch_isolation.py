@@ -79,15 +79,14 @@ def test_entry_points_raise_without_a_card(no_cuda):
 
 def test_unported_paths_raise_not_implemented():
     from repro_torch.configs import get_smoke_config
-    from repro_torch.core import api
+    from repro_torch.core import api, engine
     from repro_torch.launch import train
     from repro_torch.models import transformer as tr
+    from repro_torch.optim.optimizers import get_optimizer
 
     for spec in ("partial", "ring", "graph", "d2"):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             api.get_aggregator(spec)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        api.get_engine("fused")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         api.get_sync_policy("divtrigger")
     with pytest.raises(NotImplementedError, match="not yet ported"):
@@ -102,7 +101,12 @@ def test_unported_paths_raise_not_implemented():
                  lambda: flat.roundtrip_ef(x, flat.init_state(x))):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             call()
-    for flags in (["--engine", "fused"], ["--churn", "random"],
+    # the fused engine's divergence gate, batch mask and liveness row
+    opt = get_optimizer("sgd")
+    for kw in ({"gated": True}, {"masked": True}, {"live": True}):
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            engine.make_fused_round(lambda p, b: None, opt, **kw)
+    for flags in (["--churn", "random"],
                   ["--aggregator", "ring"], ["--partition", "dirichlet"]):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             train.main(["--device", "cpu", *flags])

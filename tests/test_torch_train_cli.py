@@ -2,6 +2,8 @@
 CLI's per-round fields, round for round."""
 import re
 
+import pytest
+
 from repro.launch import train as jtrain
 from repro_torch.launch import train as ttrain
 
@@ -19,10 +21,14 @@ def _rounds(out):
             if line.startswith("round ")]
 
 
-def test_train_cli_prints_the_jax_fields(capsys):
-    assert ttrain.main(ARGS + ["--device", "cpu"]) == 0
+@pytest.mark.parametrize("engine", ["fused", "python"])
+def test_train_cli_prints_the_jax_fields(capsys, engine):
+    """Both CLIs default to the fused engine: that case passes no
+    ``--engine``; the python case passes it to both."""
+    flags = [] if engine == "fused" else ["--engine", engine]
+    assert ttrain.main(ARGS + flags + ["--device", "cpu"]) == 0
     t_out = capsys.readouterr().out
-    assert jtrain.main(ARGS + ["--engine", "python"]) == 0
+    assert jtrain.main(ARGS + flags) == 0
     j_out = capsys.readouterr().out
     t_rounds, j_rounds = _rounds(t_out), _rounds(j_out)
     assert len(t_rounds) == len(j_rounds) == 2
@@ -32,3 +38,4 @@ def test_train_cli_prints_the_jax_fields(capsys):
         assert t[:4] == j[:4] and t[7:] == j[7:]
     assert t_out.splitlines()[0].startswith("co-learning internlm2-smoke")
     assert "device=cpu" in t_out
+    assert f"engine={engine}" in t_out and f"engine={engine}" in j_out
