@@ -48,19 +48,29 @@ Phases:
      prompts, twice, K5 launched once per layer per prefill, the second
      with a synchronised span around K5; (b)
      ``ServeLoop``, batch 8, a 128-token prompt, 64 new tokens, max_seq
-     256, its decode loop under ``torch.cuda.set_sync_debug_mode("error")``;
-     (c) a second model published to a ``ModelBank`` and polled in, whose
-     tokens must equal an eager ``decode_step`` loop of that model; (d) the
-     loop's token-by-token prefill against the kernel prefill at 1e-4:
+     256, its decode step captured once as a CUDA graph when the loop is
+     built and replayed for every prompt and decode token (one capture,
+     ``P + new`` replays a ``generate``), every ``generate`` under
+     ``torch.cuda.set_sync_debug_mode("error")``; the decode ms a step
+     beside its weight-read bound, the prompt seconds; (c) a second model
+     published to a ``ModelBank`` and polled in (copied into the loop's
+     params: still one capture), whose tokens must equal an eager
+     ``decode_step`` loop of that model, timed beside the loop; (d) the
+     token-by-token prefill of a second loop, whose captured step records
+     every layer's inputs and outputs, against the kernel prefill at 1e-4:
      every layer on the loop's own inputs to it, and the last-prompt
      logits against ``prefill(impl="kernel")``. The counters are zeroed
      just before (a) and read after (d);
   7. serving xlstm-1.3b at full width and all 48 layers (42 mLSTM, 6
      sLSTM), f32: (a) two prefills of 8 x 2048 tokens through
      ``make_prefill_step(cfg, impl="kernel")``, K7 launched 42 times in
-     each, the second with synchronised spans around the mLSTM and sLSTM
-     layers and K7; (b)-(d) as in phase 6, at 2e-4 (the JAX suite's
-     tolerance for K7), except that (d) holds only every layer to it: the
+     each and the six sLSTM recurrences replayed from one captured graph
+     (captured in the first prefill, 6 replays in the second; one capture
+     per prefill shape over the phase), the second with synchronised
+     spans around the mLSTM and sLSTM layers and K7; (b)-(d) as in phase
+     6, the bound with the decode state read and written, at 2e-4 (the
+     JAX suite's tolerance for K7), except that (d) holds only every
+     layer to it: the
      random 48-layer model's last-prompt logits differ by far more between
      any two f32 orderings of the same model (the loop, the K7 prefill,
      ``prefill(impl="ref")``), so those distances are recorded side by
@@ -1076,18 +1086,20 @@ def synced_spans(torch, targets):
 
 
 def _prefills(torch, cfg, params, tokens, per_prefill, tag,
-              span_targets=()):
+              span_targets=(), counters=None):
     """(a) of the serving phases: two prefills through
     ``make_prefill_step(cfg, impl="kernel")``, each kernel of
     ``per_prefill`` ({name: launches}) launched that many times in each;
     the first warms up, the second runs inside
-    ``synced_spans(span_targets)``. Returns (seconds, spans)."""
+    ``synced_spans(span_targets)``. Returns (seconds, spans, the change of
+    ``counters()`` (a dict of counts) in each prefill)."""
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import make_prefill_step
     step = make_prefill_step(cfg, impl="kernel")
-    seconds = []
+    seconds, moved = [], []
     for i in range(2):
         before = ops.launch_counts()
+        c0 = counters() if counters else {}
         with synced_spans(torch, span_targets if i else ()) as spans:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1095,6 +1107,8 @@ def _prefills(torch, cfg, params, tokens, per_prefill, tag,
             torch.cuda.synchronize()
             seconds.append(time.perf_counter() - t0)
         after = ops.launch_counts()
+        c1 = counters() if counters else {}
+        moved.append({k: c1[k] - c0[k] for k in c1})
         for kernel, want in per_prefill.items():
             n = after[kernel] - before[kernel]
             check(n == want, f"{tag}a: {kernel} launched {n} times in one "
@@ -1102,22 +1116,31 @@ def _prefills(torch, cfg, params, tokens, per_prefill, tag,
         check(logits.shape == (tokens.shape[0], cfg.vocab_size)
               and bool(torch.isfinite(logits).all()),
               f"{tag}a: prefill logits not finite or misshapen")
-    return seconds, dict(spans)
+    return seconds, dict(spans), moved
 
 
 @contextlib.contextmanager
-def recorded_layer_decodes(tr):
-    """Record ``(input, output)`` of every ``transformer.layer_decode``
-    call, in call order."""
-    calls, fn = [], tr.layer_decode
+def recorded_layer_decodes(torch, tr, n_layers, shape, dev):
+    """Write the input and output of every ``transformer.layer_decode``
+    call into ``(n_layers, B, P, D)`` buffers at (layer, the step's
+    position): call i of a step is layer i mod n_layers. The position is
+    the step's device tensor, so the writes are recorded into a captured
+    decode step and made again by each replay. Yields (inputs, outputs)."""
+    xs = torch.zeros((n_layers, *shape), device=dev)
+    ys = torch.zeros_like(xs)
+    calls, fn = [0], tr.layer_decode
 
-    def recorded(p, kind, x, *a):
-        y, cache = fn(p, kind, x, *a)
-        calls.append((x, y))
+    def recorded(p, kind, x, cfg, cache, pos):
+        y, cache = fn(p, kind, x, cfg, cache, pos)
+        i = calls[0] % n_layers
+        calls[0] += 1
+        idx = pos.reshape(1).long()
+        xs[i].index_copy_(1, idx, x.float())
+        ys[i].index_copy_(1, idx, y.float())
         return y, cache
     tr.layer_decode = recorded
     try:
-        yield calls
+        yield xs, ys
     finally:
         tr.layer_decode = fn
 
@@ -1132,56 +1155,77 @@ def _layers(cfg, params):
                 yield tree_map(lambda t, _r=r: t[_r], seg[f"p{j}"]), kind
 
 
-def _per_layer(torch, cfg, params, calls, P, tol, tag):
-    """Each layer of the loop's token-by-token prefill against
-    ``layer_apply(impl="kernel")`` of that layer on the loop's own inputs
-    to it (all P positions at once), at ``tol``. Returns the max error."""
+def _per_layer(torch, cfg, params, xs, ys, tol, tag):
+    """Each layer of the loop's token-by-token prefill (its inputs ``xs``
+    and outputs ``ys``, (L, B, P, D)) against ``layer_apply(impl=
+    "kernel")`` of that layer on the loop's own inputs to it (all P
+    positions at once), at ``tol``. Returns the max error."""
     from repro_torch.models import transformer as tr
-    L = cfg.n_layers
-    check(len(calls) == P * L, f"{tag}d: {len(calls)} layer decodes for "
-                               f"{P} tokens x {L} layers")
     worst = 0.0
     for i, (p, kind) in enumerate(_layers(cfg, params)):
-        x = torch.cat([calls[t * L + i][0] for t in range(P)], dim=1)
-        y = torch.cat([calls[t * L + i][1] for t in range(P)], dim=1)
+        x = xs[i]
+        B, P = x.shape[:2]
         pos = torch.arange(P, dtype=torch.int32, device=x.device)
-        want, _ = tr.layer_apply(p, kind, x, cfg,
-                                 pos.expand(x.shape[0], P), "kernel")
-        worst = max(worst, _close(torch, y, want, tol,
+        want, _ = tr.layer_apply(p, kind, x, cfg, pos.expand(B, P),
+                                 "kernel")
+        worst = max(worst, _close(torch, ys[i], want, tol,
                                   f"{tag}d: layer {i} ({kind}) of the loop "
                                   "vs layer_apply(impl='kernel')"))
     return worst
 
 
-def _loop_swap(torch, dev, cfg, params, g, tol, tag, end_to_end=True,
-               swap=True):
+def _loop_swap(torch, dev, cfg, params, g, tol, tag, bound_ms,
+               end_to_end=True, swap=True):
     """(b)-(d) of the serving phases: the ``ServeLoop`` at batch 8 (128 +
-    64 tokens, decode under the sync guard); (c) with ``swap``, a second
-    model published to a ``ModelBank`` and polled in, whose tokens must
-    equal an eager ``decode_step`` loop of it; without (a model too large
-    to hold twice), the loop's tokens from (b) against an eager loop of
-    the same model; and (d) the loop's token-by-token prefill against the
-    kernel prefill at ``tol``: every layer on the same inputs and, when
-    ``end_to_end``, the last-prompt logits. Otherwise the logits' distance
-    is recorded beside that of ``prefill(impl="ref")``, the spread of two
-    f32 orderings of the same model. (d) runs at a drop-free MoE capacity
-    factor where the model has experts: which tokens a capacity drops
-    depends on how many tokens a call sees. Returns the record."""
+    64 tokens, every ``generate`` under the sync guard), its decode step
+    captured once, when the loop is built, and replayed for every prompt
+    and decode token; (c) with ``swap``, a second model published to a
+    ``ModelBank`` and polled in (copied into the loop's params, no second
+    capture), whose tokens must equal an eager ``decode_step`` loop of it;
+    without (a model too large to hold twice), the loop's tokens from (b)
+    against an eager loop of the same model. The eager loop is timed
+    beside the captured one, and the decode ms a step stands beside
+    ``bound_ms``. (d) the token-by-token prefill of a second loop, built
+    with every layer's inputs and outputs recorded into its captured step,
+    against the kernel prefill at ``tol``: every layer on the same inputs
+    and, when ``end_to_end``, the last-prompt logits. Otherwise the
+    logits' distance is recorded beside that of ``prefill(impl="ref")``,
+    the spread of two f32 orderings of the same model. (d) runs at a
+    drop-free MoE capacity factor where the model has experts: which
+    tokens a capacity drops depends on how many tokens a call sees.
+    Returns the record."""
     from repro_torch.models import transformer as tr
     from repro_torch.serving import ModelBank, ServeLoop
     B, P, new, max_seq = 8, 128, 64, 256
     prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=g,
                             device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     loop = ServeLoop(cfg, params, batch=B, max_seq=max_seq, device=dev)
-    loop.generate(prompts[:, :8], 4)                       # warm-up
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    check(loop.compile_count() == 1 and loop.replay_count() == 0,
+          f"{tag}b: building the loop did not capture its step once")
+    stats, replays = [], []
+
+    def served(prompts, new):
+        before = loop.replay_count()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            gen, st = loop.generate(prompts, new)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        replays.append(loop.replay_count() - before)
+        check(replays[-1] == prompts.shape[1] + new,
+              f"{tag}b: {replays[-1]} replays in a generate of "
+              f"{prompts.shape[1]} + {new} tokens")
+        return gen, st
+
+    served(prompts[:, :8], 4)                               # warm-up
     torch.cuda.reset_peak_memory_stats()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        gen0, st0 = loop.generate(prompts, new)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
+    gen0, st0 = served(prompts, new)
     peak_loop = torch.cuda.max_memory_allocated()
-    stats = [st0]
+    stats.append(st0)
 
     # (c) the loop's tokens against an eager decode loop of the model it
     # serves: a second model through the bank, or the same one
@@ -1192,22 +1236,33 @@ def _loop_swap(torch, dev, cfg, params, g, tol, tag, end_to_end=True,
         bank.publish(params1, round_i=1)
         check(loop.poll(bank) and loop.version == 1,
               f"{tag}c: poll did not swap")
-        gen1, st1 = loop.generate(prompts, new)
-        check(loop.compile_count() == 1 and st1["compile_count"] == 1,
-              f"{tag}c: the swap rebuilt the decode step")
+        gen1, st1 = served(prompts, new)
         stats.append(st1)
         del bank
+    check(loop.compile_count() == 1 and all(
+        x["compile_count"] == 1 for x in stats),
+        f"{tag}c: the loop captured its step {loop.compile_count()} times")
+    captures, total_replays = loop.compile_count(), loop.replay_count()
+    del loop
+    gc.collect()                # a GraphSet and its functions form a cycle
+    torch.cuda.empty_cache()
     cache = tr.init_cache(cfg, B, max_seq, torch.float32, dev)
     pos = torch.arange(max_seq, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     for t in range(P):
         logits, cache = tr.decode_step(params1, cfg, cache,
                                        prompts[:, t:t + 1], pos[t])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
     tok, eager = torch.argmax(logits, -1), []
     for i in range(new):
         eager.append(tok)
         logits, cache = tr.decode_step(params1, cfg, cache, tok, pos[P + i])
         tok = torch.argmax(logits, -1)
     eager = torch.cat(eager, dim=1)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
     what = "after the swap " if swap else ""
     check(torch.equal(gen1, eager), f"{tag}c: ServeLoop tokens {what}differ "
                                     "from an eager decode loop")
@@ -1220,15 +1275,22 @@ def _loop_swap(torch, dev, cfg, params, g, tol, tag, end_to_end=True,
     # (d) the loop's token-by-token prefill against the kernel prefill
     cfg_d = (cfg.with_(capacity_factor=float(cfg.n_experts))
              if cfg.n_experts else cfg)
-    loop_d = loop if cfg_d is cfg else ServeLoop(
-        cfg_d, params1, batch=B, max_seq=max_seq, device=dev)
-    with recorded_layer_decodes(tr) as calls:
+    with recorded_layer_decodes(torch, tr, cfg_d.n_layers,
+                                (B, P, cfg.d_model), dev) as (xs, ys):
+        loop_d = ServeLoop(cfg_d, params1, batch=B, max_seq=max_seq,
+                           device=dev)
         loop_logits, _ = loop_d.prefill(prompts)
-    d = {"per_layer_max_abs_err": _per_layer(torch, cfg_d, params1, calls,
-                                             P, tol, tag)}
+    check(loop_d.compile_count() == 1 and loop_d.replay_count() == P,
+          f"{tag}d: the recording loop captured {loop_d.compile_count()} "
+          f"times and replayed {loop_d.replay_count()} times for {P} "
+          "prompt tokens")
+    del loop_d
+    gc.collect()
+    d = {"per_layer_max_abs_err": _per_layer(torch, cfg_d, params1, xs, ys,
+                                             tol, tag)}
     if cfg.n_experts:
         d["capacity_factor"] = cfg_d.capacity_factor
-    del calls
+    del xs, ys
     want = tr.prefill(params1, cfg_d, {"tokens": prompts}, impl="kernel")
     if end_to_end:
         d["logits_max_abs_err"] = _close(
@@ -1243,24 +1305,34 @@ def _loop_swap(torch, dev, cfg, params, g, tol, tag, end_to_end=True,
             "logits_max_abs": float(want.abs().max())}
         del ref
     peak = torch.cuda.max_memory_allocated()
-    builds = loop.compile_count()
-    del params1, loop, loop_d, want, loop_logits
+    del params1, want, loop_logits
+    gc.collect()
+    torch.cuda.empty_cache()
     return {"loop": {"prompt_len": P, "new_tokens": new, "max_seq": max_seq,
+                     "build_and_capture_s": build_s,
                      "prefill_s": [x["prefill_s"] for x in stats],
                      "decode_s": [x["decode_s"] for x in stats],
+                     "decode_ms_per_step": [1e3 * x["decode_s"] / new
+                                            for x in stats],
+                     "bound_ms_per_step": bound_ms,
                      "decode_tokens_per_s": [x["tokens_per_s"]
                                              for x in stats],
                      "prompt_tokens_per_s": [B * P / x["prefill_s"]
                                              for x in stats],
                      "peak_mem_GB": peak_loop / 1e9,
-                     "compile_count": builds,
+                     "captures": captures,
+                     "replays_per_generate": replays,
+                     "replays": total_replays,
                      "versions": [x["version"] for x in stats]},
+            "eager_loop": {"prompt_s": t1 - t0, "decode_s": t2 - t1,
+                           "decode_ms_per_step": 1e3 * (t2 - t1) / new,
+                           "decode_tokens_per_s": B * new / (t2 - t1)},
             ("swap_tokens_equal_eager" if swap else "tokens_equal_eager"):
                 True,
             "loop_vs_prefill": d, "tol": tol, "peak_mem_GB": peak / 1e9}
 
 
-def phase_serving(torch, dev, launches_out, k5_ms):
+def phase_serving(torch, dev, launches_out, k5_ms, bw):
     """Phase 6: prefill through K5 (K5's synchronised span in the second),
     the ServeLoop, a hot swap from a ModelBank, at internlm2-1.8b's full
     width and all 24 layers."""
@@ -1276,16 +1348,18 @@ def phase_serving(torch, dev, launches_out, k5_ms):
     B, S = 8, 2048
     tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
                            device=dev)
+    weight_bytes = decode_weight_bytes(params, cfg, B)
     ops.reset_launch_counts()
-    prefill_s, spans = _prefills(torch, cfg, params, tokens,
-                                 {"flash_attention": cfg.n_layers}, "6",
-                                 span_targets=[(ops, "flash_attention",
-                                                "k5")])
+    prefill_s, spans, _ = _prefills(torch, cfg, params, tokens,
+                                    {"flash_attention": cfg.n_layers}, "6",
+                                    span_targets=[(ops, "flash_attention",
+                                                   "k5")])
     peak_prefill = torch.cuda.max_memory_allocated()
     del tokens
     torch.cuda.empty_cache()
     rec = _loop_swap(torch, dev, cfg, params, g,
-                     {"rtol": 1e-4, "atol": 1e-4}, "6")
+                     {"rtol": 1e-4, "atol": 1e-4}, "6",
+                     1e3 * weight_bytes / bw)
     counts = ops.launch_counts()
     check(counts["flash_attention"] == 4 * cfg.n_layers,
           f"6: K5 launched {counts['flash_attention']} times over four "
@@ -1302,6 +1376,8 @@ def phase_serving(torch, dev, launches_out, k5_ms):
                  "k5_share_from_phase3_ms": cfg.n_layers * k5_ms / 1e3
                  / prefill_s[0],
                  "peak_mem_GB": peak_prefill / 1e9},
+        decode_weight_GB=weight_bytes / 1e9,
+        decode_bound_ms_per_step=1e3 * weight_bytes / bw,
         launches=counts, **rec)
     del params
     torch.cuda.empty_cache()
@@ -1334,29 +1410,44 @@ def phase_xlstm_serving(torch, dev, launches_out, k7_ms, bw):
     B, S = 8, 2048
     tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
                            device=dev)
+    n_slstm = cfg.n_layers - n_mlstm
+    # f32 decode state: C, n, m per mLSTM layer; h, c, n, m per sLSTM layer
+    H, d = cfg.n_heads, cfg.d_model
+    hd = int(cfg.xlstm_proj_factor * d) // H
+    state_bytes = 4 * B * H * (n_mlstm * (hd * hd + hd + 1)
+                               + n_slstm * 4 * (d // H))
+    weight_bytes = decode_weight_bytes(params, cfg, B)
+    bound_ms = 1e3 * (weight_bytes + 2 * state_bytes) / bw
+    xl.release_slstm_graphs()
     ops.reset_launch_counts()
-    prefill_s, spans = _prefills(
+    prefill_s, spans, slstm_moved = _prefills(
         torch, cfg, params, tokens, {"mlstm": n_mlstm}, "7",
         span_targets=[(xl, "mlstm_apply", "mlstm_layers"),
                       (ops, "mlstm", "k7"),
-                      (xl, "slstm_apply", "slstm_layers")])
+                      (xl, "slstm_apply", "slstm_layers")],
+        counters=xl.slstm_graph_counts)
+    # the sLSTM recurrence: one graph for the six layers at this shape,
+    # captured in the first prefill, replayed by every layer of the second
+    check([m["captures"] for m in slstm_moved] == [1, 0]
+          and slstm_moved[1]["replays"] == n_slstm,
+          f"7a: sLSTM graph captures / replays per prefill {slstm_moved}, "
+          f"not one capture and {n_slstm} replays in the second")
     peak_prefill = torch.cuda.max_memory_allocated()
     del tokens
     torch.cuda.empty_cache()
-    rec = _loop_swap(torch, dev, cfg, params, g, ML_TOL, "7",
+    rec = _loop_swap(torch, dev, cfg, params, g, ML_TOL, "7", bound_ms,
                      end_to_end=False)
+    slstm_phase = xl.slstm_graph_counts()
+    check(slstm_phase["captures"] == 2,
+          f"7: {slstm_phase['captures']} sLSTM captures, not one per "
+          "prefill shape (8 x 2048 in (a), 8 x 128 in (d))")
+    xl.release_slstm_graphs()
     counts = ops.launch_counts()
     check(counts["mlstm"] == 4 * n_mlstm,
           f"7: K7 launched {counts['mlstm']} times over four prefills (two "
           "in (a), one by layer and one whole in (d))")
     for name, n in counts.items():
         launches_out[name] = launches_out.get(name, 0) + n
-    # f32 decode state: C, n, m per mLSTM layer; h, c, n, m per sLSTM layer
-    H, d = cfg.n_heads, cfg.d_model
-    hd = int(cfg.xlstm_proj_factor * d) // H
-    state_bytes = 4 * B * H * (n_mlstm * (hd * hd + hd + 1)
-                               + (cfg.n_layers - n_mlstm) * 4 * (d // H))
-    weight_bytes = decode_weight_bytes(params, cfg, B)
     say("xlstm-serving", model=cfg.name, n_layers=cfg.n_layers,
         mlstm_layers=n_mlstm, params=n_params, dtype="float32", batch=B,
         prefill={"seq_len": S, "seconds": prefill_s,
@@ -1366,10 +1457,12 @@ def phase_xlstm_serving(torch, dev, launches_out, k7_ms, bw):
                  "k7_share_second_prefill": spans["k7"] / prefill_s[1],
                  "k7_share_from_phase3_ms": n_mlstm * k7_ms / 1e3
                  / prefill_s[0],
+                 "slstm_graphs_per_prefill": slstm_moved,
+                 "slstm_span_s_second_prefill": spans["slstm_layers"],
                  "peak_mem_GB": peak_prefill / 1e9},
+        slstm_graphs_phase=slstm_phase,
         decode_state_GB=state_bytes / 1e9,
-        decode_bound_ms_per_step=1e3 * (weight_bytes + 2 * state_bytes)
-        / bw, launches=counts, **rec)
+        decode_bound_ms_per_step=bound_ms, launches=counts, **rec)
     del params
     torch.cuda.empty_cache()
 
@@ -1406,8 +1499,16 @@ def phase_jamba_serving(torch, dev, launches_out, k6_ms, bw):
     B, S = 8, 2048
     tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
                            device=dev)
+    # decode state at batch 8: a conv tail and an f32 SSM state per Mamba
+    # layer, the KV cache of the attention layer
+    di, st, K = cfg.d_inner_ssm, cfg.ssm_state_dim, cfg.ssm_conv_dim
+    state_bytes = 4 * B * (n_mamba * ((K - 1) * di + di * st)
+                           + n_attn * 2 * 256 * cfg.n_kv_heads
+                           * cfg.head_dim)
+    bound_ms = 1e3 * (decode_weight_bytes(params, cfg, B)
+                      + 2 * state_bytes) / bw
     ops.reset_launch_counts()
-    prefill_s, spans = _prefills(
+    prefill_s, spans, _ = _prefills(
         torch, cfg, params, tokens,
         {"selective_scan": n_mamba, "flash_attention": n_attn}, "8",
         span_targets=[(mam, "mamba_apply", "mamba_layers"),
@@ -1420,7 +1521,8 @@ def phase_jamba_serving(torch, dev, launches_out, k6_ms, bw):
     del tokens
     torch.cuda.empty_cache()
     rec = _loop_swap(torch, dev, cfg, params, g,
-                     {"rtol": 1e-4, "atol": 1e-4}, "8", swap=False)
+                     {"rtol": 1e-4, "atol": 1e-4}, "8", bound_ms,
+                     swap=False)
     counts = ops.launch_counts()
     check(counts["selective_scan"] == 4 * n_mamba
           and counts["flash_attention"] == 4 * n_attn,
@@ -1429,12 +1531,6 @@ def phase_jamba_serving(torch, dev, launches_out, k6_ms, bw):
           "(a), one by layer and one whole in (d))")
     for name, n in counts.items():
         launches_out[name] = launches_out.get(name, 0) + n
-    # decode state at batch 8: a conv tail and an f32 SSM state per Mamba
-    # layer, the KV cache of the attention layer
-    di, st, K = cfg.d_inner_ssm, cfg.ssm_state_dim, cfg.ssm_conv_dim
-    state_bytes = 4 * B * (n_mamba * ((K - 1) * di + di * st)
-                           + n_attn * 2 * 256 * cfg.n_kv_heads
-                           * cfg.head_dim)
     say("jamba-serving", model=cfg.name, n_layers=cfg.n_layers,
         layer_kinds=kinds,
         reduced="n_layers 32 -> 8: one period of the published interleave;"
@@ -1452,9 +1548,7 @@ def phase_jamba_serving(torch, dev, launches_out, k6_ms, bw):
                  "k5_share_second_prefill": spans["k5"] / prefill_s[1],
                  "peak_mem_GB": peak_prefill / 1e9},
         decode_state_GB=state_bytes / 1e9,
-        decode_bound_ms_per_step=1e3 * (decode_weight_bytes(params, cfg, B)
-                                        + 2 * state_bytes) / bw,
-        launches=counts, **rec)
+        decode_bound_ms_per_step=bound_ms, launches=counts, **rec)
     del params
     torch.cuda.empty_cache()
 
@@ -1540,7 +1634,7 @@ def main(argv=None):
           f"5c: K1/K2 launched {c_c['wire_quantize']} / "
           f"{c_c['wire_dequantize']} times, not {n_leaves} per round")
     mark("5c")
-    phase_serving(torch, dev, launches, timing["flash_attention"]["ms"])
+    phase_serving(torch, dev, launches, timing["flash_attention"]["ms"], bw)
     mark("6")
     phase_xlstm_serving(torch, dev, launches, timing["mlstm"]["ms"], bw)
     mark("7")

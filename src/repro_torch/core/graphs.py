@@ -1,13 +1,16 @@
 """Captured CUDA graphs: the torch form of ``jax.jit``'s executable cache,
-for the fused round engine (``core/api.py`` ``FusedEngine``). It has no
-counterpart in the JAX package.
+for the fused round engine (``core/api.py`` ``FusedEngine``), the serving
+loop's decode step (``serving/loop.py``) and the sLSTM recurrence
+(``models/xlstm.py``). It has no counterpart in the JAX package.
 
-A :class:`GraphSet` belongs to one round runner. It owns one graph memory
-pool and one capture stream, shared by every graph it captures, and hands
-out :class:`Captured` callables, one per function (the fused round, the
-chunk epochs, the finalize). A ``Captured`` keeps one graph per key; the
-key is the layout of the arguments (tree paths, shapes, strides, dtypes,
-devices), as ``jax.jit``'s cache key is their abstract values.
+A :class:`GraphSet` belongs to one owner (a round runner, a serving loop,
+the sLSTM recurrence on one device). It owns one graph memory pool and
+one capture stream, shared by every graph it captures, and hands out
+:class:`Captured` callables, one per function (the fused round, the chunk
+epochs, the finalize; the decode step). A ``Captured`` keeps one graph
+per key; the key is the layout of the arguments (tree paths, shapes,
+strides, dtypes, devices), as ``jax.jit``'s cache key is their abstract
+values.
 
 Arguments come in two kinds:
 
@@ -19,7 +22,15 @@ Arguments come in two kinds:
   new ``learner.init``, a rebound state) captures again, and is counted.
 * copied inputs (positions named by ``inputs=``: the round's staged
   batches): the first call keeps the given tensors as the graph's static
-  inputs, later calls copy into them.
+  inputs, later calls copy into them. With ``own_inputs=True`` the first
+  call keeps clones instead, for inputs that are views of storage the
+  caller keeps (one layer's slice of stacked params): later calls then
+  never write into the caller's tensors.
+
+``limit=`` caps a function's captures: a call that would capture beyond
+it raises :class:`RecaptureError` before capturing, and the graphs
+already held stay as they were. This is the port of the reference's
+``no_retrace(limit=...)`` guard.
 
 On the card the first call of a key captures. The set's first capture
 runs the function eagerly on the capture stream first — that run is the
@@ -56,7 +67,11 @@ import gc
 import torch
 
 from repro_torch.kernels import ops as kops
-from repro_torch.tree import leaves, leaves_with_path
+from repro_torch.tree import leaves, leaves_with_path, tree_map
+
+
+class RecaptureError(RuntimeError):
+    """A captured function would capture more graphs than its limit."""
 
 
 def _layout(args):
@@ -105,10 +120,14 @@ class GraphSet:
         self._stream = (torch.cuda.Stream(self.device) if self.on_cuda
                         else None)
 
-    def capture(self, fn, name, inputs=()):
+    def capture(self, fn, name, inputs=(), *, own_inputs=False,
+                limit=None):
         """A :class:`Captured` form of ``fn``; ``inputs`` names the
-        positional arguments that are copied into static inputs."""
-        c = Captured(self, fn, name, inputs)
+        positional arguments that are copied into static inputs (clones of
+        the first call's with ``own_inputs``); ``limit`` caps the
+        captures."""
+        c = Captured(self, fn, name, inputs, own_inputs=own_inputs,
+                     limit=limit)
         self.functions.append(c)
         return c
 
@@ -133,9 +152,12 @@ class Captured:
     """``fn`` captured per argument layout (see the module docstring).
     ``captures`` and ``replays`` count this function's graphs."""
 
-    def __init__(self, owner, fn, name, inputs=()):
+    def __init__(self, owner, fn, name, inputs=(), *, own_inputs=False,
+                 limit=None):
         self.owner, self.fn, self.name = owner, fn, name
         self.inputs = tuple(inputs)
+        self.own_inputs = own_inputs
+        self.limit = limit
         self.captures = 0
         self.replays = 0
         self._graphs = {}
@@ -145,10 +167,14 @@ class Captured:
         ins = tuple(args[i] for i in self.inputs)
         ptrs = _ptrs(a for i, a in enumerate(args) if i not in self.inputs)
         g = self._graphs.get(key)
-        if g is not None and g.ptrs != ptrs:
-            del self._graphs[key], g      # freed now, not during a capture
-            g = None
-        if g is None:
+        if g is None or g.ptrs != ptrs:
+            if self.limit is not None and self.captures >= self.limit:
+                raise RecaptureError(
+                    f"{self.name}: a call would capture graph "
+                    f"{self.captures + 1}, over the limit of {self.limit}: "
+                    "an argument changed its layout or its storage")
+            if g is not None:
+                del self._graphs[key], g  # freed now, not during a capture
             return self._first(key, args, ptrs, ins)
         for dst, src in zip(leaves(g.inputs), leaves(ins)):
             if src is not dst:
@@ -171,6 +197,9 @@ class Captured:
         return g.outputs
 
     def _first(self, key, args, ptrs, ins):
+        if self.own_inputs:
+            ins = tree_map(torch.clone, ins)
+            args = self._static(args, ins)
         g = _Graph(ptrs, ins)
         self.captures += 1
         if not self.owner.on_cuda:

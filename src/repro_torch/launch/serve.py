@@ -2,7 +2,8 @@
 
 Ported from ``repro/launch/serve.py``: a thin CLI over
 :class:`repro_torch.serving.ServeLoop` that prefills a batch of prompts
-and then greedily decodes through the loop's one decode step, against a
+and then greedily decodes through the loop's one decode step (a captured
+CUDA graph on the card, replayed for every token), against a
 KV cache (``--arch internlm2-1.8b``), the recurrent state
 (``--arch xlstm-1.3b``) or both, the Mamba layers' conv tail and SSM
 state beside the attention layer's KV cache (``--arch jamba-v0.1-52b``). It takes the JAX CLI's flags plus ``--device``,
@@ -25,6 +26,13 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tr
 from repro_torch.serving import ServeLoop
+
+
+def prefill_into_cache(loop: ServeLoop, tokens):
+    """Sequential prefill through the loop's captured step (one graph
+    replayed per position) into the loop's own cache, reset first; returns
+    (last logits (B, 1, V), cache)."""
+    return loop.prefill(tokens)
 
 
 def main(argv=None):

@@ -161,8 +161,17 @@ def attn_cache_init(cfg, batch, seq_len, dtype, device, stack=()):
     """Zeros ``{"k", "v"}`` of shape (*stack, B, S, KV, hd)."""
     S = min(cfg.window, seq_len) if cfg.window else seq_len
     shp = (*stack, batch, S, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shp, dtype=dtype, device=device),
-            "v": torch.zeros(shp, dtype=dtype, device=device)}
+    return attn_cache_reset_({"k": torch.empty(shp, dtype=dtype,
+                                               device=device),
+                              "v": torch.empty(shp, dtype=dtype,
+                                               device=device)})
+
+
+def attn_cache_reset_(cache):
+    """Write ``attn_cache_init``'s values (zeros) into ``cache`` in place."""
+    cache["k"].zero_()
+    cache["v"].zero_()
+    return cache
 
 
 def decode_attend(q, ck, cv, pos, *, window, softmax_scale):

@@ -121,10 +121,19 @@ def mamba_state_init(cfg, batch, dtype, device, stack=()):
     """Zero conv tail (``dtype``) and SSM state (f32, as in the
     reference), each with a leading ``stack`` dim."""
     di, st, K = cfg.d_inner_ssm, cfg.ssm_state_dim, cfg.ssm_conv_dim
-    return {"conv": torch.zeros((*stack, batch, K - 1, di), dtype=dtype,
-                                device=device),
-            "ssm": torch.zeros((*stack, batch, di, st), dtype=_F32,
-                               device=device)}
+    return mamba_state_reset_(
+        {"conv": torch.empty((*stack, batch, K - 1, di), dtype=dtype,
+                             device=device),
+         "ssm": torch.empty((*stack, batch, di, st), dtype=_F32,
+                            device=device)})
+
+
+def mamba_state_reset_(state):
+    """Write ``mamba_state_init``'s values (zeros) into ``state`` in
+    place."""
+    state["conv"].zero_()
+    state["ssm"].zero_()
+    return state
 
 
 def mamba_decode(p, x, cfg, state, pos):

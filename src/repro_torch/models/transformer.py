@@ -18,7 +18,8 @@ a KV cache for attention, the conv tail and SSM state for Mamba, the
 recurrent state for xLSTM. The cache is a list of segments, each
 ``{"p<j>": ...}`` with a leading ``repeats`` dim as in the JAX tree,
 allocated for real (JAX broadcasts one layer's zeros) because
-``decode_step`` updates it in place.
+``decode_step`` updates it in place; ``reset_cache_`` gives it back its
+initial values in place.
 """
 from __future__ import annotations
 
@@ -41,6 +42,10 @@ _MIXER_INIT = {"gqa": attn.attn_init, "mamba": mam.mamba_init,
                "mlstm": xl.mlstm_init, "slstm": xl.slstm_init}
 _MIXER_DECODE = {"gqa": attn.attn_decode, "mamba": mam.mamba_decode,
                  "mlstm": xl.mlstm_decode, "slstm": xl.slstm_decode}
+_MIXER_CACHE_RESET = {"gqa": attn.attn_cache_reset_,
+                      "mamba": mam.mamba_state_reset_,
+                      "mlstm": xl.mlstm_state_reset_,
+                      "slstm": xl.slstm_state_reset_}
 
 
 def _check_kind(kind):
@@ -208,6 +213,19 @@ def init_cache(cfg, batch, seq_len, dtype=torch.bfloat16, device=None):
                                        dev, stack=(repeats,))
              for j, kind in enumerate(pattern)}
             for pattern, repeats in cfg.segments]
+
+
+def reset_cache_(cfg, cache):
+    """Write ``init_cache``'s values into ``cache`` in place (each mixer's
+    reset beside its init keeps them in one place) and return it: a
+    serving loop reuses one cache, and a captured decode step the storage
+    it was captured on. The reference has no counterpart, as it rebuilds
+    the cache as a value."""
+    for seg_cache, (pattern, _) in zip(cache, cfg.segments):
+        for j, kind in enumerate(pattern):
+            _check_kind(kind)
+            _MIXER_CACHE_RESET[kind.split(":")[0]](seg_cache[f"p{j}"])
+    return cache
 
 
 @torch.no_grad()

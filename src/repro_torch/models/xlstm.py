@@ -8,7 +8,10 @@ for a backward pass and is not ported). ``mlstm_apply(impl="kernel")`` —
 the JAX ``impl="pallas"`` — runs the recurrence through
 ``kernels.ops.mlstm``: the hand-written K7 kernel for CUDA tensors, the
 plain recurrence on the CPU. The sLSTM recurrence has no kernel in the
-reference either.
+reference either: there it is one compiled ``chunked_scan``, and here
+``slstm_apply(impl="kernel")`` replays ``slstm_cell_ref`` as a captured
+CUDA graph (``slstm_scan``, through ``core/graphs.py``), one graph per
+device and shape shared by every sLSTM layer.
 
 Decode: the state of one mLSTM layer is ``{"C", "n", "m"}``, of one sLSTM
 layer ``{"c", "h", "m", "n"}``, all f32. Where JAX returns a new state,
@@ -20,14 +23,18 @@ counterpart here.
 """
 from __future__ import annotations
 
+import gc
+
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.graphs import GraphSet
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import trunc_normal
 
 IMPLS = ("ref", "kernel")
 _F32 = torch.float32
+_M_INIT = -1e30      # the initial stabilizer m of a decode state
 
 
 def _zeros(shape, device):
@@ -121,16 +128,27 @@ def mlstm_apply(p, x, cfg, impl="ref"):
     return _mlstm_out(p, h, z, x.dtype, cfg.norm_eps)
 
 
+def _empty(shape, device):
+    return torch.empty(shape, dtype=_F32, device=device)
+
+
 def mlstm_state_init(cfg, batch, dtype, device, stack=()):
     """C = n = 0 and m = -1e30 (as the reference and the TPU kernel start),
     with a leading ``stack`` dim. The state is f32 whatever ``dtype``, as
     in the reference."""
     di = int(cfg.xlstm_proj_factor * cfg.d_model)
     H, hd = cfg.n_heads, di // cfg.n_heads
-    return {"C": _zeros((*stack, batch, H, hd, hd), device),
-            "n": _zeros((*stack, batch, H, hd), device),
-            "m": torch.full((*stack, batch, H), -1e30, dtype=_F32,
-                            device=device)}
+    return mlstm_state_reset_({"C": _empty((*stack, batch, H, hd, hd), device),
+                               "n": _empty((*stack, batch, H, hd), device),
+                               "m": _empty((*stack, batch, H), device)})
+
+
+def mlstm_state_reset_(state):
+    """Write ``mlstm_state_init``'s values into ``state`` in place."""
+    state["C"].zero_()
+    state["n"].zero_()
+    state["m"].fill_(_M_INIT)
+    return state
 
 
 def mlstm_decode(p, x, cfg, state, pos):
@@ -186,13 +204,70 @@ def slstm_cell_ref(wx, r, b, state):
     return hs, state
 
 
+def _slstm_state(shape, device):
+    return slstm_state_reset_({k: _empty(shape, device)
+                               for k in ("h", "c", "n", "m")})
+
+
 def slstm_state_init(cfg, batch, dtype, device, stack=()):
     """h = c = n = 0 (three tensors: each is updated in place) and
     m = -1e30; f32 whatever ``dtype``, as in the reference."""
-    shp = (*stack, batch, cfg.n_heads, cfg.d_model // cfg.n_heads)
-    return {"h": _zeros(shp, device), "c": _zeros(shp, device),
-            "n": _zeros(shp, device),
-            "m": torch.full(shp, -1e30, dtype=_F32, device=device)}
+    return _slstm_state((*stack, batch, cfg.n_heads,
+                         cfg.d_model // cfg.n_heads), device)
+
+
+def slstm_state_reset_(state):
+    """Write ``slstm_state_init``'s values into ``state`` in place."""
+    for k in ("h", "c", "n"):
+        state[k].zero_()
+    state["m"].fill_(_M_INIT)
+    return state
+
+
+# The captured recurrence: one GraphSet per device, one graph per layout
+# of (wx, r, b), which are copied into the graph's own static inputs, so
+# every sLSTM layer of a model shares one graph per (B, S).
+_SLSTM_GRAPHS = {}
+
+
+def _slstm_scan(wx, r, b):
+    B, _, H, _ = wx.shape
+    return slstm_cell_ref(wx, r, b, _slstm_state((B, H, r.shape[-2]),
+                                                 wx.device))
+
+
+def slstm_scan(wx, r, b):
+    """``slstm_cell_ref`` from ``slstm_state_init``'s state, as a replay of
+    a captured graph on the card (the port of the reference's compiled
+    ``chunked_scan``), uncaptured on the CPU. Forward only. Returns the
+    graph's static ``(hs, state)``, which the next call for the same
+    shape overwrites: consume them first (stream order covers work
+    enqueued before that call)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (wx, r, b)):
+        raise RuntimeError(
+            "slstm_scan is forward only (a captured graph has no backward "
+            "pass); train through slstm_cell_ref (impl='ref')")
+    step = _SLSTM_GRAPHS.get(wx.device)
+    if step is None:
+        step = GraphSet(wx.device).capture(
+            _slstm_scan, "sLSTM recurrence", inputs=(0, 1, 2),
+            own_inputs=True)
+        _SLSTM_GRAPHS[wx.device] = step
+    return step(wx, r, b)
+
+
+def slstm_graph_counts():
+    """Captures and replays of ``slstm_scan``, summed over devices (on the
+    CPU ``captures`` counts the shapes first run and nothing replays)."""
+    steps = list(_SLSTM_GRAPHS.values())
+    return {"captures": sum(s.captures for s in steps),
+            "replays": sum(s.replays for s in steps)}
+
+
+def release_slstm_graphs():
+    """Drop ``slstm_scan``'s graphs, their pools and static inputs."""
+    _SLSTM_GRAPHS.clear()
+    gc.collect()            # a GraphSet and its functions form a cycle
 
 
 def _slstm_out(p, h, x, cfg):
@@ -208,13 +283,19 @@ def _slstm_out(p, h, x, cfg):
 
 
 def slstm_apply(p, x, cfg, impl="ref"):
-    """x: (B,S,D) -> (B,S,D); ``impl`` is accepted for the layer dispatch
-    and changes nothing (the sLSTM recurrence has no kernel)."""
+    """x: (B,S,D) -> (B,S,D). ``impl="kernel"`` runs the recurrence
+    through ``slstm_scan`` (a captured graph on the card; no kernel covers
+    it, in the reference either) unless a capture is already running;
+    ``"ref"`` through ``slstm_cell_ref``."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}; got {impl!r}")
     wx = torch.einsum("bsd,dhg->bshg", x, p["w_in"])
-    st = slstm_state_init(cfg, x.shape[0], x.dtype, x.device)
-    h, _ = slstm_cell_ref(wx, p["r"], p["b"], st)
+    if impl == "kernel" and not (
+            wx.is_cuda and torch.cuda.is_current_stream_capturing()):
+        h, _ = slstm_scan(wx, p["r"], p["b"])
+    else:
+        st = slstm_state_init(cfg, x.shape[0], x.dtype, x.device)
+        h, _ = slstm_cell_ref(wx, p["r"], p["b"], st)
     return _slstm_out(p, h, x, cfg)
 
 

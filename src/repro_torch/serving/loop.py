@@ -1,24 +1,33 @@
 """ServeLoop: batched cached decode with between-round hot-swap.
 
 Ported from ``repro/serving/loop.py``. One ``ServeLoop`` owns ONE decode
-step, built once in ``__init__`` for a fixed config, batch and cache
-geometry; the model parameters are plain arguments to it, so swapping to a
-newly published ``ModelBank`` version is a reference update. Where JAX
-jits the step behind ``no_retrace``, the port runs it eagerly:
-``compile_count()`` counts decode-step builds, which is 1 for the loop's
-life, and a swap never adds one (it only accepts params with the same tree
-structure, leaf shapes, dtypes and device). Capturing the step as a CUDA
-graph is later work (ROADMAP.md).
+step for a fixed config, batch and cache geometry. Where JAX jits the step
+behind ``no_retrace(limit=1)``, the port captures it as a CUDA graph
+(``core/graphs.py``) when the loop is built, on the loop's own buffers:
 
-The cache is ``transformer.init_cache``'s: a KV cache for attention
-layers, the conv tail and SSM state for Mamba layers, the recurrent state
-for xLSTM layers, made anew for each prompt batch and updated in place by
-the step. Prefill goes token by token
-through the same step, as in the JAX loop. Positions are 0-d slices of
-one device tensor made in ``__init__``, and the next token is an argmax on
-the device, so nothing on the decode loop waits for the host;
-``generate`` synchronises once, at its end, for its timing (where JAX
-calls ``block_until_ready``).
+* the cache (``transformer.init_cache``: a KV cache for attention
+  layers, the conv tail and SSM state for Mamba layers, the recurrent
+  state for xLSTM layers), made once and given back its initial values
+  in place (``transformer.reset_cache_``) for each prompt batch;
+* a (B, 1) int64 token buffer and a 0-d int32 position buffer, into
+  which each step's token and position are copied on the device (the
+  positions are slices of one device tensor made in ``__init__``, and
+  the next token is an argmax on the device), so nothing on the decode
+  loop waits for the host;
+* the params the loop was built with, which it takes over: a hot swap
+  copies the new version into their storage (the graph reads it by
+  address) instead of re-pointing the loop. A caller that needs the old
+  version after a swap passes a clone.
+
+Every prompt token and every decode token replays that one graph.
+``compile_count()`` counts captures: 1 for the loop's life. A call that
+would capture again (the params, cache or buffers moved) raises
+``graphs.RecaptureError``, the port of the reference's ``RetraceError``.
+The graph's logits are overwritten by its next replay: ``prefill``
+returns a clone, and ``generate`` takes the argmax before the next
+replay. On the CPU (only when asked for) the same step runs uncaptured
+through ``GraphSet``'s CPU path. ``generate`` synchronises once, at its
+end, for its timing (where JAX calls ``block_until_ready``).
 """
 from __future__ import annotations
 
@@ -26,6 +35,7 @@ import time
 
 import torch
 
+from repro_torch.core.graphs import GraphSet
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tr
 from repro_torch.tree import leaves, leaves_with_path
@@ -36,6 +46,13 @@ def _tree_signature(params):
     return (tuple(path for path, _ in leaves_with_path(params)),
             tuple((tuple(t.shape), t.dtype, t.device)
                   for t in leaves(params)))
+
+
+def _decode_fn(cfg):
+    # closes over the config only: the loop is not kept alive by its graph
+    def step(params, cache, token, pos):
+        return tr.decode_step(params, cfg, cache, token, pos)[0]
+    return step
 
 
 class ServeLoop:
@@ -49,6 +66,10 @@ class ServeLoop:
     than what is being served; ``swap(params, version)`` is the low-level
     entry. ``device`` defaults to cuda and raises without a card unless
     ``"cpu"`` is passed; the params must lie on it.
+
+    The loop takes over ``params``: its graph reads their storage, and
+    ``swap`` overwrites it with each new version (``self.params`` stays
+    those tensors, with the new values).
     """
 
     def __init__(self, cfg, params, *, batch: int, max_seq: int,
@@ -66,32 +87,47 @@ class ServeLoop:
         self.version = 0          # bank version currently served (0 = init)
         self._positions = torch.arange(self.max_seq, dtype=torch.int32,
                                        device=self.device)
-        self._step_builds = 0
-        self._step = self._build_step()
+        self._cache = tr.init_cache(cfg, self.batch, self.max_seq, dtype,
+                                    self.device)
+        self._token = torch.zeros((self.batch, 1), dtype=torch.int64,
+                                  device=self.device)
+        self._pos = torch.zeros((), dtype=torch.int32, device=self.device)
+        self.graphs = GraphSet(self.device)
+        self._step = self.graphs.capture(_decode_fn(cfg),
+                                         "ServeLoop decode step", limit=1)
+        self._run_step()          # the capture (prefill resets the cache)
         #: lifetime counters for tokens/s during training
         self.tokens_served = 0
         self.batches_served = 0
 
-    def _build_step(self):
-        self._step_builds += 1
-        cfg = self.cfg
-        return lambda p, c, t, i: tr.decode_step(p, cfg, c, t, i)
+    def _run_step(self):
+        return self._step(self.params, self._cache, self._token, self._pos)
 
     # -- hot swap ------------------------------------------------------------
     def compile_count(self) -> int:
-        """Decode-step builds (1 for the loop's life: params are
-        arguments of the step, never part of it)."""
-        return self._step_builds
+        """Captures of the decode step (1 for the loop's life: params are
+        read by address, and a swap copies into them)."""
+        return self._step.captures
+
+    def replay_count(self) -> int:
+        """Replays of the captured decode step (one per prompt token and
+        per decode token; 0 on the CPU, where nothing is captured)."""
+        return self._step.replays
 
     def swap(self, params, version: int) -> None:
-        """Point the loop at new params (same tree, shapes, dtypes and
-        device)."""
+        """Copy new params (same tree, shapes, dtypes and device) into the
+        loop's own, on the stream the loop replays on; ``params`` is only
+        read."""
         if _tree_signature(params) != self._signature:
             raise ValueError(
                 "hot-swap params have a different treedef/shapes (or dtypes "
                 "or device) than the decode step was built for; publish a "
                 "matching model or build a new loop")
-        self.params = params
+        pairs = [(dst, src) for dst, src in zip(leaves(self.params),
+                                                leaves(params))
+                 if dst is not src]
+        if pairs:
+            torch._foreach_copy_([d for d, _ in pairs], [s for _, s in pairs])
         self.version = int(version)
 
     def poll(self, bank) -> bool:
@@ -115,15 +151,19 @@ class ServeLoop:
     # -- decode --------------------------------------------------------------
     def prefill(self, prompts):
         """Prefill a (B, P) prompt batch through the step, one token at a
-        time; returns (last logits (B, 1, V), cache)."""
-        cache = tr.init_cache(self.cfg, prompts.shape[0], self.max_seq,
-                              self.dtype, self.device)
+        time, from the reset cache; returns (a clone of the last logits
+        (B, 1, V), the loop's cache)."""
+        prompts = torch.as_tensor(prompts, device=self.device)
+        if prompts.shape[0] != self.batch:
+            raise ValueError(f"prompt batch {prompts.shape[0]} != loop "
+                             f"batch {self.batch}")
+        tr.reset_cache_(self.cfg, self._cache)
         logits = None
         for t in range(prompts.shape[1]):
-            logits, cache = self._step(self.params, cache,
-                                       prompts[:, t:t + 1],
-                                       self._positions[t])
-        return logits, cache
+            self._token.copy_(prompts[:, t:t + 1])
+            self._pos.copy_(self._positions[t])
+            logits = self._run_step()
+        return (None if logits is None else logits.clone()), self._cache
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -146,16 +186,16 @@ class ServeLoop:
                 "past the cache")
         self._sync()
         t0 = time.perf_counter()
-        logits, cache = self.prefill(prompts)
+        logits, _ = self.prefill(prompts)
         self._sync()
         t1 = time.perf_counter()
         out = []
         tok = torch.argmax(logits, -1)
         for i in range(new_tokens):
             out.append(tok)
-            logits, cache = self._step(self.params, cache, tok,
-                                       self._positions[P + i])
-            tok = torch.argmax(logits, -1)
+            self._token.copy_(tok)
+            self._pos.copy_(self._positions[P + i])
+            tok = torch.argmax(self._run_step(), -1)
         gen = torch.cat(out, dim=1)
         self._sync()
         t2 = time.perf_counter()

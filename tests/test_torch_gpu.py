@@ -556,3 +556,123 @@ def test_gpu_fused_capture_failure_raises(cuda):
     assert calls[0] > 6
     assert torch.cuda.current_stream() == torch.cuda.default_stream()
     assert torch.cuda.get_sync_debug_mode() == 0
+
+
+# ---------------------------------------------------------------------------
+# The serving loop's decode step and the sLSTM recurrence as captured CUDA
+# graphs (serving/loop.py, models/xlstm.py slstm_scan), against the same
+# work run eagerly on the card.
+# ---------------------------------------------------------------------------
+SERVE_ARCHS = ["internlm2-1.8b", "xlstm-1.3b", "jamba-v0.1-52b"]
+
+
+def _serve_setup(dev, arch, seed=0):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as tr
+    cfg = get_smoke_config(arch)
+    prompts = torch.tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (2, 6)), device=dev)
+    return cfg, tr.init_params(seed, cfg, torch.float32, device=dev), prompts
+
+
+def _eager_tokens(cfg, params, prompts, new, max_seq):
+    """Greedy tokens of an eager ``decode_step`` loop on a fresh cache."""
+    from repro_torch.models import transformer as tr
+    B, P = prompts.shape
+    cache = tr.init_cache(cfg, B, max_seq, torch.float32, prompts.device)
+    pos = torch.arange(max_seq, dtype=torch.int32, device=prompts.device)
+    for t in range(P):
+        logits, _ = tr.decode_step(params, cfg, cache, prompts[:, t:t + 1],
+                                   pos[t])
+    tok, out = torch.argmax(logits, -1), []
+    for i in range(new):
+        out.append(tok)
+        logits, _ = tr.decode_step(params, cfg, cache, tok, pos[P + i])
+        tok = torch.argmax(logits, -1)
+    return torch.cat(out, dim=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_gpu_serveloop_tokens_equal_eager_across_a_swap(cuda, arch):
+    """The captured loop's tokens equal an eager decode loop's before and
+    after a ModelBank swap; one capture, ``P + new`` replays a
+    ``generate``, and every ``generate`` passes under the sync guard."""
+    from repro_torch.models import transformer as tr
+    from repro_torch.serving import ModelBank, ServeLoop
+    cfg, params, prompts = _serve_setup(cuda, arch)
+    new, max_seq = 8, 16
+    want0 = _eager_tokens(cfg, params, prompts, new, max_seq)
+    loop = ServeLoop(cfg, params, batch=2, max_seq=max_seq, device=cuda)
+    assert (loop.compile_count(), loop.replay_count()) == (1, 0)
+    p1 = tr.init_params(1, cfg, torch.float32, device=cuda)
+    bank = ModelBank()
+    bank.publish(p1, round_i=1)
+    replays = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gen0, _ = loop.generate(prompts, new)
+        replays.append(loop.replay_count())
+        assert loop.poll(bank)
+        gen1, _ = loop.generate(prompts, new)
+        replays.append(loop.replay_count())
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(gen0, want0)
+    assert torch.equal(gen1, _eager_tokens(cfg, p1, prompts, new, max_seq))
+    assert not torch.equal(gen1, gen0)
+    P = prompts.shape[1]
+    assert replays == [P + new, 2 * (P + new)]
+    assert loop.compile_count() == 1
+
+
+@pytest.mark.gpu
+def test_gpu_serveloop_second_capture_raises(cuda):
+    """Params on other storage would need a second capture: the call
+    raises before capturing, and the loop serves again on its own."""
+    from repro_torch.core.graphs import RecaptureError
+    from repro_torch.serving import ServeLoop
+    from repro_torch.tree import tree_map
+    cfg, params, prompts = _serve_setup(cuda, "internlm2-1.8b")
+    loop = ServeLoop(cfg, params, batch=2, max_seq=16, device=cuda)
+    want, _ = loop.generate(prompts, 4)
+    loop.params = tree_map(torch.clone, params)
+    with pytest.raises(RecaptureError):
+        loop.generate(prompts, 4)
+    loop.params = params
+    got, _ = loop.generate(prompts, 4)
+    assert torch.equal(got, want) and loop.compile_count() == 1
+
+
+@pytest.mark.gpu
+def test_gpu_captured_slstm_matches_plain_loop(cuda):
+    """``slstm_scan`` replayed on the card: its hs and final state equal
+    ``slstm_cell_ref`` on the same inputs at 1e-5 (the largest difference
+    is printed), two layers' params (views of one stacked tensor) share
+    one capture and stay unchanged."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import xlstm as xl
+    cfg = get_smoke_config("xlstm-1.3b")
+    g = torch.Generator(device=cuda).manual_seed(0)
+    H, hd = cfg.n_heads, cfg.d_model // cfg.n_heads
+    B, S = 2, 96
+    r = torch.randn((2, H, hd, 4 * hd), generator=g, device=cuda) * hd ** -0.5
+    b = torch.randn((2, H, 4 * hd), generator=g, device=cuda) * 0.1
+    kept = (r.clone(), b.clone())
+    xl.release_slstm_graphs()
+    worst = 0.0
+    for call in range(3):
+        layer = call % 2
+        wx = torch.randn((B, S, H, 4 * hd), generator=g, device=cuda)
+        hs, st = xl.slstm_scan(wx, r[layer], b[layer])
+        want_hs, want_st = xl.slstm_cell_ref(
+            wx, r[layer], b[layer],
+            xl.slstm_state_init(cfg, B, torch.float32, cuda))
+        for got, want in [(hs, want_hs)] + [(st[k], want_st[k])
+                                            for k in ("h", "c", "n", "m")]:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+            worst = max(worst, float((got - want).abs().max()))
+    print(f"captured sLSTM vs plain loop: max |diff| {worst:.3e}")
+    assert xl.slstm_graph_counts() == {"captures": 1, "replays": 2}
+    assert torch.equal(r, kept[0]) and torch.equal(b, kept[1])
+    xl.release_slstm_graphs()
