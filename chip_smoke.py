@@ -10,7 +10,9 @@ Phases:
      source, all started together);
   3. each kernel (K1-K7) against its plain PyTorch version on the card
      at small odd shapes and at the main path's shapes (K5 at both
-     internlm2-1.8b's and jamba-v0.1-52b's attention), timed with CUDA
+     internlm2-1.8b's and jamba-v0.1-52b's attention; K1 and K2 both
+     over the leaves of the K=3 stacked tree and once over its flat
+     (3, N_pad) buffer, bit for bit), timed with CUDA
      events (median of >= 10 runs after warm-up; the plain mLSTM and
      selective-scan loops of 2048 steps, >= 3) beside the plain version,
      the bound and, for K5, ``F.scaled_dot_product_attention`` (the
@@ -29,7 +31,13 @@ Phases:
      through the fused engine: the card's captured rounds (one capture,
      two replays, each window under ``set_sync_debug_mode("error")``, K3
      counted once per replayed round) against the same rounds run
-     uncaptured on the CPU;
+     uncaptured on the CPU; then three strategy runs, each card against
+     CPU at 1e-4 with equal sync patterns and comm bytes: the divergence
+     trigger under fused int4 with error feedback (K4 only on synced
+     rounds, the residual unchanged across a quiet round), partial
+     participation (m=2) over the fused int8 codec's flat roundtrip (K1
+     and K2 once a round), ragged shards of 3, 2 and 1 batches under
+     their mask;
   5. the main path at internlm2-1.8b's full width (depth cut to 16 of 24
      layers, f32, T fixed at 1) through the fused engine, the CLI's
      default: (a) fused
@@ -87,7 +95,26 @@ Phases:
      model and no swap); (d) as in phase 6 at 1e-4, both sides at a
      drop-free capacity factor (capacity dropping depends on how many
      tokens a call sees). The counters are zeroed just before (a) and
-     read after (d).
+     read after (d);
+  9. the rest of the strategy API at internlm2-1.8b's full width and
+     phase 5's depth: (a) the divergence trigger, fused int8, K=5, T
+     fixed, 4 rounds through the fused engine: round 0 at δ = inf (quiet,
+     its divergence div0 reported as rel), then δ = 1.18·div0 swapped in
+     with ``set_sync_policy`` (no rebind, no capture); the gate graph
+     replayed every round, the finalize graph and K3 only on synced
+     rounds, 0 bytes on quiet ones; each round's divergence, δ and margin
+     (> 5%), host seconds and device split (epochs, gate, finalize); then
+     the same rounds under the python engine on the card: the same
+     pattern, losses within 1e-4. (b) partial participation, m=2, over
+     the fused int8 codec's flat roundtrip, on ragged shards of 3, 2 and 1
+     batches of 8 x 256 (a (3, 3) mask, the shard sizes as the weights),
+     K=3, 2 timed rounds of the fused engine as it ships, then 2
+     untimed rounds whose captured aggregate also copies its input's
+     smaller leaves (norms and attention projections) aside: K1 and K2
+     once a round, every participant's new row within 1e-6 of the
+     weighted mean of the sampled rows' roundtrip by the plain quantize
+     and dequantize, the bill ``ceil(m·up/K) + raw``. The counters are
+     zeroed just before each fused run and read after.
 Before the last line come the ``kernels`` JSON and the card's name and
 power limit as ``nvidia-smi`` gives them; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
@@ -97,6 +124,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -844,21 +872,63 @@ def phase_kernels_full(torch, dev, errs, bw):
                      "bound_ms": 1e3 * nbytes / bw, "bound_by": "bytes"}
         say("kernels-full", kernel=name, **out[name],
             max_abs_err=errs[name])
-    del xs, payload
+    del payload
+
+    # K1 / K2 once each over the flat (3, N_pad) buffer of the same tree:
+    # the fused codec's standalone roundtrip (partial participation, phase
+    # 9(b)), held bit for bit against the plain versions a block range at
+    # a time (their temporaries at 4.2e9 values would not fit)
+    tree = unflatten_like(meta, xs)
+    flat = flatbuf.flatten(tree, flatbuf.make_layout(tree))
+    del tree, xs
+    torch.cuda.empty_cache()
+    q_k, s_k, shp = qz.quantize_blockwise_fwd(flat, bits=8)
+    d_k = qz.dequantize_blockwise_fwd(q_k, s_k, shp, bits=8)
+    xf, df = flat.reshape(-1), d_k.reshape(-1)
+    nb, step = xf.numel() // 256, 1 << 18
+    for b0 in range(0, nb, step):
+        b1 = min(nb, b0 + step)
+        q_p, s_p, _ = ref.quantize_blockwise_ref(xf[b0 * 256:b1 * 256],
+                                                 bits=8)
+        check(torch.equal(q_k[b0:b1], q_p) and torch.equal(s_k[b0:b1], s_p),
+              f"K1 over the flat (3, N_pad) buffer differs in blocks "
+              f"{b0}-{b1}")
+        d_p = ref.dequantize_blockwise_ref(q_k[b0:b1], s_k[b0:b1],
+                                           ((b1 - b0) * 256,), bits=8)
+        check(torch.equal(df[b0 * 256:b1 * 256], d_p),
+              f"K2 over the flat (3, N_pad) buffer differs in blocks "
+              f"{b0}-{b1}")
+        del q_p, s_p, d_p
+    del d_k, df
+    torch.cuda.empty_cache()
+    n_el = xf.numel()
+    for name, kern, nbytes in (
+            ("wire_quantize",
+             lambda: qz.quantize_blockwise_fwd(flat, bits=8),
+             4 * n_el + nb * 256 + 4 * nb),
+            ("wire_dequantize",
+             lambda: qz.dequantize_blockwise_fwd(q_k, s_k, shp, bits=8),
+             nb * 256 + 4 * nb + 4 * n_el)):
+        out[name]["flat"] = {
+            "shape": list(flat.shape), "bits": 8, "bit_exact": True,
+            "ms": cuda_ms(torch, kern), "bytes": nbytes,
+            "bound_ms": 1e3 * nbytes / bw, "bound_by": "bytes"}
+        say("kernels-full", kernel=name, flat=out[name]["flat"])
+    del flat, xf, q_k, s_k
     torch.cuda.empty_cache()
     return out
 
 
 # ---------------------------------------------------------------------------
 def _learner(torch, cfg, codec, K, dev, engine="fused", eta0=0.05,
-             rounds=2, rule="ile"):
+             rounds=2, rule="ile", **kw):
     from repro_torch.configs.base import CoLearnConfig
     from repro_torch.core.colearn import CoLearner
     from repro_torch.launch.train import make_loss_fn
     ccfg = CoLearnConfig(n_participants=K, T0=1, eta0=eta0, epsilon=0.05,
                          epochs_rule=rule, max_rounds=rounds)
     return CoLearner(ccfg, make_loss_fn(cfg), codec=codec,
-                     round_engine=engine, device=dev)
+                     round_engine=engine, device=dev, **kw)
 
 
 def phase_small_round(torch, dev):
@@ -929,6 +999,140 @@ def phase_small_round(torch, dev):
         window_sync_debug_modes=guard,
         losses_card=[round(float(sum(l.local_losses) / len(l.local_losses)),
                            6) for l in gs["log"]])
+
+
+# phase 4's gated run: the smoke model's divergences (0.0068-0.0105 on the
+# CPU) are >= 17% away from it
+SMALL_GATE_DELTA = 0.0088
+
+
+def _record_gate(learner):
+    """Wrap the fused runner's gate graph: each call's divergence, cloned
+    on the device (no host sync inside the round's window)."""
+    runner = learner._runner
+    gate, divs = runner._gate, []
+
+    def recorded(*a):
+        out = gate(*a)
+        divs.append(out[0].clone())
+        return out
+    runner._gate = recorded
+    return gate, divs
+
+
+def phase_small_strategies(torch, dev):
+    """Phase 4's strategy runs (smoke config, K=3, fused engine), each on
+    the card (captured) against the same rounds uncaptured on the CPU at
+    1e-4 with equal sync patterns and comm bytes: (a) the divergence
+    trigger under fused int4 with error feedback (K4 only on synced
+    rounds; the residual unchanged across every quiet round); (b) partial
+    participation, m=2, over the fused int8 codec's flat roundtrip (K1 and
+    K2 once a round); (c) ragged shards of 3, 2 and 1 batches under their
+    mask (K3 once a round)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import CoLearnConfig
+    from repro_torch.core import api
+    from repro_torch.core.colearn import CoLearner
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import (build_data, epoch_batches_fn,
+                                          make_loss_fn)
+    from repro_torch.models import transformer as tr
+    cfg = get_smoke_config("internlm2-1.8b")
+    K = 3
+    params = tr.init_params(0, cfg, torch.float32, device="cpu")
+    iid = build_data(cfg, K, 4, 16, 48, seed=0)
+    ragged = build_data(cfg, K, 4, 16, 24, seed=0, partition="sizes",
+                        sizes=[12, 8, 4])
+    check(ragged.batch_mask.sum(1).tolist() == [3, 2, 1],
+          f"ragged shards hold {ragged.batch_counts} batches")
+    fused = api.get_codec("fused")
+    cases = {
+        "gated": (iid, 2, 4, api.get_codec("fused", bits=4,
+                                           error_feedback=True),
+                  {"sync_policy": api.DivergenceTrigger(
+                      delta=SMALL_GATE_DELTA)}),
+        "partial": (iid, 2, 3, fused,
+                    {"aggregator": api.PartialParticipation(m=2),
+                     "shard_sizes": iid.sizes}),
+        "ragged": (ragged, 3, 3, fused,
+                   {"batch_mask": ragged.batch_mask,
+                    "shard_sizes": ragged.sizes})}
+    for label, (data, steps, rounds, codec, kw) in cases.items():
+        runs = {}
+        for d in ("cpu", dev):
+            ccfg = CoLearnConfig(n_participants=K, T0=1, eta0=0.05,
+                                 epochs_rule="fle", max_rounds=rounds)
+            learner = CoLearner(ccfg, make_loss_fn(cfg), codec=codec,
+                                round_engine="fused", device=d, **kw)
+            gate, divs = _record_gate(learner)
+            state = learner.init(params)
+            batches = epoch_batches_fn(data, d, steps)
+            kept = []
+            ops.reset_launch_counts()
+            for _ in range(rounds):
+                res = (state["residual"].clone()
+                       if state["residual"] is not None else None)
+                state = learner.run_round(state, batches)
+                if res is not None and not state["log"][-1].synced:
+                    kept.append(bool(torch.equal(res, state["residual"])))
+            counts = ops.launch_counts()
+            graphs = {f.name: (f.captures, f.replays)
+                      for f in learner._runner.graphs.functions}
+            runs[str(d)] = (state["log"], counts, graphs, kept,
+                            [float(x) for x in divs])
+            del learner, state, gate
+            gc.collect()
+        (clog, ccounts, _, _, cdivs), (glog, gcounts, graphs, kept,
+                                      gdivs) = runs["cpu"], runs[str(dev)]
+        check(not any(ccounts.values()), f"4 {label}: the CPU run launched "
+                                         f"{ccounts}")
+        synced = [x.synced for x in glog]
+        check(synced == [x.synced for x in clog]
+              and [x.comm_bytes for x in glog] == [x.comm_bytes
+                                                    for x in clog]
+              and [x.T for x in glog] == [x.T for x in clog],
+              f"4 {label}: card and CPU differ in sync pattern, T or bytes")
+        worst = 0.0
+        for a, b in zip(clog, glog):
+            for x, y in [*zip(a.local_losses, b.local_losses),
+                         (a.rel_change, b.rel_change)]:
+                if math.isinf(x):
+                    check(math.isinf(y), "rel_change inf on one side only")
+                    continue
+                worst = max(worst, abs(x - y) / max(abs(x), 1e-12))
+        check(worst <= 1e-4, f"4 {label}: card vs CPU logs differ by "
+                             f"{worst} (rel)")
+        n_sync = sum(synced)
+        if label == "gated":
+            margin = min(abs(v - SMALL_GATE_DELTA) / SMALL_GATE_DELTA
+                         for v in cdivs + gdivs)
+            check(margin > 0.05, f"4 gated: a divergence within "
+                                 f"{margin:.1%} of delta")
+            check(0 < n_sync < rounds, f"4 gated: pattern {synced}")
+            check(gcounts["wire_quant_avg_dequant_ef"] == n_sync,
+                  f"4 gated: K4 launched {gcounts} for {n_sync} syncs")
+            check(kept and all(kept), f"4 gated: the residual moved on a "
+                                      f"quiet round ({kept})")
+            check(graphs["gate"] == (1, rounds)
+                  and graphs["finalize"] == (1, n_sync),
+                  f"4 gated: graphs {graphs}")
+            check(all(x.comm_bytes == 0 for x in glog if not x.synced),
+                  "4 gated: a quiet round billed bytes")
+        elif label == "partial":
+            check(gcounts["wire_quantize"] == gcounts["wire_dequantize"]
+                  == rounds, f"4 partial: K1/K2 launched {gcounts}")
+        else:
+            check(gcounts["wire_quant_avg_dequant"] == rounds,
+                  f"4 ragged: K3 launched {gcounts}")
+            check(graphs["round"] == (1, rounds - 1),
+                  f"4 ragged: graphs {graphs}")
+        say("small-strategies", run=label, rounds=rounds, K=K,
+            synced=synced, comm_bytes=[x.comm_bytes for x in glog],
+            log_max_rel_diff=worst, card_launches=gcounts, graphs=graphs,
+            divergences_card=gdivs, divergences_cpu=cdivs,
+            residual_kept_on_quiet_rounds=kept,
+            losses_card=[float(sum(x.local_losses) / len(x.local_losses))
+                         for x in glog])
 
 
 def _round_events(torch, learner):
@@ -1059,6 +1263,335 @@ def phase_main(torch, dev, label, codec, K, rounds, launches_out,
     gc.collect()
     torch.cuda.empty_cache()
     return per_round, counts
+
+
+# ---------------------------------------------------------------------------
+# phase 9(a): the threshold after the quiet round 0, as a multiple of its
+# divergence div0. A synced round's reference is the model it just
+# averaged, so a round after a sync drifts about as far as round 0, and a
+# round after a quiet one further: 1.051 and 1.357 / 1.338 x div0 at full
+# width (NVIDIA H100 80GB HBM3, 700 W, at c = 1.25; 1.5 on the smoke
+# model). 1.18 sits >= 11% from each.
+GATE_C = 1.18
+
+
+def _recording_trigger(api, divs):
+    """A ``DivergenceTrigger`` whose host gate (the python engine's) logs
+    each divergence it decides on; its traced gate is the inherited one."""
+    @dataclasses.dataclass(frozen=True)
+    class Recording(api.DivergenceTrigger):
+        def should_sync(self, div, round_i, delta=None):
+            divs.append(div)
+            return super().should_sync(div, round_i, delta)
+    return Recording
+
+
+def _gated_events(torch, learner):
+    """CUDA events around a gated fused round's parts, recorded between
+    the replays (none inside the round's window syncs): before the first
+    chunk graph, around the gate graph, around the finalize graph. Returns
+    ``read()`` -> device ms of the last round's epochs, gate and finalize
+    (None on a quiet round)."""
+    runner = learner._runner
+    ev = {k: torch.cuda.Event(enable_timing=True)
+          for k in ("start", "gate0", "gate1", "fin0", "fin1")}
+    seen = {"first": True, "fin": False}
+    epochs, gate, fin = runner._epochs, runner._gate, runner._finalize
+
+    def timed_epochs(*a):
+        if seen["first"]:
+            ev["start"].record()
+            seen["first"] = False
+        return epochs(*a)
+
+    def timed_gate(*a):
+        ev["gate0"].record()
+        out = gate(*a)
+        ev["gate1"].record()
+        return out
+
+    def timed_fin(*a):
+        ev["fin0"].record()
+        out = fin(*a)
+        ev["fin1"].record()
+        seen["fin"] = True
+        return out
+    runner._epochs, runner._gate, runner._finalize = (timed_epochs,
+                                                      timed_gate, timed_fin)
+
+    def read():
+        (ev["fin1"] if seen["fin"] else ev["gate1"]).synchronize()
+        out = {"epochs": ev["start"].elapsed_time(ev["gate0"]),
+               "gate": ev["gate0"].elapsed_time(ev["gate1"]),
+               "finalize": (ev["fin0"].elapsed_time(ev["fin1"])
+                            if seen["fin"] else None)}
+        seen["first"], seen["fin"] = True, False
+        return out
+    return read
+
+
+def phase_gated(torch, dev, launches_out):
+    """9(a): the divergence trigger at full width (fused int8, K=5, T
+    fixed, 4 rounds). Round 0 at δ = inf is quiet and measures div0; then
+    ``set_sync_policy(DivergenceTrigger(delta=GATE_C * div0))`` (no rebind,
+    no capture). The fused engine's rounds, then the same rounds under the
+    python engine on the card: the same pattern, losses within 1e-4."""
+    from repro_torch.core import api
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import build_data, epoch_batches_fn
+    from repro_torch.models import transformer as tr
+    cfg = full_cfg()
+    K, B, S, steps, rounds = 5, 8, 256, 2, 4
+    data = build_data(cfg, K, B, S, K * B * steps, seed=0)
+    out, delta = {}, None
+    for engine in ("fused", "python"):
+        host_divs = []
+        Recording = _recording_trigger(api, host_divs)
+        learner = _learner(torch, cfg, api.get_codec("fused"), K, dev,
+                           engine=engine, rounds=rounds,
+                           sync_policy=Recording(delta=float("inf")))
+        if engine == "fused":
+            gate, dev_divs = _record_gate(learner)
+            split = _gated_events(torch, learner)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = learner.init(tr.init_params(0, cfg, torch.float32,
+                                            device=dev))
+        batches = epoch_batches_fn(data, dev, steps)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        per_round = []
+        for i in range(rounds):
+            if i == 1:
+                if delta is None:
+                    delta = GATE_C * state["log"][0].rel_change
+                runner = learner._runner
+                learner.set_sync_policy(Recording(delta=delta))
+                check(learner._runner is runner,
+                      f"9a {engine}: the delta swap rebound the engine")
+            t0 = time.perf_counter()
+            state = learner.run_round(state, batches)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            log = state["log"][-1]
+            per_round.append({
+                "round": log.round, "synced": log.synced,
+                "delta": float("inf") if i == 0 else delta,
+                "seconds": sec,
+                "device_ms": split() if engine == "fused" else None,
+                "local_loss": float(sum(log.local_losses)
+                                    / len(log.local_losses)),
+                "rel_change": log.rel_change,
+                "comm_MiB": log.comm_bytes / 2**20,
+                "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9})
+        counts = ops.launch_counts()
+        divs = ([float(d) for d in dev_divs] if engine == "fused"
+                else host_divs)
+        for r, d in zip(per_round, divs):
+            r["div"] = d
+            r["margin"] = (abs(d - r["delta"]) / r["delta"]
+                           if math.isfinite(r["delta"]) else None)
+        graphs = ({f.name: {"captures": f.captures, "replays": f.replays}
+                   for f in learner._runner.graphs.functions}
+                  if engine == "fused" else None)
+        synced = [r["synced"] for r in per_round]
+        n_sync = sum(synced)
+        say("gated", run=f"9a-{engine}", engine=engine, K=K,
+            codec=learner.codec.name, c=GATE_C, delta=delta,
+            reduced=f"n_layers 24 -> {LAYERS} (as phase 5)",
+            rounds=per_round, launches=counts, graphs=graphs,
+            peak_mem_GB=torch.cuda.max_memory_allocated() / 1e9,
+            peak_reserved_GB=torch.cuda.max_memory_reserved() / 1e9)
+        check(not synced[0] and True in synced[1:] and False in synced[1:],
+              f"9a {engine}: sync pattern {synced}")
+        check(all(r["margin"] > 0.05 for r in per_round[1:]),
+              f"9a {engine}: a decision within 5% of delta "
+              f"{[r['margin'] for r in per_round]}")
+        check(all(r["comm_MiB"] == 0 for r in per_round if not r["synced"]),
+              f"9a {engine}: a quiet round billed bytes")
+        check(all(math.isfinite(r["local_loss"]) for r in per_round),
+              f"9a {engine}: non-finite loss")
+        check(counts["wire_quant_avg_dequant"] == n_sync,
+              f"9a {engine}: K3 launched {counts['wire_quant_avg_dequant']} "
+              f"times for {n_sync} synced rounds")
+        if engine == "fused":
+            check(graphs["gate"] == {"captures": 1, "replays": rounds}
+                  and graphs["finalize"] == {"captures": 1,
+                                             "replays": n_sync}
+                  and graphs["round"]["captures"] == 0,
+                  f"9a: graphs {graphs}")
+            for name, n in counts.items():
+                launches_out[name] = launches_out.get(name, 0) + n
+            del gate, split
+        out[engine] = per_round
+        # the runner holds the graphs and their pool
+        del state, learner, runner
+        gc.collect()
+        torch.cuda.empty_cache()
+    fused, python = out["fused"], out["python"]
+    check([r["synced"] for r in fused] == [r["synced"] for r in python],
+          "9a: the engines' sync patterns differ")
+    worst = max(abs(a["local_loss"] - b["local_loss"])
+                / abs(a["local_loss"]) for a, b in zip(fused, python))
+    check(worst <= 1e-4, f"9a: fused vs python losses differ by {worst}")
+    say("gated", run="9a-compare", loss_max_rel_diff=worst)
+
+
+# 9(b)'s row check reads the leaves of fewer values a participant than
+# this (the norms and the attention projections, 201M of 1.39e9 values)
+ROW_CHECK_MAX = 10**8
+
+
+def _recording_aggregate(torch, learner, stacked):
+    """Wrap the learner's aggregate so that it copies its input's leaves
+    of fewer than ``ROW_CHECK_MAX`` values a participant (the stacked
+    params after the epochs) into buffers allocated here, outside any
+    capture, and rebind the engine so its graphs capture the wrapper.
+    Returns the buffers by leaf path."""
+    from repro_torch.tree import leaves_with_path
+    bufs = {path: torch.empty_like(t) for path, t in leaves_with_path(stacked)
+            if t[0].numel() < ROW_CHECK_MAX}
+    agg = learner._aggregate_fn
+
+    def recording(stacked, *rest):
+        with torch.no_grad():
+            for path, t in leaves_with_path(stacked):
+                if path in bufs:
+                    bufs[path].copy_(t)
+        return agg(stacked, *rest)
+    learner._aggregate_fn = recording
+    learner._runner = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    learner._runner = learner.round_engine.bind(learner)
+    return bufs
+
+
+def _row_error(torch, params, inputs, weights, block):
+    """The largest distance of any participant's row of ``params`` (the
+    round's result) from the weighted mean of the sampled rows' wire
+    roundtrip, computed from the aggregate's recorded ``inputs`` by the
+    plain quantize and dequantize a participant and a leaf at a time (a
+    leaf starts on a block of the flat buffer, so its blocks are the
+    flat roundtrip's)."""
+    import numpy as np
+    from repro_torch.kernels import ref
+    from repro_torch.tree import leaves_with_path
+    out = dict(leaves_with_path(params))
+    err = 0.0
+    for path, x in inputs.items():
+        want = 0
+        for j in map(int, np.nonzero(weights)[0]):
+            q, s, shp = ref.quantize_blockwise_ref(x[j], block=block, bits=8)
+            want = want + float(weights[j]) * ref.dequantize_blockwise_ref(
+                q, s, shp, bits=8)
+            del q, s
+        err = max(err, float((out[path] - want).abs().max()))
+        del want
+    return err
+
+
+def phase_partial_ragged(torch, dev, launches_out):
+    """9(b): partial participation (m=2) over the fused int8 codec's flat
+    roundtrip (K1 and K2 over the (K, N_pad) buffer) on ragged shards of
+    3, 2 and 1 batches of 8 x 256 (a (3, 3) mask, the shard sizes as the
+    FedAvg weights), K=3, the fused engine at full width: 2 timed rounds
+    of the path as it ships, then 2 untimed check rounds whose aggregate
+    also records its input, so every participant's new row is held
+    against the weighted mean of the sampled rows' plain roundtrip."""
+    from repro_torch.core import api
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import build_data, epoch_batches_fn
+    from repro_torch.models import transformer as tr
+    import numpy as np
+    cfg = full_cfg()
+    K, B, S, rounds = 3, 8, 256, 2
+    data = build_data(cfg, K, B, S, 6 * B, seed=0, partition="sizes",
+                      sizes=[3 * B, 2 * B, B])
+    check(data.batch_mask.sum(1).tolist() == [3, 2, 1],
+          f"9b: shards of {data.batch_counts} batches")
+    learner = _learner(torch, cfg, api.get_codec("fused"), K, dev,
+                       rounds=2 * rounds, rule="fle",
+                       aggregator=api.PartialParticipation(m=2),
+                       shard_sizes=data.sizes, batch_mask=data.batch_mask)
+    check(learner.aggregator.weights == data.sizes,
+          "9b: the shard sizes are not the partial weights")
+    agg = learner._aggregate_fn
+    split = _round_events(torch, learner)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = learner.init(tr.init_params(0, cfg, torch.float32, device=dev))
+    batches = epoch_batches_fn(data, dev, 3)
+    torch.cuda.synchronize()
+
+    def run(n, timed):
+        nonlocal state
+        ops.reset_launch_counts()
+        per_round = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            state = learner.run_round(state, batches)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            log = state["log"][-1]
+            W = learner.aggregator.mixing_matrix(log.round, K)
+            r = {"round": log.round, "seconds": sec,
+                 "sampled": np.nonzero(W[0])[0].tolist(),
+                 "weights": W[0].tolist(),
+                 "local_loss": float(sum(log.local_losses)
+                                     / len(log.local_losses)),
+                 "comm_bytes": log.comm_bytes,
+                 "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9}
+            if timed:
+                epochs_ms, agg_ms = split()
+                r["device_ms"] = {"epochs": epochs_ms,
+                                  "aggregation": agg_ms}
+            else:
+                r["row_err"] = _row_error(torch, state["params"], inputs,
+                                          W[0], learner.codec.block)
+            per_round.append(r)
+        return per_round, ops.launch_counts()
+
+    per_round, counts = run(rounds, timed=True)
+    peak = (torch.cuda.max_memory_allocated() / 1e9,
+            torch.cuda.max_memory_reserved() / 1e9)
+    graphs = {f.name: {"captures": f.captures, "replays": f.replays}
+              for f in learner._runner.graphs.functions}
+    del split
+    learner._aggregate_fn = agg
+    inputs = _recording_aggregate(torch, learner, state["params"])
+    checked, c_counts = run(rounds, timed=False)
+    up = learner.codec.wire_bytes(state["params"])
+    bill = math.ceil(2 * up / K) + learner.param_bytes(state)
+    say("partial-ragged", run="9b", K=K, m=2, codec=learner.codec.name,
+        shard_sizes=list(data.sizes),
+        mask=data.batch_mask.astype(int).tolist(),
+        reduced=f"n_layers 24 -> {LAYERS} (as phase 5)",
+        rounds=per_round, launches=counts, graphs=graphs,
+        check_rounds=checked, check_launches=c_counts,
+        check_leaves=sorted(inputs), bill_formula=bill, wire_bytes=up,
+        peak_mem_GB=peak[0], peak_reserved_GB=peak[1])
+    for label, c in (("timed", counts), ("check", c_counts)):
+        check(c["wire_quantize"] == c["wire_dequantize"] == rounds,
+              f"9b {label}: K1/K2 launched {c['wire_quantize']} / "
+              f"{c['wire_dequantize']} times in {rounds} rounds")
+    check(graphs["round"] == {"captures": 1, "replays": rounds - 1},
+          f"9b: round graph {graphs['round']}")
+    check(all(r["row_err"] <= 1e-6 for r in checked),
+          f"9b: a row is {[r['row_err'] for r in checked]} from the "
+          "sampled rows' weighted mean")
+    check(all(r["comm_bytes"] == bill for r in per_round + checked),
+          f"9b: billed {[r['comm_bytes'] for r in per_round + checked]}, "
+          f"the formula gives {bill}")
+    check(all(math.isfinite(r["local_loss"]) for r in per_round + checked),
+          "9b: non-finite loss")
+    for name, n in counts.items():
+        launches_out[name] = launches_out.get(name, 0) + n
+    del state, learner, inputs
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1602,6 +2135,7 @@ def main(argv=None):
     timing["selective_scan"] = phase_scan_full(torch, dev, errs, name, bw)
     mark("3 path shapes")
     phase_small_round(torch, dev)
+    phase_small_strategies(torch, dev)
     mark("4")
 
     launches = {}
@@ -1641,6 +2175,10 @@ def main(argv=None):
     phase_jamba_serving(torch, dev, launches,
                         timing["selective_scan"]["ms"], bw)
     mark("8")
+    phase_gated(torch, dev, launches)
+    mark("9a")
+    phase_partial_ragged(torch, dev, launches)
+    mark("9b")
 
     kernels = []
     for kname, (tag, replaces, source) in KERNEL_META.items():

@@ -2,20 +2,20 @@
 WireCodec x Aggregator x RoundEngine x LRSchedule x SyncPolicy.
 
 Ported here: the codecs :class:`ExactF32`, :class:`LeafwiseIntN` /
-:class:`LeafwiseInt8` and :class:`FlatFusedIntN` / :class:`FlatFusedInt8`
-(with error feedback), the :class:`FullAverage` aggregator (uniform Eq. 2
-and example-count weights), the :class:`PythonEngine` reference loop and
-the :class:`FusedEngine` (every round as replays of CUDA graphs captured
-once, ``core/graphs.py``), the :class:`CLR` / :class:`ELR` /
-:class:`WarmupCLR` / :class:`CosineCyclical` schedules and the
-:class:`ILE` / :class:`FLE` sync policies, with the registries and
-``get_*`` resolvers.
+:class:`LeafwiseInt8`, :class:`FlatFusedIntN` / :class:`FlatFusedInt8`
+(with error feedback) and :class:`CustomFn`, the :class:`FullAverage`
+(uniform Eq. 2 and example-count weights) and
+:class:`PartialParticipation` aggregators, the :class:`PythonEngine`
+reference loop and the :class:`FusedEngine` (every round as replays of
+CUDA graphs captured once, ``core/graphs.py``), the :class:`CLR` /
+:class:`ELR` / :class:`WarmupCLR` / :class:`CosineCyclical` schedules and
+the :class:`ILE` / :class:`FLE` / :class:`DivergenceTrigger` sync
+policies, with the registries and ``get_*`` resolvers.
 
-Registry names whose strategies are still to port (partial participation,
-gossip aggregators, the divergence trigger) resolve to a factory that
-raises ``NotImplementedError`` — never to a silent substitute. The
-elastic-membership arguments (``live=``, ``dynamic=``) and the pod mesh
-raise the same way.
+Registry names whose strategies are still to port (the gossip
+aggregators) resolve to a factory that raises ``NotImplementedError`` —
+never to a silent substitute. The elastic-membership arguments
+(``live=``, ``dynamic=``) and the pod mesh raise the same way.
 
 Aggregation runs IN PLACE on the stacked params where the codec allows
 (the exact mean, the fused flat-buffer mean): at full width another K
@@ -25,7 +25,10 @@ from __future__ import annotations
 
 import abc
 import dataclasses
+import inspect
+import math
 import weakref
+from collections.abc import Callable
 
 import numpy as np
 import torch
@@ -35,8 +38,8 @@ from repro_torch.core import engine as engine_mod
 from repro_torch.core.graphs import GraphSet, allow_sync
 from repro_torch.core.schedule import (LR_COS_ROUND, LR_EXP_GLOBAL,
                                        LR_EXP_ROUND, N_SCHED_PARAMS, clr_lr,
-                                       cosine_lr, elr_lr, relative_change,
-                                       switch_lr)
+                                       cosine_lr, divergence, elr_lr,
+                                       relative_change, switch_lr)
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.quantize import DEFAULT_BLOCK, check_bits
@@ -218,17 +221,33 @@ class FlatFusedIntN(WireCodec):
         return torch.zeros((layout.k, layout.n_pad), dtype=torch.float32,
                            device=leaves(stacked)[0].device)
 
-    # Only the fused mean (``make_fused_mean``) is on a ported path; the
-    # standalone flat-buffer roundtrip serves the partial / gossip
-    # aggregators, which are still to port.
+    # The standalone roundtrip (partial participation): one K1 over the
+    # whole (K, N_pad) buffer, one K2 back. Each intermediate is dropped
+    # as soon as its consumer has run: at full width every one is K
+    # model copies.
+    @torch.no_grad()
     def roundtrip_ef(self, stacked, residual):
-        _not_ported("the flat codec's standalone roundtrip")
+        layout = flatbuf.make_layout(stacked, block=self.block)
+        y = flatbuf.flatten(stacked, layout).add_(residual)
+        q, scale, shape = kops.quantize_blockwise(y, block=self.block,
+                                                  bits=self.bits)
+        dq = kops.dequantize_blockwise(q, scale, shape, bits=self.bits)
+        del q, scale
+        return flatbuf.unflatten(dq, layout), y.sub_(dq)
 
+    @torch.no_grad()
     def encode(self, stacked):
-        _not_ported("the flat codec's standalone encode")
+        layout = flatbuf.make_layout(stacked, block=self.block)
+        q, scale, shape = kops.quantize_blockwise(
+            flatbuf.flatten(stacked, layout), block=self.block,
+            bits=self.bits)
+        return (layout, q, scale, shape)
 
+    @torch.no_grad()
     def decode(self, wire):
-        _not_ported("the flat codec's standalone decode")
+        layout, q, scale, shape = wire
+        return flatbuf.unflatten(kops.dequantize_blockwise(
+            q, scale, shape, bits=self.bits), layout)
 
     def wire_bytes(self, stacked) -> int:
         return compression.flat_compressed_bytes(stacked, block=self.block,
@@ -248,6 +267,25 @@ class FlatFusedInt8(FlatFusedIntN):
     """The int8 point of :class:`FlatFusedIntN` (registry name)."""
 
     name = "fused"
+
+
+@dataclasses.dataclass(frozen=True)
+class CustomFn(WireCodec):
+    """Escape hatch wrapping an arbitrary stacked -> stacked wire transform
+    (the legacy ``CoLearner.from_flags(compress_fn=...)``). The encoding is
+    opaque, so ``wire_bytes`` conservatively bills raw-dtype bytes."""
+
+    fn: Callable
+    name = "custom"
+
+    def encode(self, stacked):
+        return self.fn(stacked)
+
+    def decode(self, wire):
+        return wire
+
+    def wire_bytes(self, stacked) -> int:
+        return participant_bytes(stacked)
 
 
 # ---------------------------------------------------------------------------
@@ -283,6 +321,9 @@ class Aggregator(abc.ABC):
 
     name: str = "aggregator"
     uses_weights: bool = True
+    #: True => ``comm_bytes`` does not depend on the round for fixed param
+    #: shapes, so the learner prices it once instead of every round
+    static_comm: bool = True
 
     @abc.abstractmethod
     def mixing_matrix(self, round_index: int, K: int,
@@ -375,6 +416,71 @@ class FullAverage(Aggregator):
         if live is not None:
             _not_ported("elastic membership")
         return codec.wire_bytes(stacked) + participant_bytes(stacked)
+
+
+@dataclasses.dataclass(frozen=True)
+class PartialParticipation(Aggregator):
+    """FedAvg-style partial participation (McMahan et al., 1602.05629):
+    each round samples ``m <= K`` participants without replacement among
+    those with positive weight, and the new shared model is their weighted
+    average over the codec's wire, broadcast back to every participant
+    (all K keep training; only the sampled uploads cross the WAN).
+
+    ``weights``: optional length-K per-participant weights (the shard
+    example counts for FedAvg's weighting); None is uniform over the
+    sampled participants, and ``CoLearner(shard_sizes=...)`` wires the
+    shard sizes in. The draw is a numpy ``default_rng(SeedSequence([seed,
+    round]))``, so both engines (and the JAX package) see the same
+    rounds; the matrix reaches the engines through
+    ``CoLearner.round_weights``' static buffer."""
+
+    m: int = 2
+    weights: tuple | None = None
+    seed: int = 0
+    name = "partial"
+
+    def mixing_matrix(self, round_index, K, live=None):
+        if live is not None:
+            _not_ported("elastic membership")
+        if not 1 <= self.m <= K:
+            raise ValueError(f"need 1 <= m <= K, got m={self.m} K={K}")
+        base = (np.asarray(self.weights, np.float64) if self.weights
+                is not None else np.ones(K))
+        if base.shape != (K,):
+            raise ValueError(f"weights must have length K={K}")
+        if not np.isfinite(base).all() or (base < 0).any():
+            raise ValueError(f"weights must be finite and >= 0; got {base}")
+        # only participants with weight can be sampled: a sample of
+        # zero-weight ones would normalise 0/0 into a NaN matrix
+        eligible = np.nonzero(base > 0)[0]
+        if len(eligible) < self.m:
+            raise ValueError(
+                f"need m={self.m} participants with positive weight; "
+                f"only {len(eligible)} of K={K} have one")
+        rng = np.random.default_rng(
+            np.random.SeedSequence([self.seed, round_index]))
+        sel = rng.choice(eligible, size=self.m, replace=False)
+        w = np.zeros(K, np.float64)
+        w[sel] = base[sel]
+        w /= w.sum()
+        # every row identical: all K download the same new shared model
+        return np.broadcast_to(w, (K, K)).astype(np.float32)
+
+    def make_aggregate_fn(self, codec, *, mesh=None, param_specs=None,
+                          axis="pod", dynamic=False):
+        if mesh is not None:
+            _not_ported("the pod-mesh aggregation path")
+        if dynamic:
+            _not_ported("elastic membership")
+        return self._make_host_aggregate_fn(codec)
+
+    def comm_bytes(self, codec, stacked, round_index, live=None):
+        if live is not None:
+            _not_ported("elastic membership")
+        K = leaves(stacked)[0].shape[0]
+        # only m of K pay the upload; everyone downloads the raw model
+        return (math.ceil(self.m * codec.wire_bytes(stacked) / K)
+                + participant_bytes(stacked))
 
 
 # ---------------------------------------------------------------------------
@@ -506,24 +612,58 @@ class CosineCyclical(LRSchedule):
 @dataclasses.dataclass(frozen=True)
 class SyncState:
     """Host-side per-run state owned by a :class:`SyncPolicy`: ``history``
-    logs one ``(round, rel_change, next_T)`` triple per round."""
+    logs one ``(round, rel_change, next_T)`` triple per round, ``skipped``
+    the rounds a divergence-gated policy decided not to communicate."""
 
     T: int
     history: tuple = ()
+    skipped: tuple = ()
 
 
 class SyncPolicy(abc.ABC):
-    """Next round's T_i (every ported policy syncs every round)."""
+    """Who syncs when: next round's T_i and, for a divergence-gated
+    policy, the communicate-at-all decision.
+
+    The gate has two forms that must agree: ``should_sync`` on the host
+    (the python engine) and ``traced_should_sync`` on device tensors (the
+    fused engine's gate graph). ``round_delta`` is the round's threshold
+    as both engines consume it (the fused engine copies it into a static
+    0-d buffer, so a new δ never captures again)."""
 
     name: str = "sync"
+    #: True => quiet rounds (the gate says no) skip the aggregation and
+    #: the wire (Kamp et al.)
+    divergence_gated: bool = False
+    #: the divergence threshold (gated policies only)
+    delta: float = float("inf")
 
     def init_state(self, T0: int) -> SyncState:
         return SyncState(T=int(T0))
 
     @abc.abstractmethod
-    def update(self, state: SyncState, round_i: int,
-               rel_change: float) -> SyncState:
-        """Fold the round's Eq. 4 metric into the state."""
+    def update(self, state: SyncState, round_i: int, rel_change: float,
+               synced: bool = True, events: tuple = ()) -> SyncState:
+        """Fold the round's Eq. 4 metric (on a quiet round the divergence)
+        into the state; returns the state whose ``T`` drives round
+        ``round_i + 1``. ``events``: the round's membership events (a
+        policy reading ``rel_change`` as a convergence signal holds its
+        decision on such rounds)."""
+
+    def should_sync(self, div: float, round_i: int, delta=None) -> bool:
+        """Host gate (python engine); ``delta`` overrides the static
+        threshold when :meth:`round_delta` moved it for this round."""
+        return True
+
+    def round_delta(self, events: tuple = ()):
+        """The round's divergence threshold (host hook)."""
+        return self.delta
+
+    def traced_should_sync(self, div, delta):
+        """The gate on device tensors (0-d ``div`` and ``delta``) -> 0-d
+        bool tensor. Override together with :meth:`should_sync`; a swap to
+        a policy with another traced gate goes through
+        ``CoLearner.set_sync_policy`` so the fused engine rebinds."""
+        return div > delta
 
     def epochs_budget(self, T: int, round_i: int, global_epoch: int,
                       max_rounds: int) -> int:
@@ -540,8 +680,11 @@ class ILE(SyncPolicy):
     epsilon: float = 0.01
     name = "ile"
 
-    def update(self, state, round_i, rel_change):
-        T = 2 * state.T if rel_change <= self.epsilon else state.T
+    def update(self, state, round_i, rel_change, synced=True, events=()):
+        # hold the doubling on membership-change rounds: the metric moved
+        # because the live set did, not because training settled
+        T = (2 * state.T if rel_change <= self.epsilon and not events
+             else state.T)
         return dataclasses.replace(
             state, T=T, history=state.history + ((round_i, rel_change, T),))
 
@@ -552,10 +695,49 @@ class FLE(SyncPolicy):
 
     name = "fle"
 
-    def update(self, state, round_i, rel_change):
+    def update(self, state, round_i, rel_change, synced=True, events=()):
         return dataclasses.replace(
             state,
             history=state.history + ((round_i, rel_change, state.T),))
+
+
+@dataclasses.dataclass(frozen=True)
+class DivergenceTrigger(SyncPolicy):
+    """Dynamic model averaging (Kamp et al., 1807.03210): communicate only
+    while the local models diverge.
+
+    After the round's local epochs the engines compute the participants'
+    RMS relative drift from the last synced shared model
+    (``schedule.divergence_tensor``). While it stays <= δ the round is
+    quiet: no aggregation and no wire, the participants keep their local
+    params and optimizer state, and the round bills zero bytes.
+    ``epsilon`` optionally adds the Eq. 4 doubling on synced rounds (None
+    keeps T fixed)."""
+
+    delta: float = 0.05
+    epsilon: float | None = None
+    name = "divtrigger"
+    divergence_gated = True
+
+    def should_sync(self, div, round_i, delta=None):
+        return div > (self.delta if delta is None else delta)
+
+    def round_delta(self, events=()):
+        # a membership change forces the sync (the divergence, >= 0,
+        # always exceeds -1)
+        if events:
+            return -1.0
+        return self.delta
+
+    def update(self, state, round_i, rel_change, synced=True, events=()):
+        T = state.T
+        if (synced and not events and self.epsilon is not None
+                and rel_change <= self.epsilon):
+            T = 2 * state.T
+        skipped = state.skipped if synced else state.skipped + (round_i,)
+        return dataclasses.replace(
+            state, T=T, skipped=skipped,
+            history=state.history + ((round_i, rel_change, T),))
 
 
 # ---------------------------------------------------------------------------
@@ -583,6 +765,19 @@ class PythonEngine(RoundEngine):
         return _PythonRunner(learner)
 
 
+def _gate_accepts_delta(policy) -> bool:
+    """Whether the policy's host gate takes the per-round ``delta``
+    override. A subclass that overrides ``should_sync(self, div,
+    round_i)`` without it still gates on its static threshold, so it is
+    called with that signature."""
+    try:
+        params = inspect.signature(type(policy).should_sync).parameters
+    except (TypeError, ValueError):
+        return True
+    return "delta" in params or any(
+        p.kind is inspect.Parameter.VAR_KEYWORD for p in params.values())
+
+
 class _PythonRunner:
     def __init__(self, learner):
         self.learner = learner
@@ -590,34 +785,55 @@ class _PythonRunner:
 
     def run_round(self, state, epoch_batches_fn):
         learner = self.learner
+        policy = learner.sync_policy
         i = state["round"]
         T_i = state["ctrl"].T
         ge0 = state["global_epoch"]
         total = learner.epochs_budget(state)
+        # the gate's reference, taken before the epochs move the params in
+        # place (a copy of slot 0 before the first sync)
+        sync_ref = (learner._sync_ref(state) if policy.divergence_gated
+                    else None)
         lrs, losses = [], []
         for j in range(T_i):
             lr = float(learner.schedule.lr(i, j, T_i, ge0 + j, total))
             lrs.append(lr)
             batches = epoch_batches_fn(i, j)
             _, _, l = learner._epoch(state["params"], state["opt"],
-                                     batches, lr)
+                                     batches, lr, learner.batch_mask)
             losses.append(l)                  # (K,) stays on the device
-        weights = learner.round_weights(i, state)
-        if self._stateful:
-            averaged, new_res = learner._aggregate_fn(
-                state["params"], weights, state["residual"])
+        if policy.divergence_gated:
+            div = divergence(state["params"], sync_ref)     # one fetch
+            if _gate_accepts_delta(policy):
+                synced = bool(policy.should_sync(
+                    div, i, delta=learner._round_delta(state)))
+            else:
+                synced = bool(policy.should_sync(div, i))
         else:
-            averaged = learner._aggregate_fn(state["params"], weights)
-            new_res = None
-        new_avg = averaging.unstack_participant(averaged, 0)
-        rel = (float("inf") if state["prev_avg"] is None
-               else relative_change(new_avg, state["prev_avg"]))
-        fresh_opt = engine_mod.init_stacked_opt(learner.opt, averaged)
+            synced = True
+        if synced:
+            weights = learner.round_weights(i, state)
+            if self._stateful:
+                averaged, new_res = learner._aggregate_fn(
+                    state["params"], weights, state["residual"])
+            else:
+                averaged = learner._aggregate_fn(state["params"], weights)
+                new_res = None
+            new_avg = averaging.unstack_participant(averaged, 0)
+            rel = (float("inf") if state["prev_avg"] is None
+                   else relative_change(new_avg, state["prev_avg"]))
+            fresh_opt = engine_mod.init_stacked_opt(learner.opt, averaged)
+        else:
+            # quiet round (Kamp): local params AND optimizer state kept,
+            # the reference unchanged, nothing on the wire (the residual
+            # is untouched: nothing was quantized)
+            averaged, fresh_opt = state["params"], state["opt"]
+            new_avg, rel, new_res = sync_ref, div, None
         per_epoch = torch.stack(losses).cpu().numpy()     # one transfer
         local = [float(np.asarray(x).mean()) for x in per_epoch]
         return learner._finish_round(state, i, T_i, rel, local, lrs[0],
                                      lrs[-1], averaged, fresh_opt, new_avg,
-                                     residual=new_res)
+                                     synced=synced, residual=new_res)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -629,6 +845,8 @@ class FusedEngine(RoundEngine):
     (``core/graphs.py``) and replayed: rounds of up to ``chunk`` epochs
     replay one round graph, longer ones a chunk graph per ``chunk``
     epochs and then a finalize graph (staged-batch memory stays bounded).
+    A divergence-gated round replays the chunk graphs and a gate graph,
+    and the finalize graph only when the gate says sync (a second fetch).
     On the CPU the same functions run uncaptured."""
 
     chunk: int = 32
@@ -651,10 +869,18 @@ class _FusedRunner:
 
     Every result that outlives a replay lives in storage allocated outside
     capture: the state's params, optimizer state and residual (updated in
-    place), the last shared model ``state["prev_avg"]`` (Eq. 4 reads it,
-    then the finalize overwrites it with the new one), and the static
-    per-round buffers below, which the round writes with ``copy_`` before
-    it replays. Only temporaries live in the graph pool."""
+    place), the last shared model ``state["prev_avg"]`` (Eq. 4 and the
+    divergence gate read it, then a synced round's finalize overwrites it
+    with the new one), the learner's batch mask, and the static per-round
+    buffers below, which the round writes with ``copy_`` before it
+    replays. Only temporaries live in the graph pool.
+
+    A divergence-gated round is split at the gate, since a captured graph
+    cannot branch on device data: the epochs (the chunk graphs, for every
+    gated round), then the gate graph (the divergence and the policy's
+    traced decision), the round's first fetch, and only on a synced round
+    the finalize graph and a second fetch of ``rel``. The host reads the
+    device's decision; it never decides again."""
 
     def __init__(self, learner, chunk):
         # a weak reference: no cycle keeps a dead learner's graphs and their
@@ -662,6 +888,10 @@ class _FusedRunner:
         self.learner = weakref.proxy(learner)
         self.chunk = chunk
         self._traced_lr = traced_body(learner.schedule)
+        policy = learner.sync_policy
+        self._gated = policy.divergence_gated
+        self._traced_gate = type(policy).traced_should_sync
+        self._masked = learner.batch_mask is not None
         self._stateful = learner._round_stateful
         dev = learner.device
         if dev.type == "cuda" and isinstance(learner.codec,
@@ -673,12 +903,16 @@ class _FusedRunner:
         lead = 3 if self._stateful else 2
         rnd = engine_mod.make_fused_round(
             learner.loss_fn, learner.opt, lr_fn=self._traced_lr,
-            aggregate_fn=learner._aggregate_fn, stateful=self._stateful)
+            aggregate_fn=learner._aggregate_fn, masked=self._masked,
+            stateful=self._stateful)
         epochs = engine_mod.make_fused_epochs(
-            learner.loss_fn, learner.opt, lr_fn=self._traced_lr)
+            learner.loss_fn, learner.opt, lr_fn=self._traced_lr,
+            masked=self._masked)
         fin = engine_mod.make_fused_finalize(
             learner.opt, aggregate_fn=learner._aggregate_fn,
             stateful=self._stateful)
+        gate = engine_mod.make_fused_gate(policy.traced_should_sync)
+
         # a graph's outputs are only its temporaries: the state it writes
         # is reached through the arguments
         def round_graph(*args):
@@ -690,35 +924,48 @@ class _FusedRunner:
                                            "epochs", inputs=(2,))
         self._finalize = self.graphs.capture(lambda *a: fin(*a)[2],
                                              "finalize")
+        self._gate = self.graphs.capture(gate, "gate")
 
         def scalar(dtype, shape=()):
             return torch.zeros(shape, dtype=dtype, device=dev)
         self._j0, self._T, self._ge0, self._total = (
             scalar(torch.int32) for _ in range(4))
+        self._delta = scalar(torch.float32)
         self._sched = {"kind": scalar(torch.int32),
                        "p": scalar(torch.float32, (N_SCHED_PARAMS,))}
 
     def run_round(self, state, epoch_batches_fn):
         """One round: the staging, then a window free of host syncs (the
         scalar copies and the replays), then one fetch of the losses, the
-        rates and ``rel``."""
+        rates and ``rel`` (gated: ``div`` and the decision, then ``rel``
+        in a second fetch on a synced round)."""
         learner = self.learner
         if traced_body(learner.schedule) is not self._traced_lr:
             raise RuntimeError(
                 "the learner's schedule carries a different traced_lr than "
                 "the captured round graphs; swap schedules with "
                 "CoLearner.set_schedule(...) so the engine can rebind")
+        policy = learner.sync_policy
+        if (policy.divergence_gated != self._gated
+                or type(policy).traced_should_sync is not self._traced_gate):
+            raise RuntimeError(
+                "the learner's sync policy gating does not match the "
+                "captured round graphs; swap policies with "
+                "CoLearner.set_sync_policy(...) so the engine can rebind")
+        gated = self._gated
         dev = learner.device
         i = state["round"]
         T_i = state["ctrl"].T
         K = learner.cfg.n_participants
-        # the last shared model: read by Eq. 4, then overwritten in place
-        # by the new one (before the first round a copy of slot 0, whose
-        # rel is reported as inf)
+        # the last shared model: read by Eq. 4 and the gate, then
+        # overwritten in place by the new one on a synced round (before the
+        # first round a copy of slot 0: an ungated round reports rel inf,
+        # a quiet one keeps the copy as the reference)
         first = state["prev_avg"] is None
         prev_avg = (averaging.unstack_participant(state["params"], 0)
                     if first else state["prev_avg"])
-        chunks = ([(0, T_i)] if T_i <= self.chunk else
+        single = T_i <= self.chunk and not gated
+        chunks = ([(0, T_i)] if single else
                   [(j0, min(self.chunk, T_i - j0))
                    for j0 in range(0, T_i, self.chunk)])
 
@@ -731,8 +978,11 @@ class _FusedRunner:
         ints = engine_mod.stage(
             [state["global_epoch"], learner.epochs_budget(state), T_i]
             + [j0 for j0, _ in chunks], np.int32, dev)
+        delta = (engine_mod.stage(learner._round_delta(state), np.float32,
+                                  dev) if gated else None)
         agg_w = learner.round_weights(i, state)
         batches = staged(*chunks[0])
+        mask = () if not self._masked else (learner.batch_mask,)
         lead = ((state["params"], state["opt"], state["residual"])
                 if self._stateful else (state["params"], state["opt"]))
         with self.graphs.no_sync():
@@ -740,9 +990,9 @@ class _FusedRunner:
             self._sched["p"].copy_(sched["p"])
             for buf, k in ((self._ge0, 0), (self._total, 1), (self._T, 2)):
                 buf.copy_(ints[k])
-            if len(chunks) == 1:
-                losses, lrs, rel = self._round(
-                    *lead, batches, prev_avg, self._ge0, self._sched,
+            if single:
+                losses, lrs, last = self._round(
+                    *lead, batches, *mask, prev_avg, self._ge0, self._sched,
                     self._total, agg_w)
             else:
                 lparts, rparts = [], []
@@ -752,20 +1002,37 @@ class _FusedRunner:
                             batches = staged(j0, C)
                     self._j0.copy_(ints[3 + c])
                     l, r = self._epochs(
-                        state["params"], state["opt"], batches, self._j0,
-                        self._T, self._ge0, self._sched, self._total)
+                        state["params"], state["opt"], batches, *mask,
+                        self._j0, self._T, self._ge0, self._sched,
+                        self._total)
                     lparts.append(l.clone())
                     rparts.append(r.clone())
-                rel = self._finalize(*lead, prev_avg, agg_w)
                 losses, lrs = torch.cat(lparts), torch.cat(rparts)
-            fetch = torch.cat([losses.reshape(-1), lrs, rel.reshape(1)])
-        host = fetch.cpu().numpy()            # the round's one host sync
+                if gated:
+                    self._delta.copy_(delta)
+                    div, do_sync = self._gate(state["params"], prev_avg,
+                                              self._delta)
+                    last = torch.stack([div.float(), do_sync.float()])
+                else:
+                    last = self._finalize(*lead, prev_avg, agg_w)
+            fetch = torch.cat([losses.reshape(-1), lrs, last.reshape(-1)])
+        host = fetch.cpu().numpy()            # the round's (first) host sync
         losses = host[:T_i * K].reshape(T_i, K)
         lrs = host[T_i * K:T_i * K + T_i]
-        rel = float("inf") if first else float(host[-1])
+        synced = not gated or bool(host[-1])
+        if not synced:
+            rel = float(host[-2])             # a quiet round reports div
+        elif gated:
+            with self.graphs.no_sync():
+                rel_t = self._finalize(*lead, prev_avg, agg_w).reshape(1)
+            rel_h = float(rel_t.cpu()[0])     # the synced round's second
+            rel = float("inf") if first else rel_h
+        else:
+            rel = float("inf") if first else float(host[-1])
         return learner._finish_round(
             state, i, T_i, rel, _live_loss_means(losses), float(lrs[0]),
             float(lrs[-1]), state["params"], state["opt"], prev_avg,
+            synced=synced,
             residual=state["residual"] if self._stateful else None)
 
 
@@ -837,7 +1104,8 @@ register_codec("int8", _leafwise_codec)        # legacy CLI alias
 register_codec("fused", _flat_codec)
 register_codec("flat", _flat_codec)            # alias
 register_aggregator("full", FullAverage)
-for _name in ("partial", "ring", "graph", "d2"):
+register_aggregator("partial", PartialParticipation)
+for _name in ("ring", "graph", "d2"):
     register_aggregator(_name, _not_ported_factory("aggregator", _name))
 register_engine("python", lambda chunk=32: PythonEngine())
 register_engine("fused", FusedEngine)
@@ -856,8 +1124,14 @@ register_sync_policy("ile", lambda epsilon=None, delta=None,
                                                   0.01) if e is not None)))
 register_sync_policy("fle", lambda epsilon=None, delta=None,
                      cfg_epsilon=None: FLE())
-for _name in ("divtrigger", "divergence"):
-    register_sync_policy(_name, _not_ported_factory("sync policy", _name))
+# ``epsilon`` is an explicit caller value, ``cfg_epsilon`` the config's:
+# the trigger's optional doubling engages only when asked for
+register_sync_policy("divtrigger", lambda epsilon=None, delta=None,
+                     cfg_epsilon=None:
+                     DivergenceTrigger(
+                         delta=0.05 if delta is None else delta,
+                         epsilon=epsilon))
+register_sync_policy("divergence", SYNC_POLICIES["divtrigger"])  # alias
 
 
 def _resolve(spec, registry, default, proto, kind, **kw):

@@ -11,12 +11,15 @@ passes ``"cpu"``) and are updated in place.
 The round engine is ``PythonEngine`` (a host loop, one epoch at a time)
 by default or ``FusedEngine`` (every round as replays of CUDA graphs
 captured once on the card; ``set_schedule`` swaps among the built-in
-schedules without a new capture). Static membership only: elastic
-membership (churn), ragged-shard batch masks, shard-size-weighted partial
-participation and the divergence trigger are still to port (ROADMAP.md).
+schedules without a new capture). Ragged shards train under a batch mask
+(``batch_mask``), a weightless ``PartialParticipation`` takes the shard
+sizes (``shard_sizes``), and a divergence-gated sync policy skips the
+aggregation and the wire on quiet rounds. Static membership only: elastic
+membership (churn) is still to port (ROADMAP.md).
 """
 from __future__ import annotations
 
+import dataclasses
 from collections.abc import Callable
 from dataclasses import dataclass
 from typing import Any
@@ -36,9 +39,9 @@ class RoundLog:
     T: int
     lr_first: float
     lr_last: float
-    rel_change: float        # Eq. 4 metric
+    rel_change: float        # Eq. 4 metric; the divergence on quiet rounds
     local_losses: list       # per local epoch: mean loss over the K slots
-    comm_bytes: int
+    comm_bytes: int          # 0 on rounds a gated sync policy skipped
     synced: bool = True
     live: int = -1           # live participants this round (K: static)
 
@@ -61,6 +64,14 @@ class CoLearner:
     schedule: Any = None
     sync_policy: Any = None
     device: Any = None
+    #: per-participant example counts (``ParticipantData.sizes``): a
+    #: ``PartialParticipation`` without weights takes them as its FedAvg
+    #: weights, so unequal shards never fall back to a uniform average
+    shard_sizes: Any = None
+    #: ``(K, n_batches)`` bool validity mask for ragged shards
+    #: (``ParticipantData.batch_mask``); None = equal shards, the unmasked
+    #: path. Kept as one device tensor that both engines read.
+    batch_mask: Any = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -71,12 +82,68 @@ class CoLearner:
         self.round_engine = api.get_engine(self.round_engine)
         self.schedule = api.get_schedule(self.schedule, self.cfg)
         self.sync_policy = api.get_sync_policy(self.sync_policy, self.cfg)
+        K = self.cfg.n_participants
+        if self.shard_sizes is not None:
+            self.shard_sizes = tuple(int(s) for s in self.shard_sizes)
+            if len(self.shard_sizes) != K:
+                raise ValueError(
+                    f"shard_sizes has {len(self.shard_sizes)} entries for "
+                    f"K={K} participants")
+            if (isinstance(self.aggregator, api.PartialParticipation)
+                    and self.aggregator.weights is None):
+                self.aggregator = dataclasses.replace(
+                    self.aggregator, weights=self.shard_sizes)
+        if self.batch_mask is not None:
+            mask = np.asarray(self.batch_mask, bool)
+            if mask.ndim != 2 or mask.shape[0] != K:
+                raise ValueError(
+                    f"batch_mask must be (K={K}, n_batches); got shape "
+                    f"{mask.shape}")
+            if not mask.any(axis=1).all():
+                raise ValueError("batch_mask leaves some participant with "
+                                 "zero valid batches")
+            self.batch_mask = engine_mod.stage(mask, bool, self.device)
         self.opt = get_optimizer(self.optimizer_name)
-        self._epoch = engine_mod.make_epoch_fn(self.loss_fn, self.opt)
+        self._epoch = engine_mod.make_epoch_fn(
+            self.loss_fn, self.opt, masked=self.batch_mask is not None)
         self._aggregate_fn = self.aggregator.make_aggregate_fn(self.codec)
         self._comm_cache = None
         self._weights = self._weights_np = None
         self._runner = self.round_engine.bind(self)
+
+    @classmethod
+    def from_flags(cls, cfg, loss_fn, *, optimizer_name: str = "sgd",
+                   compress_fn: Callable | None = None,
+                   engine: str = "python", fused_chunk: int = 32,
+                   compress: str | None = None, compress_block: int = 256,
+                   aggregator=None, device=None):
+        """The legacy flag surface, mapped onto strategy objects:
+        ``engine`` ("python" | "fused", with ``fused_chunk``) -> the round
+        engine; ``compress`` (None | "leafwise" | "fused", with
+        ``compress_block``) -> the codec; ``compress_fn`` an opaque
+        stacked -> stacked wire transform (:class:`api.CustomFn`), not
+        together with ``compress="fused"``."""
+        if engine not in ("python", "fused"):
+            raise ValueError(f"unknown engine {engine!r}")
+        if compress not in (None, "leafwise", "fused"):
+            raise ValueError(f"unknown compress {compress!r}")
+        if compress == "fused":
+            if compress_fn is not None:
+                raise ValueError(
+                    "compress='fused' replaces compress_fn entirely; "
+                    "pass one or the other")
+            codec = api.FlatFusedInt8(block=compress_block)
+        elif compress_fn is not None:
+            codec = api.CustomFn(compress_fn)
+        elif compress == "leafwise":
+            codec = api.LeafwiseInt8(block=compress_block)
+        else:
+            codec = api.ExactF32()
+        round_engine = (api.FusedEngine(chunk=fused_chunk)
+                        if engine == "fused" else api.PythonEngine())
+        return cls(cfg, loss_fn, optimizer_name=optimizer_name, codec=codec,
+                   aggregator=aggregator, round_engine=round_engine,
+                   device=device)
 
     # -- Algorithm 1 ---------------------------------------------------------
     def init(self, params):
@@ -114,11 +181,24 @@ class CoLearner:
         return self
 
     def set_sync_policy(self, spec):
-        """Swap the sync policy mid-run. Every ported policy syncs every
-        round, so a swap (ILE <-> FLE, another ε) only changes the host's
-        next-T rule; the captured graphs stay."""
+        """Swap the sync policy mid-run. Another ε or δ only changes the
+        host's values (δ rides into the gate graph through a static
+        buffer), so the captured graphs stay; turning the divergence gate
+        on or off, or a policy with another traced gate, rebinds the
+        fused engine, whose graphs are then captured anew."""
+        bound_gated = getattr(self._runner, "_gated", None)
+        bound_gate = getattr(self._runner, "_traced_gate", None)
         self.sync_policy = api.get_sync_policy(spec, self.cfg)
+        if bound_gated is not None and (
+                self.sync_policy.divergence_gated != bound_gated
+                or type(self.sync_policy).traced_should_sync
+                is not bound_gate):
+            self._runner = self.round_engine.bind(self)
         return self
+
+    def param_bytes(self, state):
+        """Raw bytes of one participant's model."""
+        return api.participant_bytes(state["params"])
 
     def round_weights(self, round_index, state=None):
         """The aggregator's (K, K) mixing matrix for this round as a device
@@ -139,6 +219,11 @@ class CoLearner:
             self._weights_np = w.copy()
         return self._weights
 
+    def _round_delta(self, state):
+        """The round's divergence threshold (static membership: the
+        policy's own)."""
+        return self.sync_policy.round_delta(())
+
     def run_round(self, state, epoch_batches_fn):
         """One communication round. ``epoch_batches_fn(round, epoch)``
         returns the ``(K, n_batches, B, ...)`` tensors of that local epoch
@@ -146,23 +231,33 @@ class CoLearner:
         return self._runner.run_round(state, epoch_batches_fn)
 
     def _finish_round(self, state, i, T_i, rel, local_losses, lr_first,
-                      lr_last, averaged, fresh_opt, new_avg, residual=None):
+                      lr_last, averaged, fresh_opt, new_avg, synced=True,
+                      residual=None):
         """The one round state transition (opt state is reset, not
-        averaged: local training restarts from the shared model). The
-        comm bill depends on shapes only, so it is priced once per
-        learner."""
+        averaged: local training restarts from the shared model). On a
+        round a gated policy skipped (``synced=False``) the runner passes
+        the untouched local params and optimizer state, the unchanged
+        sync reference and the divergence as ``rel``, and the round bills
+        zero bytes. A round-independent bill is priced once per learner."""
         state["params"], state["opt"] = averaged, fresh_opt
         state["prev_avg"] = new_avg
         if residual is not None:
             state["residual"] = residual
-        state["ctrl"] = self.sync_policy.update(state["ctrl"], i, rel)
+        state["ctrl"] = self.sync_policy.update(state["ctrl"], i, rel,
+                                                synced)
         state["global_epoch"] += T_i
-        if self._comm_cache is None:
-            self._comm_cache = self.aggregator.comm_bytes(
-                self.codec, state["params"], i)
+        if not synced:
+            comm = 0
+        elif self.aggregator.static_comm:
+            if self._comm_cache is None:
+                self._comm_cache = self.aggregator.comm_bytes(
+                    self.codec, state["params"], i)
+            comm = self._comm_cache
+        else:
+            comm = self.aggregator.comm_bytes(self.codec, state["params"], i)
         state["round"] = i + 1
         state["log"].append(RoundLog(i, T_i, lr_first, lr_last, rel,
-                                     local_losses, self._comm_cache,
+                                     local_losses, comm, synced,
                                      live=self.cfg.n_participants))
         return state
 
@@ -193,7 +288,8 @@ class CoLearner:
         return averaging.unstack_participant(state["params"], 0)
 
     def _sync_ref(self, state):
-        """The last synced shared model (slot 0 before the first sync)."""
+        """The last synced shared model (a copy of slot 0 before the first
+        sync): the Eq. 4 and divergence reference of both engines."""
         if state["prev_avg"] is not None:
             return state["prev_avg"]
         return averaging.unstack_participant(state["params"], 0)

@@ -12,11 +12,14 @@ evaluates them once per epoch) or 0-d device tensors.
 schedule selects among the same three branches (``LR_*``) with its
 branch index and parameter pack riding in as device tensors, so a
 schedule swap or a per-round re-parameterisation reuses the captured
-round graphs. The divergence metric of the divergence-gated sync policy
-is still to port (ROADMAP.md).
+round graphs. ``divergence_tensor`` is the divergence-gated sync
+policy's metric (Kamp et al.) as the fused engine's gate graph computes
+it; its elastic-membership ``live=`` form is still to port (ROADMAP.md).
+``EpochController`` is the legacy flag-driven Eq. 4 controller.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -88,6 +91,29 @@ def round_lr(colearn_cfg, round_i: int, epoch_j, T_i: int, global_epoch,
                   max(total_epochs, 1))
 
 
+# ---------------------------------------------------------------------------
+# Eq. 4 controller (legacy shim — see api.SyncPolicy for the protocol form)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class EpochController:
+    """Server-side state deciding T_i each round (Eq. 4): the legacy
+    flag-driven controller; ``api.ILE`` / ``api.FLE`` /
+    ``api.DivergenceTrigger`` on an ``api.SyncState`` replace it."""
+    T: int
+    epsilon: float
+    rule: str = "ile"                 # ile | fle
+    history: tuple = ()               # (round, rel_change, T) triples
+
+    def update(self, rel_change: float) -> "EpochController":
+        """Called after round i computed w̄^i; returns the controller for
+        round i + 1. The stored round index counts the updates so far."""
+        T = self.T
+        if self.rule == "ile" and rel_change <= self.epsilon:
+            T = 2 * self.T
+        entry = (len(self.history), rel_change, T)
+        return dataclasses.replace(self, T=T, history=self.history + (entry,))
+
+
 @torch.no_grad()
 def relative_change_tensor(new_avg, old_avg):
     """Eq. 4 metric as a 0-d f32 device tensor (no host sync):
@@ -107,3 +133,33 @@ def relative_change(new_avg, old_avg) -> float:
     """Host-facing Eq. 4 metric: the per-leaf sums stay on the device and
     the result crosses to the host once."""
     return float(relative_change_tensor(new_avg, old_avg).item())
+
+
+@torch.no_grad()
+def divergence_tensor(stacked, ref, live=None):
+    """Kamp-style (1807.03210) local-model divergence as a 0-d f32 device
+    tensor (no host sync): the RMS over the K participants of the drift
+    from the last synced shared model, relative to that model's norm,
+    ``sqrt(mean_k ‖w_k − w_ref‖²) / ‖w_ref‖``. The elastic-membership
+    ``live`` row is still to port."""
+    if live is not None:
+        raise NotImplementedError(
+            "the live-row divergence (elastic membership) not yet ported, "
+            "see ROADMAP.md")
+    num, den = [], []
+    K = leaves(stacked)[0].shape[0]
+    for t, r in zip(leaves(stacked), leaves(ref)):
+        rf = r.float()
+        d = t.float() - rf[None]
+        num.append(torch.sum(d * d))
+        den.append(torch.sum(rf * rf))
+    num = torch.stack(num).sum()
+    den = torch.stack(den).sum()
+    return (torch.sqrt(num / K)
+            / torch.clamp(torch.sqrt(den), min=1e-12))
+
+
+def divergence(stacked, ref, live=None) -> float:
+    """Host-facing divergence: the sums stay on the device and the result
+    crosses to the host once."""
+    return float(divergence_tensor(stacked, ref, live).item())

@@ -9,13 +9,16 @@ Usage:
       --codec fused --steps-per-epoch 2
 
 Ported: the exact / leafwise / fused codecs at 8/4/1 bits with error
-feedback, the full Eq. 2 aggregator (``--weighted-avg`` included), both
-round engines (``--engine fused``, the default as in the JAX CLI: every
-round as replays of CUDA graphs captured once; ``--engine python``: the
-host loop), the clr/elr/warmup_clr/cosine schedules, ile/fle policies and
-the iid partition. Flags whose subsystems are still to port (partial /
-gossip aggregators, the divergence trigger, non-IID partitions, churn,
-checkpoints) raise ``NotImplementedError``.
+feedback, the full Eq. 2 aggregator (``--weighted-avg`` included) and
+partial participation (``--aggregator partial --partial-m``), both round
+engines (``--engine fused``, the default as in the JAX CLI: every round
+as replays of CUDA graphs captured once; ``--engine python``: the host
+loop), the clr/elr/warmup_clr/cosine schedules, the ile/fle policies and
+the divergence trigger (``--sync-policy divtrigger --trigger-delta``;
+quiet rounds print ``SKIP(sync)`` and bill 0 bytes), and the iid,
+dirichlet and sizes partitions (ragged shards train under their batch
+mask). Flags whose subsystems are still to port (the gossip aggregators,
+churn, checkpoints) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -39,15 +42,17 @@ from repro_torch.tree import leaves
 
 
 def build_data(cfg, K, batch_size, seq_len, n_examples, seed=0,
-               partition="iid", drop_remainder=False):
-    """Shard the synthetic LM corpus IID (the paper's random split)."""
-    if partition != "iid":
-        raise NotImplementedError(
-            f"--partition {partition} not yet ported, see ROADMAP.md")
+               partition="iid", dirichlet_alpha=0.5, sizes=None,
+               drop_remainder=False):
+    """Shard the synthetic LM corpus under the chosen data scenario:
+    "iid" (the paper's random split), "dirichlet" (label skew over the
+    first target token bucketed into 10 classes) or "sizes" (quantity
+    skew with the given counts or fractions)."""
     x, y = lm_examples(seed, n_examples, seq_len, cfg.vocab_size)
-    idx = part_mod.scenario_indices(len(x), K, seed, scenario="iid",
-                                    min_size=batch_size,
-                                    drop_remainder=drop_remainder)
+    idx = part_mod.scenario_indices(
+        len(x), K, seed, scenario=partition, labels=y[:, 0] % 10,
+        dirichlet_alpha=dirichlet_alpha, sizes=sizes, min_size=batch_size,
+        drop_remainder=drop_remainder)
     return ParticipantData(part_mod.shard_by_indices([x, y], idx),
                            batch_size, seed)
 
@@ -87,11 +92,12 @@ def epoch_batches_fn(data, device, steps_per_epoch=0):
 
 
 def round_line(log, ev, next_T, seconds):
+    sync_s = "" if log.synced else " SKIP(sync)"
     return (f"round {log.round}: T={log.T} lr {log.lr_first:.4f}->"
             f"{log.lr_last:.4f} rel_dw={log.rel_change:.4f} "
             f"local_loss={np.mean(log.local_losses):.4f} eval={ev:.4f} "
-            f"comm={log.comm_bytes/2**20:.1f}MiB next_T={next_T} "
-            f"({seconds:.1f}s)")
+            f"comm={log.comm_bytes/2**20:.1f}MiB next_T={next_T}"
+            f"{sync_s} ({seconds:.1f}s)")
 
 
 def _not_ported(flag):
@@ -163,15 +169,11 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     for flag, on in ((f"--aggregator {args.aggregator}",
-                      args.aggregator != "full"),
-                     (f"--partition {args.partition}",
-                      args.partition != "iid"),
+                      args.aggregator not in ("full", "partial")),
                      (f"--churn {args.churn}", args.churn != "none"),
                      ("--k-max", bool(args.k_max)),
                      ("--naive-membership", args.naive_membership),
-                     ("--checkpoint", bool(args.checkpoint)),
-                     ("--sync-policy divtrigger",
-                      args.sync_policy == "divtrigger")):
+                     ("--checkpoint", bool(args.checkpoint))):
         if on:
             _not_ported(flag)
     device = resolve_device(args.device)
@@ -184,6 +186,22 @@ def main(argv=None):
                  "(--codec leafwise|fused or --compress int8|fused)")
     codec = api.get_codec(codec_spec, bits=args.codec_bits,
                           error_feedback=args.error_feedback)
+    # a sample beyond the pool is a config bug, caught here instead of
+    # inside the mixing-matrix draw
+    if args.aggregator == "partial" and args.partial_m > args.participants:
+        ap.error(f"--partial-m {args.partial_m} exceeds --participants "
+                 f"{args.participants}")
+    if args.aggregator == "partial" and args.partial_m < 1:
+        ap.error("--partial-m must be >= 1")
+    if args.topology != "ring" and args.aggregator not in ("graph", "d2"):
+        ap.error("--topology requires --aggregator graph|d2")
+    if ((args.er_p != 0.5 or args.er_seed)
+            and args.topology != "erdos_renyi"):
+        ap.error("--er-p/--er-seed require --topology erdos_renyi")
+    if args.churn_events and args.churn != "scripted":
+        ap.error("--churn-events requires --churn scripted")
+    if (args.churn_p != 0.2 or args.churn_seed) and args.churn != "random":
+        ap.error("--churn-p/--churn-seed require --churn random")
 
     cfg = get_smoke_config(args.arch)
     K = args.participants
@@ -191,14 +209,37 @@ def main(argv=None):
         n_participants=K, T0=args.t0, eta0=args.eta0, epsilon=args.epsilon,
         schedule=args.schedule, epochs_rule=args.epochs_rule,
         max_rounds=args.rounds)
+    # scenario flags must match --partition: an ignored one would let a
+    # user believe they ran a skew they never ran
+    if args.sizes and args.partition != "sizes":
+        ap.error("--sizes requires --partition sizes")
+    if not args.sizes and args.partition == "sizes":
+        ap.error("--partition sizes requires --sizes")
+    if args.dirichlet_alpha != 0.5 and args.partition != "dirichlet":
+        ap.error("--dirichlet-alpha requires --partition dirichlet")
+    if args.drop_remainder and args.partition != "iid":
+        ap.error("--drop-remainder only applies to --partition iid")
+    sizes = ([float(s) for s in args.sizes.split(",")] if args.sizes
+             else None)
     data = build_data(cfg, K, args.batch_size, args.seq_len,
-                      args.n_examples, args.seed,
+                      args.n_examples, args.seed, partition=args.partition,
+                      dirichlet_alpha=args.dirichlet_alpha, sizes=sizes,
                       drop_remainder=args.drop_remainder)
-    if data.ragged:
-        _not_ported("ragged shards (batch masks)")
     ex, ey = lm_examples(args.seed + 99, 256, args.seq_len, cfg.vocab_size)
-    aggregator = (api.FullAverage(weights=data.sizes) if args.weighted_avg
-                  else api.get_aggregator(args.aggregator))
+    if args.weighted_avg and args.aggregator != "full":
+        ap.error("--weighted-avg only applies to --aggregator full")
+    if args.aggregator == "partial":
+        aggregator = api.PartialParticipation(m=args.partial_m,
+                                              seed=args.seed)
+    elif args.weighted_avg:
+        aggregator = api.FullAverage(weights=data.sizes)
+    else:
+        aggregator = api.get_aggregator(args.aggregator)
+    # ragged shards (unequal batch counts): the validity mask goes into
+    # the engines so every shard trains on exactly its own batches
+    batch_mask = data.batch_mask if data.ragged else None
+    if batch_mask is not None and args.steps_per_epoch:
+        batch_mask = batch_mask[:, :args.steps_per_epoch]
     schedule = api.get_schedule(args.lr_schedule or None, ccfg)
     sync_policy = api.get_sync_policy(args.sync_policy or None, ccfg,
                                       delta=args.trigger_delta)
@@ -206,16 +247,20 @@ def main(argv=None):
                         optimizer_name=args.optimizer, codec=codec,
                         aggregator=aggregator, round_engine=args.engine,
                         schedule=schedule, sync_policy=sync_policy,
-                        device=device)
+                        device=device, shard_sizes=data.sizes,
+                        batch_mask=batch_mask)
     params = tr.init_params(args.seed, cfg, torch.float32, device=device)
     state = learner.init(params)
     del params
+    shard_s = (f" shards={list(data.sizes)}" if args.partition != "iid"
+               or data.ragged else "")
     print(f"co-learning {cfg.name}: K={K} params="
           f"{tr.count_params(state['params']) // K:,} rounds={args.rounds} "
           f"T0={args.t0} {learner.schedule.name}+{learner.sync_policy.name} "
           f"engine={args.engine} codec={learner.codec.name} "
           f"aggregator={learner.aggregator.name} "
-          f"partition={args.partition} device={device}", flush=True)
+          f"partition={args.partition}{shard_s} device={device}",
+          flush=True)
 
     batches = epoch_batches_fn(data, device, args.steps_per_epoch)
     for _ in range(args.rounds):

@@ -17,6 +17,22 @@ import torch
 from repro_torch.tree import leaves, tree_map
 
 
+def global_norm(tree):
+    """‖tree‖₂ over every leaf, accumulated in f32 (a 0-d tensor)."""
+    return torch.sqrt(sum(torch.sum(t.float() ** 2) for t in leaves(tree)))
+
+
+def clip_by_global_norm(grads, max_norm):
+    """Scale ``grads`` by ``min(1, max_norm / max(‖grads‖, 1e-9))``; each
+    leaf keeps its dtype (new tensors)."""
+    gn = global_norm(grads)
+    # a divide by a 0-d tensor (``scalar / tensor`` multiplies by the
+    # reciprocal)
+    num = torch.as_tensor(max_norm, dtype=torch.float32, device=gn.device)
+    scale = torch.clamp(num / torch.clamp(gn, min=1e-9), max=1.0)
+    return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads)
+
+
 class SGD:
     """Plain SGD — the paper's local optimizer ("localSGD", Algorithm 1)."""
 

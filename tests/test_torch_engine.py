@@ -420,14 +420,14 @@ def test_stack_epoch_batches_and_stage():
 def test_unported_fused_variants_raise():
     from repro_torch.optim.optimizers import get_optimizer
     opt = get_optimizer("sgd")
-    for kw in ({"gated": True}, {"masked": True}, {"live": True},
-               {"spmd_axis_name": "pod"}):
+    for kw in ({"live": True}, {"spmd_axis_name": "pod"},
+               {"gated": True, "live": True}, {"masked": True, "live": True}):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             tengine.make_fused_round(tiny_loss, opt, **kw)
-    for kw in ({"masked": True}, {"live": True}):
+    for kw in ({"live": True}, {"masked": True, "live": True}):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             tengine.make_fused_epochs(tiny_loss, opt, **kw)
-    for kw in ({"gated": True}, {"live": True}):
+    for kw in ({"live": True}, {"gated": True, "live": True}):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             tengine.make_fused_finalize(opt, **kw)
     with pytest.raises(NotImplementedError, match="not yet ported"):

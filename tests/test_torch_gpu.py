@@ -338,7 +338,7 @@ def _logs_close(a, b):
 
 def _param_diff(a, b):
     from repro_torch.tree import leaves
-    return max(float((x - y).abs().max())
+    return max(float((x - y.to(x.device)).abs().max())
                for x, y in zip(leaves(a["params"]), leaves(b["params"])))
 
 
@@ -676,3 +676,202 @@ def test_gpu_captured_slstm_matches_plain_loop(cuda):
     assert xl.slstm_graph_counts() == {"captures": 1, "replays": 2}
     assert torch.equal(r, kept[0]) and torch.equal(b, kept[1])
     xl.release_slstm_graphs()
+
+
+# ---------------------------------------------------------------------------
+# The rest of the strategy API on the card: the divergence-gated round (the
+# epochs, the gate graph, the finalize graph only on a synced round), the
+# flat codec's standalone K1 / K2 path (partial participation) and the
+# ragged-shard mask, each against the same rounds uncaptured.
+# ---------------------------------------------------------------------------
+GATE_DELTA = 0.01     # the smoke run's divergences are >= 19% away from it
+
+
+def _strategy_learner(dev, engine, codec, **kw):
+    from repro_torch.configs.base import CoLearnConfig
+    from repro_torch.core import api
+    from repro_torch.core.colearn import CoLearner
+    from repro_torch.launch.train import make_loss_fn
+    cfg, data, params = _fused_setup()
+    ccfg = CoLearnConfig(n_participants=3, T0=1, eta0=0.05, epsilon=1e-6,
+                         max_rounds=4)
+    learner = CoLearner(ccfg, make_loss_fn(cfg),
+                        codec=api.get_codec(codec[0], **codec[1]),
+                        round_engine=engine, device=dev, **kw)
+    return learner, learner.init(params), data
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("codec", [("fused", {}), (
+    "fused", {"bits": 4, "error_feedback": True})])
+def test_gpu_gated_fused_rounds_equal_cpu(cuda, codec):
+    """Four gated rounds (quiet, synced, quiet, synced) through the card's
+    graphs against the same rounds on the CPU: the same pattern and bills,
+    logs at 1e-4 (rel), params within one wire quantum; the gate graph
+    captured once and replayed every round, the finalize graph and K3/K4
+    only on the synced rounds."""
+    import dataclasses
+    from repro_torch.core import api
+    divs = []
+
+    @dataclasses.dataclass(frozen=True)
+    class Recording(api.DivergenceTrigger):
+        def should_sync(self, div, round_i, delta=None):
+            divs.append(div)
+            return super().should_sync(div, round_i, delta)
+
+    learner, state, data = _strategy_learner(
+        "cpu", "python", codec, sync_policy=Recording(delta=GATE_DELTA))
+    _rounds(learner, state, data, 4)
+    assert min(abs(d - GATE_DELTA) for d in divs) > 0.05 * GATE_DELTA, divs
+    runs = {}
+    for dev in ("cpu", cuda):
+        learner, state, data = _strategy_learner(
+            dev, "fused", codec,
+            sync_policy=api.DivergenceTrigger(delta=GATE_DELTA))
+        tops.reset_launch_counts()
+        runs[str(dev)] = (learner, _rounds(learner, state, data, 4),
+                          tops.launch_counts())
+    (_, cs, _), (gl, gs, counts) = runs["cpu"], runs[str(cuda)]
+    assert [x.synced for x in gs["log"]] == [False, True, False, True]
+    assert [x.comm_bytes for x in gs["log"]] == [x.comm_bytes
+                                                 for x in cs["log"]]
+    for x, y in zip(cs["log"], gs["log"]):
+        np.testing.assert_allclose(y.local_losses, x.local_losses,
+                                   rtol=1e-4)
+        np.testing.assert_allclose(y.rel_change, x.rel_change, rtol=1e-4)
+    bits = codec[1].get("bits", 8)
+    assert _param_diff(cs, gs) <= _quantum(cs["params"], bits)
+    r = gl._runner
+    assert (r._gate.captures, r._gate.replays) == (1, 4)
+    assert (r._finalize.captures, r._finalize.replays) == (1, 2)
+    assert r._round.captures == 0
+    k = ("wire_quant_avg_dequant_ef" if codec[1].get("error_feedback")
+         else "wire_quant_avg_dequant")
+    assert counts[k] == 2
+
+
+@pytest.mark.gpu
+def test_gpu_quiet_round_leaves_the_residual_untouched(cuda):
+    """int4 error feedback: a forced sync (δ = -1) fills the residual, a
+    quiet round (δ swapped to 1e9, no rebind, no capture) leaves it, and
+    the sync reference, bit for bit, and launches no K4."""
+    from repro_torch.core import api
+    from repro_torch.tree import leaves
+    learner, state, data = _strategy_learner(
+        cuda, "fused", ("fused", {"bits": 4, "error_feedback": True}),
+        sync_policy=api.DivergenceTrigger(delta=-1.0))
+    state = _rounds(learner, state, data, 1)
+    runner = learner._runner
+    learner.set_sync_policy(api.DivergenceTrigger(delta=1e9))
+    assert learner._runner is runner
+    res = state["residual"].clone()
+    ref = [t.clone() for t in leaves(state["prev_avg"])]
+    assert float(res.abs().max()) > 0
+    tops.reset_launch_counts()
+    state = _rounds(learner, state, data, 1)
+    torch.cuda.synchronize()
+    assert not state["log"][-1].synced
+    assert tops.launch_counts()["wire_quant_avg_dequant_ef"] == 0
+    assert torch.equal(state["residual"], res)
+    assert all(torch.equal(a, b) for a, b in zip(leaves(state["prev_avg"]),
+                                                 ref))
+    assert runner._gate.captures == 1 and runner._gate.replays == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [8, 4, 1])
+def test_gpu_flat_codec_payloads_equal_plain(cuda, bits):
+    """The flat codec's standalone encode / decode on the card: one K1
+    over the (K, N_pad) buffer, one K2 back; codes and (8/4-bit) scales
+    equal the plain version's on the same buffer bit for bit, the decoded
+    tree too; the error-feedback roundtrip's new residual as well."""
+    from repro_torch.core import api, flatbuf
+    from repro_torch.tree import leaves
+    rng = np.random.default_rng(bits)
+    stacked = {"w": torch.tensor(rng.standard_normal((3, 2, 256)),
+                                 dtype=torch.float32, device=cuda),
+               "odd": torch.tensor(rng.standard_normal((3, 300)),
+                                   dtype=torch.float32, device=cuda)}
+    codec = api.FlatFusedIntN(bits=bits, error_feedback=True)
+    tops.reset_launch_counts()
+    layout, q, s, shp = codec.encode(stacked)
+    out = codec.decode((layout, q, s, shp))
+    assert tops.launch_counts()["wire_quantize"] == 1
+    assert tops.launch_counts()["wire_dequantize"] == 1
+    buf = flatbuf.flatten(stacked, layout)
+    q_p, s_p, _ = tref.quantize_blockwise_ref(buf, bits=bits)
+    nb = q_p.shape[0]
+    assert torch.equal(q[:nb], q_p)
+    if bits == 1:
+        torch.testing.assert_close(s[:nb], s_p, rtol=1e-6, atol=0)
+    else:
+        assert torch.equal(s[:nb], s_p)
+    want = flatbuf.unflatten(tref.dequantize_blockwise_ref(
+        q, s, shp, bits=bits), layout)
+    assert all(torch.equal(a, b) for a, b in zip(leaves(out), leaves(want)))
+    res = torch.tensor(rng.standard_normal((3, layout.n_pad)) * 0.01,
+                       dtype=torch.float32, device=cuda)
+    rt, new_res = codec.roundtrip_ef(stacked, res.clone())
+    y = buf + res
+    q_y, s_y, shp_y = tops.quantize_blockwise(y, bits=bits)
+    dq = tref.dequantize_blockwise_ref(q_y, s_y, shp_y, bits=bits)
+    assert torch.equal(new_res, y - dq)
+    assert all(torch.equal(a, b) for a, b in zip(
+        leaves(rt), leaves(flatbuf.unflatten(dq, layout))))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine", ["python", "fused"])
+def test_gpu_partial_participation_equals_cpu(cuda, engine):
+    """Partial participation (m = 2 of 3) over the fused codec's flat
+    roundtrip on the card against the CPU: the same draws and bills, logs
+    at 1e-4 (rel), params within one wire quantum, K1 and K2 once a
+    round."""
+    from repro_torch.core import api
+    runs = {}
+    for dev in ("cpu", cuda):
+        learner, state, data = _strategy_learner(
+            dev, engine, ("fused", {}),
+            aggregator=api.PartialParticipation(m=2),
+            shard_sizes=(16, 16, 16))
+        tops.reset_launch_counts()
+        runs[str(dev)] = (_rounds(learner, state, data, 3),
+                          tops.launch_counts())
+    (cs, _), (gs, counts) = runs["cpu"], runs[str(cuda)]
+    assert [x.comm_bytes for x in gs["log"]] == [x.comm_bytes
+                                                 for x in cs["log"]]
+    for x, y in zip(cs["log"], gs["log"]):
+        np.testing.assert_allclose(y.local_losses, x.local_losses,
+                                   rtol=1e-4)
+    # one code step of a sampled row moves the mean by its weight, 1/m
+    # (``_quantum`` divides the step by K)
+    assert _param_diff(cs, gs) <= _quantum(cs["params"], 8) * 3 / 2
+    assert counts["wire_quantize"] == counts["wire_dequantize"] == 3
+
+
+@pytest.mark.gpu
+def test_gpu_masked_captured_rounds_equal_uncaptured(cuda):
+    """Ragged shards (3, 2 and 1 real batches of 3): the captured rounds
+    (the mask read from the learner's one device tensor) equal the same
+    rounds run eagerly on the card, and a new mask value in place captures
+    nothing new."""
+    from repro_torch.launch.train import epoch_batches_fn
+    mask = np.array([[True, True, True], [True, True, False],
+                     [True, False, False]])
+    runs = []
+    for captured in (True, False):
+        learner, state, data = _strategy_learner(
+            cuda, "fused", ("exact", {}), batch_mask=mask)
+        learner._runner.graphs.on_cuda = captured
+        batches = epoch_batches_fn(data, cuda, 3)
+        for _ in range(3):
+            state = learner.run_round(state, batches)
+        runs.append((learner, state))
+    (cl, cs), (ul, us) = runs
+    assert cl._fused_round.replays == 2 and ul._fused_round.replays == 0
+    _logs_close(us, cs)
+    assert _param_diff(us, cs) <= 1e-5
+    cl.batch_mask[1, 1] = False
+    cl.run_round(cs, batches)
+    assert (cl._fused_round.captures, cl._fused_round.replays) == (1, 3)

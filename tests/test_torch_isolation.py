@@ -79,34 +79,36 @@ def test_entry_points_raise_without_a_card(no_cuda):
 
 def test_unported_paths_raise_not_implemented():
     from repro_torch.configs import get_smoke_config
-    from repro_torch.core import api, engine
+    from repro_torch.core import api, engine, schedule
     from repro_torch.launch import train
     from repro_torch.models import transformer as tr
     from repro_torch.optim.optimizers import get_optimizer
 
-    for spec in ("partial", "ring", "graph", "d2"):
+    for spec in ("ring", "graph", "d2"):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             api.get_aggregator(spec)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        api.get_sync_policy("divtrigger")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tr.init_params(0, get_smoke_config("internlm2-1.8b").with_(
             n_layers=1, segments=((("mla:dense",), 1),)), device="cpu")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         get_smoke_config("deepseek-v3-671b")
-    # the flat codec's standalone roundtrip serves only unported aggregators
-    flat = api.get_codec("fused", bits=4, error_feedback=True)
-    x = {"w": torch.zeros((2, 256))}
-    for call in (lambda: flat.encode(x), lambda: flat.decode(None),
-                 lambda: flat.roundtrip_ef(x, flat.init_state(x))):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            call()
-    # the fused engine's divergence gate, batch mask and liveness row
+    # elastic membership: the liveness row, the live divergence and the
+    # live-sampled partial participation
     opt = get_optimizer("sgd")
-    for kw in ({"gated": True}, {"masked": True}, {"live": True}):
+    for kw in ({"live": True}, {"gated": True, "live": True}):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             engine.make_fused_round(lambda p, b: None, opt, **kw)
-    for flags in (["--churn", "random"],
-                  ["--aggregator", "ring"], ["--partition", "dirichlet"]):
+    x = {"w": torch.zeros((2, 256))}
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        schedule.divergence(x, {"w": torch.zeros(256)}, [True, True])
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        api.PartialParticipation().mixing_matrix(0, 2, live=[True, True])
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        api.PartialParticipation().make_aggregate_fn(api.ExactF32(),
+                                                     dynamic=True)
+    for flags in (["--churn", "random"], ["--aggregator", "ring"],
+                  ["--aggregator", "graph"], ["--aggregator", "d2"],
+                  ["--k-max", "4"], ["--naive-membership"],
+                  ["--checkpoint", "x"]):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             train.main(["--device", "cpu", *flags])
