@@ -37,7 +37,19 @@ Phases:
      rounds, the residual unchanged across a quiet round), partial
      participation (m=2) over the fused int8 codec's flat roundtrip (K1
      and K2 once a round), ragged shards of 3, 2 and 1 batches under
-     their mask;
+     their mask; then the membership runs, card against CPU at 1e-4 with
+     equal live counts, patterns and bills, no capture after round 0's,
+     every window under the sync guard: (i) ``ScriptedChurn`` on K = 3
+     plus one standby slot (slot 1 crashes at round 1 and rejoins at 3,
+     the standby joins at 2), fused int8, FullAverage, both engines, 4
+     rounds: every dead row bit-unchanged through its dead rounds, every
+     joined row equal to ``prev_avg`` at its first round; (ii) D² over
+     the ring, leafwise int4 with error feedback, under (i)'s churn, 4
+     rounds (K1/K2 once per leaf a round); (iii) GraphGossip over the
+     exponential graph, K = 4, 3 rounds, its matrix changing every
+     round; (iv) (ii)'s round state saved after round 2, restored into a
+     fresh learner and into (ii)'s own (no capture): rounds 3-4 equal to
+     the uninterrupted run bit for bit;
   5. the main path at internlm2-1.8b's full width (depth cut to 16 of 24
      layers, f32, T fixed at 1) through the fused engine, the CLI's
      default: (a) fused
@@ -114,7 +126,22 @@ Phases:
      once a round, every participant's new row within 1e-6 of the
      weighted mean of the sampled rows' roundtrip by the plain quantize
      and dequantize, the bill ``ceil(m·up/K) + raw``. The counters are
-     zeroed just before each fused run and read after.
+     zeroed just before each fused run and read after;
+ 10. churn and gossip at internlm2-1.8b's full width, depth 12 of 24
+     (``LAYERS10``), K = 5, leafwise int8, T fixed at 1: (a) slot 3
+     crashes at round 1 and rejoins at round 3, FullAverage
+     renormalised over the live set, 4 rounds fused, then the same under
+     the python engine (losses within 1e-4); (b) GraphGossip over the
+     time-varying exponential graph, 3 rounds, the matrix changing each
+     round and the bill ``ceil(2·edges·wire/n)``; (c) D² over the ring
+     under (a)'s churn, 4 timed rounds, then 2 untimed rounds whose
+     aggregate records 2 sampled leaves, every live row's params and
+     correction held against the plain roundtrip and the matrix. Per
+     round: host seconds, the device split (epochs / finalize, CUDA
+     events), live count, bill, matrix, peak memory; one capture set and
+     no capture on a leave, a rejoin or a new matrix; K1/K2 once per
+     leaf a round; a dead slot's params and round state unchanged. The
+     counters are zeroed just before each run and read after.
 Before the last line come the ``kernels`` JSON and the card's name and
 power limit as ``nvidia-smi`` gives them; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
@@ -1135,6 +1162,361 @@ def phase_small_strategies(torch, dev):
                          for x in glog])
 
 
+# phase 4's membership runs (smoke config): K = 3 plus one standby slot;
+# slot 1 crashes at round 1 and rejoins at round 3, the standby joins at
+# round 2
+SMALL_CHURN = (("crash", 1, 1), ("rejoin", 3, 1), ("rejoin", 2, 3))
+
+
+def _watch_membership(torch, learner, report):
+    """Wrap the learner's runner so that each round, at its entry (after
+    the membership step and the restarts) and at its end, records into
+    ``report``: whether every slot that joined this round holds exactly
+    the sync reference (``prev_avg``), and copies of the dead rows, whose
+    params, optimizer state and round state must come out of the round
+    bit for bit; and, on the fused engine, the sync debug mode each round
+    graph replays under."""
+    from repro_torch.tree import leaves
+    runner = learner._runner
+    run = runner.run_round
+
+    def rows(state, k):
+        return [t[k].clone() for key in ("params", "opt", "residual")
+                for t in leaves(state.get(key))]
+
+    def watched(state, batches):
+        mem, i = state["membership"], state["round"]
+        ref = state["prev_avg"]
+        joined = mem.joined(i)
+        report.setdefault("rejoin_equals_prev_avg", []).extend(
+            all(torch.equal(t[k], r) for t, r in
+                zip(leaves(state["params"]), leaves(ref)))
+            for k in joined if ref is not None)
+        dead = [k for k, a in enumerate(mem.live) if not a]
+        before = {k: rows(state, k) for k in dead}
+        state = run(state, batches)
+        report.setdefault("dead_rows_unchanged", []).extend(
+            all(torch.equal(a, b) for a, b in zip(before[k], rows(state, k)))
+            for k in dead)
+        report.setdefault("captures_after_round", []).append(
+            runner.graphs.captures if hasattr(runner, "graphs") else None)
+        return state
+    runner.run_round = watched
+    if hasattr(runner, "_round"):
+        graph, guard = runner._round, report.setdefault("guard", [])
+
+        def round_graph(*a):
+            guard.append(torch.cuda.get_sync_debug_mode())
+            return graph(*a)
+        runner._round = round_graph
+
+
+_HOST_KEYS = ("membership", "ctrl", "round", "global_epoch")
+_TENSOR_KEYS = ("params", "opt", "residual", "prev_avg")
+
+
+def _snapshot(state):
+    """A CPU copy of a round state (its tensors and its host fields)."""
+    from repro_torch.tree import tree_map
+    snap = {k: state[k] for k in _HOST_KEYS}
+    for k in _TENSOR_KEYS:
+        snap[k] = tree_map(lambda t: t.detach().cpu().clone(), state.get(k))
+    return snap
+
+
+def _load_snapshot(torch, state, snap):
+    """Write a snapshot into a CPU learner's state, in place."""
+    from repro_torch.tree import leaves, tree_map
+    for k in _HOST_KEYS:
+        state[k] = snap[k]
+    for k in _TENSOR_KEYS:
+        if snap[k] is None or state.get(k) is None:
+            state[k] = tree_map(torch.clone, snap[k])
+        else:
+            for dst, src in zip(leaves(state[k]), leaves(snap[k])):
+                dst.copy_(src)
+
+
+def _record_aggregate(torch, learner, state, paths=None):
+    """Wrap the learner's aggregate so that it copies its inputs (the
+    post-epoch params and the round state, as the tree ``(params,
+    state)``) into buffers allocated here, outside any capture, and
+    rebind the engine. ``paths``: record only these leaves (``"0/..."``
+    params, ``"1/..."`` round state). Returns the buffers by path."""
+    from repro_torch.tree import leaves_with_path
+    bufs = {p: torch.empty_like(t) for p, t in leaves_with_path(
+        (state["params"], state["residual"])) if paths is None or p in paths}
+    agg = learner._aggregate_fn
+
+    def recording(stacked, weights, *rest, **kw):
+        with torch.no_grad():
+            for p, t in leaves_with_path((stacked, *rest)):
+                if p in bufs:
+                    bufs[p].copy_(t)
+        return agg(stacked, weights, *rest, **kw)
+    learner._aggregate_fn = recording
+    learner._runner = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    learner._runner = learner.round_engine.bind(learner)
+    return bufs
+
+
+def _force_aggregate(torch, learner, inputs):
+    """Wrap the (uncaptured) learner's aggregate so that each call first
+    overwrites its inputs with the next of ``inputs`` (another run's
+    recorded aggregate inputs, by path), and rebind the engine."""
+    from repro_torch.tree import leaves_with_path
+    agg, it = learner._aggregate_fn, iter(inputs)
+
+    def forced(stacked, weights, *rest, **kw):
+        src = next(it)
+        with torch.no_grad():
+            for p, t in leaves_with_path((stacked, *rest)):
+                t.copy_(src[p])
+        return agg(stacked, weights, *rest, **kw)
+    learner._aggregate_fn = forced
+    learner._runner = learner.round_engine.bind(learner)
+
+
+def _small_member_run(torch, cfg, params, d, label, engine, rounds,
+                      stop=None, restore=None, trace=None, follow=None):
+    """One phase 4 membership run on ``d``: (i) FullAverage over the fused
+    int8 codec, (ii) D² over the ring with the leafwise int4 codec and
+    error feedback, both under ``SMALL_CHURN`` on K = 4 slots; (iii)
+    GraphGossip over the exponential graph, K = 4, no churn. ``stop``:
+    save the round state after that many rounds (returned with the run);
+    ``restore``: a saved path restored into the fresh learner first;
+    ``trace``: a list that receives, each round, its entry state
+    (``_snapshot``) and its aggregate's inputs; ``follow``: such a list
+    (another run's), loaded before each round and into each aggregate:
+    each round then differs from the other run's only by its own f32
+    order, with the same codes on the wire."""
+    from repro_torch.checkpoint import io
+    from repro_torch.configs.base import CoLearnConfig
+    from repro_torch.core import api, membership
+    from repro_torch.core.colearn import CoLearner
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import (build_data, epoch_batches_fn,
+                                          make_loss_fn)
+    K = 4
+    if label == "gossip-exponential":
+        data = build_data(cfg, K, 4, 16, 64, seed=0)
+        kw = {"codec": api.get_codec("leafwise"),
+              "aggregator": api.GraphGossip("exponential")}
+    else:
+        data = build_data(cfg, 3, 4, 16, 48, seed=0, k_max=K)
+        kw = {"churn": membership.ScriptedChurn(events=SMALL_CHURN,
+                                                initial_live=3)}
+        if label == "churn":
+            kw["codec"] = api.get_codec("fused")
+        else:
+            kw["codec"] = api.LeafwiseIntN(bits=4, error_feedback=True)
+            kw["aggregator"] = api.D2Gossip("ring")
+    ccfg = CoLearnConfig(n_participants=K, T0=1, eta0=0.05,
+                         epochs_rule="fle", max_rounds=rounds)
+    learner = CoLearner(ccfg, make_loss_fn(cfg), round_engine=engine,
+                        device=d, **kw)
+    report, matrices = {}, []
+    state = learner.init(params)
+    if trace is not None:
+        bufs = _record_aggregate(torch, learner, state)
+    if follow is not None:
+        _force_aggregate(torch, learner, [x[1] for x in follow])
+    _watch_membership(torch, learner, report)
+    if restore is not None:
+        state = io.restore_round_state(restore, state)
+    batches = epoch_batches_fn(data, d, 2)
+    saved = None
+    ops.reset_launch_counts()
+    while state["round"] < rounds:
+        if trace is not None:
+            entry = _snapshot(state)
+        if follow is not None:
+            _load_snapshot(torch, state, follow[state["round"]][0])
+        state = learner.run_round(state, batches)
+        if trace is not None:
+            trace.append((entry, {p: b.cpu().clone()
+                                  for p, b in bufs.items()}))
+        if learner._weights_np is not None:
+            matrices.append(learner._weights_np.copy())
+        if stop is not None and state["round"] == stop:
+            saved = str(ROOT / "build" / f"chip_smoke_ck_{label}")
+            (ROOT / "build").mkdir(exist_ok=True)
+            io.save_round_state(saved, state)
+    report["launches"] = ops.launch_counts()
+    return learner, state, report, matrices, saved
+
+
+def _jitter(torch, params, g):
+    """A copy of ``params`` with every value scaled by 1 + u, |u| <= 1e-7."""
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t * (1 + (torch.rand(
+        t.shape, generator=g) - 0.5) * 2e-7), params)
+
+
+def _logs_rel_diff(a, b):
+    """Largest relative distance between two runs' losses and rel."""
+    worst = 0.0
+    for x, y in zip(a, b):
+        for u, v in [*zip(x.local_losses, y.local_losses),
+                     (x.rel_change, y.rel_change)]:
+            if math.isinf(u):
+                check(math.isinf(v), "rel_change inf on one side only")
+                continue
+            worst = max(worst, abs(u - v) / max(abs(u), 1e-12))
+    return worst
+
+
+def _bitwise_equal(torch, a, b):
+    from repro_torch.tree import leaves
+    return all(torch.equal(x, y) for key in ("params", "residual",
+                                             "prev_avg", "opt")
+               for x, y in zip(leaves(a[key]), leaves(b[key])))
+
+
+def phase_small_membership(torch, dev):
+    """Phase 4's membership runs, each card against CPU at 1e-4 with equal
+    live counts, sync patterns and bills: (i) churn over FullAverage
+    (fused int8), both engines on the card; (ii) D² over the ring under
+    the same churn (leafwise int4 with error feedback); (iii) GraphGossip
+    over the time-varying exponential graph; (iv) (ii) saved after round
+    2, restored into a fresh learner and into (ii)'s own, rounds 3-4 bit
+    for bit equal to the uninterrupted run, the second with no capture."""
+    import numpy as np
+    from repro_torch.checkpoint import io
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.train import build_data, epoch_batches_fn
+    from repro_torch.models import transformer as tr
+    from repro_torch.tree import leaves
+    cfg = get_smoke_config("internlm2-1.8b")
+    params = tr.init_params(0, cfg, torch.float32, device="cpu")
+    runs = {}
+    for label, rounds in (("churn", 4), ("d2", 4),
+                          ("gossip-exponential", 3)):
+        trace = []
+        card = _small_member_run(torch, cfg, params, dev, label, "fused",
+                                 rounds, stop=2 if label == "d2" else None,
+                                 trace=trace)
+        runs[label] = card
+        # each round from the card's entry state (the round's own f32
+        # order only), and the whole run from the same init
+        others = {"cpu-by-round": _small_member_run(
+            torch, cfg, params, "cpu", label, "fused", rounds,
+            follow=trace)}
+        free = _small_member_run(torch, cfg, params, "cpu", label, "fused",
+                                 rounds)
+        if label == "d2":
+            # the CPU against itself from an init jittered by 1e-7
+            # (relative): how far this run's f32 noise carries
+            jittered = _jitter(torch, params, torch.Generator().manual_seed(1))
+            floor = _logs_rel_diff(free[1]["log"], _small_member_run(
+                torch, cfg, jittered, "cpu", label, "fused",
+                rounds)[1]["log"])
+            say("small-membership", run=label, against="cpu-whole-run",
+                log_max_rel_diff=_logs_rel_diff(free[1]["log"],
+                                                card[1]["log"]),
+                cpu_jitter_floor=floor)
+        else:
+            others["cpu"] = free
+        if label == "churn":
+            others["card-python"] = _small_member_run(
+                torch, cfg, params, dev, label, "python", rounds)
+        gl, gs, grep, gmat, _ = card
+        glog = gs["log"]
+        graphs = {f.name: (f.captures, f.replays)
+                  for f in gl._runner.graphs.functions}
+        for name, (_, os_, orep, omat, _) in others.items():
+            olog = os_["log"]
+            check([(x.live, x.synced, x.comm_bytes, x.T) for x in olog]
+                  == [(x.live, x.synced, x.comm_bytes, x.T) for x in glog],
+                  f"4 {label}: card and {name} differ in live counts, "
+                  "sync pattern, bills or T")
+            check(os_["membership"] == gs["membership"],
+                  f"4 {label}: membership logs differ")
+            worst = _logs_rel_diff(olog, glog)
+            check(worst <= 1e-4, f"4 {label}: card vs {name} logs differ "
+                                 f"by {worst} (rel)")
+            check(not any(orep["launches"].values())
+                  or not name.startswith("cpu"),
+                  f"4 {label}: the CPU run launched {orep['launches']}")
+            say("small-membership", run=label, against=name,
+                log_max_rel_diff=worst)
+        caps = grep["captures_after_round"]
+        check(len(set(caps)) == 1 and caps[0] >= 1,
+              f"4 {label}: captures by round {caps}: a capture after "
+              "round 0's")
+        check(grep["guard"] == [2] * rounds,
+              f"4 {label}: round windows at sync modes {grep['guard']}")
+        check(all(grep["dead_rows_unchanged"]),
+              f"4 {label}: a dead row moved {grep['dead_rows_unchanged']}")
+        check(all(grep.get("rejoin_equals_prev_avg", [])),
+              f"4 {label}: a joined row is not the sync reference")
+        if label == "gossip-exponential":
+            check(all(not np.array_equal(a, b)
+                      for a, b in zip(gmat, gmat[1:])),
+                  "4 gossip: the matrix did not change every round")
+        else:
+            check(grep["rejoin_equals_prev_avg"] == [True, True]
+                  and len(grep["dead_rows_unchanged"]) == 4,
+                  f"4 {label}: rejoins / dead rounds {grep}")
+        n_leaves = sum(t.numel() >= 256 for t in leaves(gs["params"]))
+        counts = grep["launches"]
+        if label == "churn":
+            # the live round takes the weighted route: K1 + K2 + einsum
+            check(counts["wire_quantize"] == counts["wire_dequantize"]
+                  == rounds, f"4 churn: K1/K2 launched {counts}")
+        else:
+            check(counts["wire_quantize"] == counts["wire_dequantize"]
+                  == rounds * n_leaves,
+                  f"4 {label}: K1/K2 launched {counts}, not once per "
+                  f"quantized leaf ({n_leaves}) per round")
+        say("small-membership", run=label, rounds=rounds,
+            live=[x.live for x in glog],
+            comm_bytes=[x.comm_bytes for x in glog], graphs=graphs,
+            captures_after_round=caps, card_launches=counts,
+            dead_rows_unchanged=grep["dead_rows_unchanged"],
+            rejoin_equals_prev_avg=grep.get("rejoin_equals_prev_avg"),
+            matrices=[m.tolist() for m in gmat]
+            if label == "gossip-exponential" else None,
+            losses_card=[float(sum(x.local_losses) / len(x.local_losses))
+                         for x in glog])
+    # (iv) (ii)'s round state, saved after round 2 on the card: restored
+    # into a fresh learner, and into (ii)'s own after its 4 rounds
+    dl, ds, _, _, path = runs.pop("d2")
+    uninterrupted = _small_member_run(torch, cfg, params, dev, "d2",
+                                      "fused", 4)[1]
+    fl, fs, _, _, _ = _small_member_run(torch, cfg, params, dev, "d2",
+                                        "fused", 4, restore=path)
+    before = dl._runner.graphs.captures
+    own = io.restore_round_state(path, ds)
+    own["log"] = own["log"][:2]
+    batches = epoch_batches_fn(build_data(cfg, 3, 4, 16, 48, seed=0,
+                                          k_max=4), dev, 2)
+    for _ in range(2):
+        own = dl.run_round(own, batches)
+    result = {
+        "fresh_bitwise": _bitwise_equal(torch, fs, uninterrupted),
+        "own_bitwise": _bitwise_equal(torch, own, uninterrupted),
+        "losses_bitwise": ([x.local_losses for x in fs["log"][-2:]]
+                           == [x.local_losses for x in own["log"][-2:]]
+                           == [x.local_losses
+                               for x in uninterrupted["log"][-2:]]),
+        "membership_equal": (fs["membership"] == own["membership"]
+                             == uninterrupted["membership"])}
+    say("small-membership", run="checkpoint", **result,
+        own_captures=(before, dl._runner.graphs.captures),
+        fresh_graphs={f.name: (f.captures, f.replays)
+                      for f in fl._runner.graphs.functions})
+    check(all(result.values()),
+          f"4 checkpoint: the resumed rounds differ from the uninterrupted "
+          f"run ({result})")
+    check(dl._runner.graphs.captures == before,
+          "4 checkpoint: the restore into the running learner captured")
+    del runs, dl, ds, fl, fs, own, uninterrupted
+    gc.collect()
+
+
 def _round_events(torch, learner):
     """CUDA events per round without a host sync: at the start of the
     round's device work, before the aggregation and at the end. On the
@@ -1149,9 +1531,9 @@ def _round_events(torch, learner):
     python = learner.round_engine.name == "python"
     agg = learner._aggregate_fn
 
-    def marked(*a):
+    def marked(*a, **kw):
         ev[1].record()
-        out = agg(*a)
+        out = agg(*a, **kw)
         if python:
             ev[2].record()
         return out
@@ -1454,12 +1836,12 @@ def _recording_aggregate(torch, learner, stacked):
             if t[0].numel() < ROW_CHECK_MAX}
     agg = learner._aggregate_fn
 
-    def recording(stacked, *rest):
+    def recording(stacked, *rest, **kw):
         with torch.no_grad():
             for path, t in leaves_with_path(stacked):
                 if path in bufs:
                     bufs[path].copy_(t)
-        return agg(stacked, *rest)
+        return agg(stacked, *rest, **kw)
     learner._aggregate_fn = recording
     learner._runner = None
     gc.collect()
@@ -1592,6 +1974,218 @@ def phase_partial_ragged(torch, dev, launches_out):
     del state, learner, inputs
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 10's depth: 12 of internlm2-1.8b's 24 layers (P = 1,134,086,144,
+# 4.54 GB a model in f32). D² at K = 5 holds the stacked params and the
+# correction (K f32 models each), prev_avg, the epochs' and the leaf-wise
+# mix's temporaries (about three copies of the largest stacked leaf): at
+# 8 layers its peak was 51.57 GB (NVIDIA H100 80GB HBM3, 700 W); scaled
+# to 12 ≈ 63.4 GB, to 14 ≈ 71 GB (under 8 GB free), to 16 ≈ 78.5 GB.
+LAYERS10 = 12
+# slot 3 of the paper's five data centers crashes at round 1 and rejoins
+# at round 3
+CHURN10 = (("crash", 1, 3), ("rejoin", 3, 3))
+# 10(c)'s mix check: two sampled leaves (a norm and an attention
+# projection) recorded before every check round's mix
+MIX_CHECK_LEAVES = ("final_norm/g", "segments/0/p0/mixer/wk")
+
+
+def cfg10():
+    from repro_torch.configs import get_config
+    return get_config("internlm2-1.8b").with_(
+        n_layers=LAYERS10, segments=((("gqa:dense",), LAYERS10),))
+
+
+def _d2_mix_error(torch, state, bufs, W, live):
+    """The largest distance of any live row of the round's params and
+    correction from D²'s mix of the aggregate's recorded inputs
+    (``_record_aggregate``), recomputed by the plain quantize and
+    dequantize of the stacked leaf (the leafwise codec's blocks run
+    across its K rows) and the matrix."""
+    from repro_torch.kernels import ref
+    from repro_torch.tree import leaves_with_path
+    params, corr = (dict(leaves_with_path(state["params"])),
+                    dict(leaves_with_path(state["residual"])))
+    Wt = torch.tensor(W, device=params[MIX_CHECK_LEAVES[0]].device)
+    err = 0.0
+    for p in MIX_CHECK_LEAVES:
+        y, c = bufs["0/" + p], bufs["1/" + p]
+        v = y + c
+        q, sc, shp = ref.quantize_blockwise_ref(v, block=256, bits=8)
+        rt = ref.dequantize_blockwise_ref(q, sc, shp, bits=8)
+        del q, sc
+        for k in map(int, live.nonzero()[0]):
+            want = Wt[k, k] * v[k]
+            for j in range(len(W)):
+                if j != k and W[k][j] != 0:
+                    want = want + Wt[k, j] * rt[j]
+            err = max(err, float((params[p][k] - want).abs().max()),
+                      float((corr[p][k] - (want - y[k])).abs().max()))
+        del v, rt
+    return err
+
+
+def _run10(torch, dev, label, make, K, rounds, engine, launches_out,
+           check_rounds=0):
+    """One phase 10 run at full width and depth ``LAYERS10``: ``make(api,
+    membership)`` gives the learner's strategies. Per round: host
+    seconds, the device split (epochs / finalize, CUDA events), the live
+    count, the bill, the mixing matrix and the peak memory; the dead rows'
+    sums of the round state. ``check_rounds`` (D²) more rounds follow
+    untimed, each live row's mix checked on the sampled leaves."""
+    import numpy as np
+    from repro_torch.core import api, membership
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import build_data, epoch_batches_fn
+    from repro_torch.models import transformer as tr
+    from repro_torch.tree import leaves
+    cfg = cfg10()
+    B, S, steps = 8, 256, 2
+    data = build_data(cfg, K, B, S, K * B * steps, seed=0)
+    kw = make(api, membership)
+    learner = _learner(torch, cfg, kw.pop("codec"), K, dev, engine=engine,
+                       rounds=rounds + check_rounds, rule="fle", **kw)
+    split = _round_events(torch, learner)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = learner.init(tr.init_params(0, cfg, torch.float32, device=dev))
+    batches = epoch_batches_fn(data, dev, steps)
+    torch.cuda.synchronize()
+    mem_init = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    per_round, caps, frozen = [], [], []
+    n_leaves = sum(t.numel() >= 256 for t in leaves(state["params"]))
+
+    def dead_sums(st, dead):
+        """Each dead row's sum per leaf of the params and round state."""
+        return [float(t[k].double().sum()) for k in dead
+                for key in ("params", "residual") for t in leaves(st[key])]
+
+    for _ in range(rounds):
+        dead = [k for k, a in enumerate(
+            learner.churn.live_mask(state["round"], K)) if not a]
+        sums = dead_sums(state, dead)
+        t0 = time.perf_counter()
+        state = learner.run_round(state, batches)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        epochs_ms, fin_ms = split()
+        log = state["log"][-1]
+        if sums:
+            frozen.append(sums == dead_sums(state, dead))
+        caps.append(learner._runner.graphs.captures
+                    if engine == "fused" else None)
+        per_round.append({
+            "round": log.round, "live": f"{log.live}/{K}", "seconds": sec,
+            "device_ms": {"epochs": epochs_ms, "finalize": fin_ms},
+            "local_loss": float(sum(log.local_losses)
+                                / len(log.local_losses)),
+            "rel_change": log.rel_change, "comm_bytes": log.comm_bytes,
+            "matrix": (learner._weights_np.tolist()
+                       if learner._weights_np is not None else None),
+            "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9})
+    counts = ops.launch_counts()
+    peak = (torch.cuda.max_memory_allocated() / 1e9,
+            torch.cuda.max_memory_reserved() / 1e9)
+    graphs = ({f.name: {"captures": f.captures, "replays": f.replays}
+               for f in learner._runner.graphs.functions}
+              if engine == "fused" else None)
+    wire = learner.codec.wire_bytes(state["params"])
+    checked = []
+    if check_rounds:
+        del split
+        bufs = _record_aggregate(
+            torch, learner, state,
+            [f"{i}/{p}" for i in (0, 1) for p in MIX_CHECK_LEAVES])
+        for _ in range(check_rounds):
+            live = learner.churn.live_mask(state["round"], K)
+            state = learner.run_round(state, batches)
+            W = learner.aggregator.mixing_matrix(state["round"] - 1, K,
+                                                 live=live)
+            checked.append(_d2_mix_error(torch, state, bufs, W, live))
+        del bufs
+    say("churn-gossip", run=label, engine=engine, K=K,
+        codec=learner.codec.name, aggregator=learner.aggregator.name,
+        reduced=f"n_layers 24 -> {LAYERS10} (the D² run's K params, K "
+                "correction copies and the mix's temporaries must leave "
+                ">= 8 GB of 80 free)",
+        params_per_participant=tr.count_params(state["params"]) // K,
+        batch=B, seq_len=S, steps_per_epoch=steps, rounds=per_round,
+        launches=counts, quantized_leaves=n_leaves, graphs=graphs,
+        captures_after_round=caps, dead_state_frozen=frozen,
+        wire_bytes=wire, mix_check_max_abs_err=checked,
+        mix_check_leaves=list(MIX_CHECK_LEAVES) if checked else None,
+        live_after_init_GB=mem_init / 1e9, peak_mem_GB=peak[0],
+        peak_reserved_GB=peak[1])
+    check(all(math.isfinite(r["local_loss"]) for r in per_round),
+          f"10 {label}: non-finite loss")
+    check(peak[1] < 80, f"10 {label}: {peak[1]} GB reserved")
+    check(counts["wire_quantize"] == counts["wire_dequantize"]
+          == rounds * n_leaves,
+          f"10 {label}: K1/K2 launched {counts['wire_quantize']} / "
+          f"{counts['wire_dequantize']}, not {n_leaves} a round")
+    if engine == "fused":
+        check(len(set(caps)) == 1 and graphs["round"] == {
+            "captures": 1, "replays": rounds - 1},
+            f"10 {label}: captures by round {caps}, graphs {graphs}")
+    check(all(frozen), f"10 {label}: a dead slot's round state moved")
+    check(all(e <= 1e-6 for e in checked),
+          f"10 {label}: a live row is {checked} from the D² mix")
+    if engine == "fused":
+        for name, n in counts.items():
+            launches_out[name] = launches_out.get(name, 0) + n
+    del state, learner
+    gc.collect()
+    torch.cuda.empty_cache()
+    return per_round, wire
+
+
+def phase_churn_gossip(torch, dev, launches_out):
+    """Phase 10 at internlm2-1.8b's full width, depth ``LAYERS10``, K = 5
+    (the paper's five data centers), leafwise int8, T fixed at 1: (a)
+    elastic membership (``CHURN10``) over the live-renormalised
+    FullAverage, 4 rounds fused then 4 python; (b) GraphGossip over the
+    time-varying exponential graph, 3 rounds; (c) D² over the ring under
+    (a)'s churn, 4 timed rounds, then 2 check rounds."""
+    import numpy as np
+    K = 5
+
+    def churn(m):
+        return m.ScriptedChurn(events=CHURN10)
+    out = {}
+    for engine in ("fused", "python"):
+        out[engine], _ = _run10(
+            torch, dev, f"10a-{engine}", lambda a, m: {
+                "codec": a.get_codec("leafwise"), "churn": churn(m)},
+            K, 4, engine, launches_out)
+    for r in out["fused"] + out["python"]:
+        check(r["live"] == {1: "4/5", 2: "4/5"}.get(r["round"], "5/5"),
+              f"10a: round {r['round']} ran {r['live']} live")
+    worst = max(abs(a["local_loss"] - b["local_loss"]) / abs(a["local_loss"])
+                for a, b in zip(out["fused"], out["python"]))
+    check(worst <= 1e-4, f"10a: fused vs python losses differ by {worst}")
+    check([r["comm_bytes"] for r in out["fused"]]
+          == [r["comm_bytes"] for r in out["python"]], "10a: bills differ")
+    say("churn-gossip", run="10a-compare", loss_max_rel_diff=worst)
+    rounds_b, wire = _run10(
+        torch, dev, "10b", lambda a, m: {
+            "codec": a.get_codec("leafwise"),
+            "aggregator": a.GraphGossip("exponential")},
+        K, 3, "fused", launches_out)
+    mats = [np.asarray(r["matrix"]) for r in rounds_b]
+    check(all(not np.array_equal(a, b) for a, b in zip(mats, mats[1:])),
+          "10b: the exponential graph's matrix did not change per round")
+    for r, W in zip(rounds_b, mats):
+        edges = int(np.count_nonzero(W) - np.count_nonzero(np.diag(W)))
+        check(r["comm_bytes"] == math.ceil(2 * edges * wire / K),
+              f"10b: round {r['round']} billed {r['comm_bytes']}")
+    _run10(torch, dev, "10c", lambda a, m: {
+        "codec": a.get_codec("leafwise"),
+        "aggregator": a.D2Gossip("ring"), "churn": churn(m)},
+        K, 4, "fused", launches_out, check_rounds=2)
 
 
 # ---------------------------------------------------------------------------
@@ -2136,6 +2730,7 @@ def main(argv=None):
     mark("3 path shapes")
     phase_small_round(torch, dev)
     phase_small_strategies(torch, dev)
+    phase_small_membership(torch, dev)
     mark("4")
 
     launches = {}
@@ -2179,6 +2774,8 @@ def main(argv=None):
     mark("9a")
     phase_partial_ragged(torch, dev, launches)
     mark("9b")
+    phase_churn_gossip(torch, dev, launches)
+    mark("10")
 
     kernels = []
     for kname, (tag, replaces, source) in KERNEL_META.items():

@@ -3,23 +3,27 @@ WireCodec x Aggregator x RoundEngine x LRSchedule x SyncPolicy.
 
 Ported here: the codecs :class:`ExactF32`, :class:`LeafwiseIntN` /
 :class:`LeafwiseInt8`, :class:`FlatFusedIntN` / :class:`FlatFusedInt8`
-(with error feedback) and :class:`CustomFn`, the :class:`FullAverage`
-(uniform Eq. 2 and example-count weights) and
-:class:`PartialParticipation` aggregators, the :class:`PythonEngine`
+(with error feedback) and :class:`CustomFn`; the aggregators
+:class:`FullAverage` (uniform Eq. 2 and example-count weights),
+:class:`PartialParticipation`, :class:`GraphGossip` over every topology
+of ``core/topology.py``, :class:`RingGossip` and :class:`D2Gossip` (whose
+correction rides the engines' one round-state slot), each with its
+elastic-membership form (``mixing_matrix(live=)``, ``comm_bytes(live=)``,
+``make_aggregate_fn(dynamic=True)``); the :class:`PythonEngine`
 reference loop and the :class:`FusedEngine` (every round as replays of
-CUDA graphs captured once, ``core/graphs.py``), the :class:`CLR` /
+CUDA graphs captured once, ``core/graphs.py``; under active churn the
+liveness row rides in one static device buffer); the :class:`CLR` /
 :class:`ELR` / :class:`WarmupCLR` / :class:`CosineCyclical` schedules and
 the :class:`ILE` / :class:`FLE` / :class:`DivergenceTrigger` sync
-policies, with the registries and ``get_*`` resolvers.
+policies, with the registries and ``get_*`` resolvers. The pod mesh
+(``mesh=``) raises ``NotImplementedError`` (ROADMAP.md).
 
-Registry names whose strategies are still to port (the gossip
-aggregators) resolve to a factory that raises ``NotImplementedError`` —
-never to a silent substitute. The elastic-membership arguments
-(``live=``, ``dynamic=``) and the pod mesh raise the same way.
-
-Aggregation runs IN PLACE on the stacked params where the codec allows
-(the exact mean, the fused flat-buffer mean): at full width another K
-model copies would not fit beside the K the participants train.
+Aggregation runs IN PLACE on the stacked params: the exact mean and the
+fused flat-buffer mean write into them, and a mixing matrix is applied
+leaf by leaf (a per-leaf codec's roundtrip of one leaf, its mix, a copy
+back), so at full width no second K-model tree is built beside the K the
+participants train. Given a liveness row (``live=``) an aggregate writes
+only the live rows.
 """
 from __future__ import annotations
 
@@ -29,12 +33,14 @@ import inspect
 import math
 import weakref
 from collections.abc import Callable
+from typing import Any
 
 import numpy as np
 import torch
 
 from repro_torch.core import averaging, compression, flatbuf
 from repro_torch.core import engine as engine_mod
+from repro_torch.core import topology as topo_mod
 from repro_torch.core.graphs import GraphSet, allow_sync
 from repro_torch.core.schedule import (LR_COS_ROUND, LR_EXP_GLOBAL,
                                        LR_EXP_ROUND, N_SCHED_PARAMS, clr_lr,
@@ -74,6 +80,9 @@ class WireCodec(abc.ABC):
     ``init_state`` and emulates the wire with ``roundtrip_ef``."""
 
     name: str = "codec"
+    #: True when the encoding is per stacked leaf (``leaf_roundtrip``);
+    #: False when blocks span leaves (roundtrip the whole tree)
+    per_leaf: bool = False
 
     @property
     def stateful(self) -> bool:
@@ -81,6 +90,13 @@ class WireCodec(abc.ABC):
 
     def init_state(self, stacked):
         return None
+
+    def leaf_roundtrip(self, t, e=None):
+        """The wire emulation of ONE stacked leaf (``per_leaf`` codecs):
+        ``(roundtripped leaf, new residual leaf)``; ``e`` is the leaf's
+        error-feedback residual (None without error feedback)."""
+        raise NotImplementedError(
+            f"codec {self.name!r} encodes the whole tree, not per leaf")
 
     def roundtrip_ef(self, stacked, residual):
         raise NotImplementedError(
@@ -113,6 +129,10 @@ class ExactF32(WireCodec):
     """The paper-faithful wire: parameters travel at their raw dtypes."""
 
     name = "exact"
+    per_leaf = True
+
+    def leaf_roundtrip(self, t, e=None):
+        return t, e
 
     def encode(self, stacked):
         return stacked
@@ -133,6 +153,7 @@ class LeafwiseIntN(WireCodec):
     block: int = DEFAULT_BLOCK
     bits: int = 8
     error_feedback: bool = False
+    per_leaf = True
 
     def __post_init__(self):
         check_bits(self.bits)
@@ -155,6 +176,23 @@ class LeafwiseIntN(WireCodec):
     def roundtrip_ef(self, stacked, residual):
         return compression.quantize_roundtrip_ef(
             stacked, residual, block=self.block, bits=self.bits)
+
+    @torch.no_grad()
+    def leaf_roundtrip(self, t, e=None):
+        """One leaf of ``roundtrip`` (``e`` None) or of ``roundtrip_ef``;
+        the leaf's K1 and K2 launch here, and its intermediates die with
+        the call."""
+        if e is None:
+            if t.ndim == 0 or t.numel() < self.block:
+                return t, None
+            q, scale, shape = kops.quantize_blockwise(t, block=self.block,
+                                                      bits=self.bits)
+            return kops.dequantize_blockwise(q, scale, shape,
+                                             bits=self.bits).to(t.dtype), None
+        rt, res = compression.quantize_roundtrip_ef([t], [e],
+                                                    block=self.block,
+                                                    bits=self.bits)
+        return rt[0], res[0]
 
     def encode(self, stacked):
         enc = []
@@ -291,13 +329,78 @@ class CustomFn(WireCodec):
 # ---------------------------------------------------------------------------
 # Aggregator
 # ---------------------------------------------------------------------------
+def normalized_weights(weights, K: int) -> np.ndarray:
+    """Validate per-participant averaging weights and return them
+    normalized to sum 1 as a length-K f64 array."""
+    w = np.asarray(weights, np.float64)
+    if w.shape != (K,):
+        raise ValueError(f"weights must have length K={K}; got {w.shape}")
+    if not np.isfinite(w).all() or (w < 0).any():
+        raise ValueError(f"weights must be finite and >= 0; got {w}")
+    if not w.sum() > 0:
+        raise ValueError("weights must not all be zero")
+    return w / w.sum()
+
+
 @torch.no_grad()
-def mix_participants(stacked, weights):
-    """Apply a row-stochastic ``(K, K)`` mixing matrix over the participant
-    axis: slot k receives ``sum_j W[k, j] * w_j`` (new tensors)."""
-    W = weights.float()
-    return tree_map(lambda t: torch.einsum("kj,j...->k...", W,
-                                           t.float()).to(t.dtype), stacked)
+def _mix_into(codec, stacked, weights, residual, live, serverless,
+              corr=None):
+    """Apply a ``(K, K)`` mixing matrix over the codec's wire IN PLACE,
+    leaf by leaf; returns ``(stacked, new_residual)``.
+
+    Each leaf is roundtripped (a ``per_leaf`` codec: this leaf alone; a
+    flat codec: the whole tree first, since its blocks span leaves), mixed
+    into a new tensor of one leaf's size and copied back, into the live
+    rows only when ``live`` is given. ``serverless`` (gossip): a row's
+    own model does not cross the wire, so the diagonal mixes the exact
+    local value and only the off-diagonal leg the roundtrip. ``corr`` (the
+    D² correction tree): the value sent is ``v = y + c`` and the new
+    correction ``x' − y`` is written into ``corr``. An error-feedback
+    residual of a per-leaf codec is updated in place too."""
+    M = weights.float()
+    if serverless:
+        d = torch.diagonal(M)
+        M = M - torch.diag(d)
+    ef = codec.stateful
+    xs = leaves(stacked)
+    cs = leaves(corr) if corr is not None else [None] * len(xs)
+
+    def value(t, c):
+        return t.float() + c if c is not None else t.float()
+
+    if codec.per_leaf:
+        es = leaves(residual) if ef else [None] * len(xs)
+        new_res, rts = residual, None
+    else:
+        sent = (stacked if corr is None else unflatten_like(
+            stacked, [value(t, c).to(t.dtype) for t, c in zip(xs, cs)]))
+        if ef:
+            rt, new_res = codec.roundtrip_ef(sent, residual)
+        else:
+            rt, new_res = codec.roundtrip(sent), None
+        del sent
+        rts = leaves(rt)
+        del rt
+    for i, (t, c) in enumerate(zip(xs, cs)):
+        if rts is None:
+            sent = t if c is None else value(t, c).to(t.dtype)
+            q, e_new = codec.leaf_roundtrip(sent, es[i])
+            del sent
+            if ef:
+                engine_mod.commit(es[i], e_new, live)
+            del e_new
+        else:
+            q, rts[i] = rts[i], None
+        mixed = torch.einsum("kj,j...->k...", M, q.float())
+        del q
+        if serverless:
+            d_rows = d.reshape((-1,) + (1,) * (t.ndim - 1))
+            mixed = torch.mul(d_rows, value(t, c)).add_(mixed)
+        if c is not None:
+            engine_mod.commit(c, mixed - t.float(), live)
+        engine_mod.commit(t, mixed.to(t.dtype), live)
+        del mixed
+    return stacked, new_res
 
 
 def normalized_weights(weights, K: int) -> np.ndarray:
@@ -313,11 +416,23 @@ def normalized_weights(weights, K: int) -> np.ndarray:
     return w / w.sum()
 
 
+def _check_base(weights, K):
+    base = (np.ones(K, np.float64) if weights is None
+            else np.asarray(weights, np.float64))
+    if base.shape != (K,):
+        raise ValueError(f"weights must have length K={K}")
+    if not np.isfinite(base).all() or (base < 0).any():
+        raise ValueError(f"weights must be finite and >= 0; got {base}")
+    return base
+
+
 class Aggregator(abc.ABC):
     """Who aggregates what: a per-round mixing matrix + byte accounting.
-    ``make_aggregate_fn(codec)`` returns ``aggregate(stacked, weights)``
-    (``aggregate(stacked, weights, residual) -> (mixed, new_residual)``
-    for a stateful codec)."""
+    ``make_aggregate_fn(codec)`` returns ``aggregate(stacked, weights,
+    live=None)`` (``aggregate(stacked, weights, state, live=None) ->
+    (mixed, new_state)`` when the codec or the aggregator is stateful).
+    The result may be ``stacked``'s own storage; with a liveness row it
+    writes only the live rows."""
 
     name: str = "aggregator"
     uses_weights: bool = True
@@ -328,31 +443,43 @@ class Aggregator(abc.ABC):
     @abc.abstractmethod
     def mixing_matrix(self, round_index: int, K: int,
                       live=None) -> np.ndarray:
-        """Row-stochastic (K, K) f32 matrix for this round (host-side)."""
+        """Row-stochastic (K, K) f32 matrix for this round (host-side).
+        ``live`` (elastic membership): a bool (K,) row; the matrix then
+        mixes over live columns only (dead rows are restored by the
+        engine)."""
 
-    @abc.abstractmethod
     def make_aggregate_fn(self, codec: WireCodec, *, mesh=None,
                           param_specs=None, axis="pod", dynamic=False):
-        """The round's aggregate function for ``codec``."""
+        """The round's aggregate function for ``codec``. ``dynamic=True``
+        (elastic membership): the matrix changes per round, so the
+        function honours ``weights`` on every call."""
+        if mesh is not None:
+            _not_ported("the pod-mesh aggregation path")
+        return self._make_host_aggregate_fn(codec)
 
     def _make_host_aggregate_fn(self, codec):
         if getattr(codec, "stateful", False):
-            def aggregate_ef(stacked, weights, residual):
-                rt, new_res = codec.roundtrip_ef(stacked, residual)
-                return mix_participants(rt, weights), new_res
+            def aggregate_ef(stacked, weights, residual, live=None):
+                return _mix_into(codec, stacked, weights, residual, live,
+                                 serverless=False)
             return aggregate_ef
 
-        def aggregate(stacked, weights):
-            return mix_participants(codec.roundtrip(stacked), weights)
+        def aggregate(stacked, weights, live=None):
+            return _mix_into(codec, stacked, weights, None, live,
+                             serverless=False)[0]
         return aggregate
 
     @abc.abstractmethod
     def comm_bytes(self, codec: WireCodec, stacked, round_index: int,
                    live=None) -> int:
-        """Per-participant wire bytes for this round (upload + download)."""
+        """Per-participant wire bytes for this round (upload + download);
+        ``live``: a bool (K,) row, only live rows touch the wire."""
 
     @property
     def stateful(self) -> bool:
+        """True when the AGGREGATOR carries per-participant round state
+        (:class:`D2Gossip`'s correction); it rides the engines' one
+        round-state slot with the codec's error-feedback memory."""
         return False
 
     def init_round_state(self, codec: WireCodec, stacked):
@@ -366,7 +493,9 @@ class FullAverage(Aggregator):
     """Paper Eq. 2: every participant uploads, the server averages, everyone
     downloads the shared model. ``weights=None`` is the uniform mean,
     routed through the codec's fused-mean kernel when it has one;
-    ``weights=(n_1, ..., n_K)`` is FedAvg's example-count weighting."""
+    ``weights=(n_1, ..., n_K)`` is FedAvg's example-count weighting.
+    Under elastic membership the (weighted) row renormalises over the
+    live participants and always takes the weighted route."""
 
     weights: tuple | None = None
     name = "full"
@@ -376,45 +505,52 @@ class FullAverage(Aggregator):
         return self.weights is not None
 
     def mixing_matrix(self, round_index, K, live=None):
-        if live is not None:
-            _not_ported("elastic membership")
-        if self.weights is None:
-            return np.full((K, K), 1.0 / K, np.float32)
-        w = normalized_weights(self.weights, K)
+        if live is None:
+            if self.weights is None:
+                return np.full((K, K), 1.0 / K, np.float32)
+            w = normalized_weights(self.weights, K)
+            return np.broadcast_to(w, (K, K)).astype(np.float32)
+        # a dead row's stale model must not drag the mean
+        w = _check_base(self.weights, K) * np.asarray(live, bool)
+        if not w.sum() > 0:
+            raise ValueError(
+                "no live participant carries averaging weight at round "
+                f"{round_index} (live={np.asarray(live, bool)})")
+        w /= w.sum()
         return np.broadcast_to(w, (K, K)).astype(np.float32)
 
     def make_aggregate_fn(self, codec, *, mesh=None, param_specs=None,
                           axis="pod", dynamic=False):
         if mesh is not None:
             _not_ported("the pod-mesh aggregation path")
-        if dynamic:
-            _not_ported("elastic membership")
         stateful = getattr(codec, "stateful", False)
-        if self.weights is not None:
+        if self.weights is not None or dynamic:
+            # a per-round weight row: always the weighted paths
             fused = codec.make_fused_mean(weighted=True, stateful=stateful)
             if fused is not None:
                 if stateful:
-                    return lambda stacked, weights, residual: fused(
-                        stacked, weights[0], residual)
-                return lambda stacked, weights: fused(stacked, weights[0])
+                    return lambda stacked, weights, residual, live=None: \
+                        fused(stacked, weights[0], residual, live=live)
+                return lambda stacked, weights, live=None: fused(
+                    stacked, weights[0], live=live)
             return self._make_host_aggregate_fn(codec)
         fused = codec.make_fused_mean(stateful=stateful)
         if fused is not None:
             if stateful:
-                return lambda stacked, weights, residual: fused(stacked,
-                                                                residual)
-            return lambda stacked, weights=None: fused(stacked)
+                return lambda stacked, weights, residual, live=None: fused(
+                    stacked, residual, live=live)
+            return lambda stacked, weights=None, live=None: fused(
+                stacked, live=live)
         if stateful:
-            def aggregate_ef(stacked, weights, residual):
+            def aggregate_ef(stacked, weights, residual, live=None):
                 rt, new_res = codec.roundtrip_ef(stacked, residual)
-                return averaging.average_pjit(rt), new_res
+                return averaging.average_pjit(rt, live=live), new_res
             return aggregate_ef
-        return lambda stacked, weights=None: averaging.average_pjit(
-            codec.roundtrip(stacked))
+        return lambda stacked, weights=None, live=None: \
+            averaging.average_pjit(codec.roundtrip(stacked), live=live)
 
     def comm_bytes(self, codec, stacked, round_index, live=None):
-        if live is not None:
-            _not_ported("elastic membership")
+        # the per-LIVE-participant bill is the same expression
         return codec.wire_bytes(stacked) + participant_bytes(stacked)
 
 
@@ -432,7 +568,8 @@ class PartialParticipation(Aggregator):
     shard sizes in. The draw is a numpy ``default_rng(SeedSequence([seed,
     round]))``, so both engines (and the JAX package) see the same
     rounds; the matrix reaches the engines through
-    ``CoLearner.round_weights``' static buffer."""
+    ``CoLearner.round_weights``' static buffer. Under elastic membership
+    only live participants are drawn, ``m_eff = min(m, n_live)``."""
 
     m: int = 2
     weights: tuple | None = None
@@ -440,47 +577,200 @@ class PartialParticipation(Aggregator):
     name = "partial"
 
     def mixing_matrix(self, round_index, K, live=None):
-        if live is not None:
-            _not_ported("elastic membership")
         if not 1 <= self.m <= K:
             raise ValueError(f"need 1 <= m <= K, got m={self.m} K={K}")
-        base = (np.asarray(self.weights, np.float64) if self.weights
-                is not None else np.ones(K))
-        if base.shape != (K,):
-            raise ValueError(f"weights must have length K={K}")
-        if not np.isfinite(base).all() or (base < 0).any():
-            raise ValueError(f"weights must be finite and >= 0; got {base}")
+        base = _check_base(self.weights, K)
+        if live is not None:
+            base = base * np.asarray(live, bool)
+            if not (base > 0).any():
+                raise ValueError(
+                    "partial participation has zero live participants "
+                    f"with positive weight at round {round_index} "
+                    f"(live={np.asarray(live, bool)})")
         # only participants with weight can be sampled: a sample of
         # zero-weight ones would normalise 0/0 into a NaN matrix
         eligible = np.nonzero(base > 0)[0]
-        if len(eligible) < self.m:
+        m_eff = min(self.m, len(eligible)) if live is not None else self.m
+        if len(eligible) < m_eff:
             raise ValueError(
-                f"need m={self.m} participants with positive weight; "
+                f"need m={m_eff} participants with positive weight; "
                 f"only {len(eligible)} of K={K} have one")
         rng = np.random.default_rng(
             np.random.SeedSequence([self.seed, round_index]))
-        sel = rng.choice(eligible, size=self.m, replace=False)
+        sel = rng.choice(eligible, size=m_eff, replace=False)
         w = np.zeros(K, np.float64)
         w[sel] = base[sel]
         w /= w.sum()
         # every row identical: all K download the same new shared model
         return np.broadcast_to(w, (K, K)).astype(np.float32)
 
-    def make_aggregate_fn(self, codec, *, mesh=None, param_specs=None,
-                          axis="pod", dynamic=False):
-        if mesh is not None:
-            _not_ported("the pod-mesh aggregation path")
-        if dynamic:
-            _not_ported("elastic membership")
-        return self._make_host_aggregate_fn(codec)
+    def comm_bytes(self, codec, stacked, round_index, live=None):
+        K = leaves(stacked)[0].shape[0]
+        up = codec.wire_bytes(stacked)          # only m of K pay the upload
+        if live is not None:
+            n_live = max(int(np.asarray(live, bool).sum()), 1)
+            # the sampled uploads amortise over the n_live rows; every
+            # live row pays the download
+            return (math.ceil(min(self.m, n_live) * up / n_live)
+                    + participant_bytes(stacked))
+        return math.ceil(self.m * up / K) + participant_bytes(stacked)
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphGossip(Aggregator):
+    """One gossip exchange per round over a sparse topology (consensus
+    SGD, Jiang et al., 1706.07880): no server — participant k mixes its
+    model with its graph neighbours' through the topology's
+    row-stochastic (all-live: doubly stochastic) mixing matrix.
+
+    ``topology`` is a ``core/topology.py`` instance or registry name; None
+    is the ring. A time-varying graph's per-round matrix reaches the fused
+    engine through ``CoLearner.round_weights``' static buffer, so a graph
+    change never captures again. Disconnected topologies are rejected at
+    learner construction (``validate``). Liveness renormalises over the
+    live subgraph. Matrices are memoised per (round-key, K, live-set), at
+    most 512 of them. Serverless: a row's own model never crosses the
+    wire, so only the received (off-diagonal) leg goes through the
+    codec."""
+
+    topology: Any = None
+
+    def __post_init__(self):
+        object.__setattr__(self, "topology",
+                           topo_mod.get_topology(self.topology))
+        object.__setattr__(self, "_mix_cache", {})
+
+    @property
+    def name(self):
+        return f"graph[{self.topology.name}]"
+
+    @property
+    def static_comm(self):
+        # a time-varying graph's edge count (and so its bill) can change
+        # per round even with every participant up
+        return not self.topology.time_varying
+
+    def validate(self, K: int) -> "GraphGossip":
+        """Connectivity guard (``CoLearner`` calls it at construction)."""
+        self.topology.validate(K)
+        return self
+
+    def _round_key(self, round_index, K):
+        topo = self.topology
+        return (round_index % topo.period(K)) if topo.time_varying else 0
+
+    def mixing_matrix(self, round_index, K, live=None):
+        lkey = (None if live is None
+                else tuple(bool(x) for x in np.asarray(live, bool)))
+        key = (self._round_key(round_index, K), K, lkey)
+        W = self._mix_cache.get(key)
+        if W is None:
+            W = self.topology.mixing_matrix(round_index, K, live=live)
+            W.flags.writeable = False           # cached: nobody may edit
+            if len(self._mix_cache) >= 512:     # random churn could grow
+                self._mix_cache.clear()         # the live-key space: bound
+            self._mix_cache[key] = W
+        return W
+
+    def _make_host_aggregate_fn(self, codec):
+        if getattr(codec, "stateful", False):
+            def aggregate_ef(stacked, weights, residual, live=None):
+                return _mix_into(codec, stacked, weights, residual, live,
+                                 serverless=True)
+            return aggregate_ef
+
+        def aggregate(stacked, weights, live=None):
+            return _mix_into(codec, stacked, weights, None, live,
+                             serverless=True)[0]
+        return aggregate
 
     def comm_bytes(self, codec, stacked, round_index, live=None):
-        if live is not None:
-            _not_ported("elastic membership")
+        # every directed live edge moves one encoded model, and each
+        # participant pays its send AND receive legs: 2·edges/n_live
+        # encoded models per live participant, O(degree), never O(K)
         K = leaves(stacked)[0].shape[0]
-        # only m of K pay the upload; everyone downloads the raw model
-        return (math.ceil(self.m * codec.wire_bytes(stacked) / K)
-                + participant_bytes(stacked))
+        n = K
+        if live is not None:
+            n = int(np.asarray(live, bool).sum())
+            if n <= 1:
+                return 0             # a sole survivor has nobody to gossip
+        W = self.mixing_matrix(round_index, K, live=live)
+        n_edges = (int(np.count_nonzero(W))
+                   - int(np.count_nonzero(np.diagonal(W))))
+        if n_edges == 0:
+            return 0
+        return math.ceil(2 * n_edges * codec.wire_bytes(stacked) / n)
+
+
+@dataclasses.dataclass(frozen=True)
+class RingGossip(GraphGossip):
+    """One neighbour exchange over a fixed ring: participant k averages its
+    model with its ring predecessor's, ``w_k' = (w_k + w_{(k-1) mod K}) /
+    2``. It IS ``GraphGossip(RingTopology())``, kept for the ``"ring"``
+    registry name and its bill, ``2 · wire_bytes``."""
+
+    name = "ring"
+
+    def __post_init__(self):
+        super().__post_init__()
+        if not isinstance(self.topology, topo_mod.RingTopology):
+            raise ValueError(
+                "RingGossip is fixed to the ring topology; use "
+                f"GraphGossip(topology={self.topology.name!r}) instead")
+
+    def comm_bytes(self, codec, stacked, round_index, live=None):
+        # one encoded model sent, one received (the general per-live-edge
+        # bill reduces to this for every ring live set)
+        if live is not None and int(np.asarray(live, bool).sum()) <= 1:
+            return 0                 # a sole survivor has nobody to gossip
+        return 2 * codec.wire_bytes(stacked)
+
+
+@dataclasses.dataclass(frozen=True)
+class D2Gossip(GraphGossip):
+    """:class:`GraphGossip` plus the D² variance-reduction correction
+    (Tang et al., 1803.07068) in round form, with one extra model-shaped
+    f32 memory per participant and zero extra wire traffic::
+
+        v_k   = y_k + c_k        post-training model + correction
+        x_k'  = Σ_j W[k,j] v_j   the usual gossip mix (v on the wire)
+        c_k'  = x_k' - y_k       next round's correction
+
+    On identical shards the correction stays exactly zero and D² is plain
+    gossip. The correction is aggregator round state in the engines' one
+    round-state slot (``stateful`` / ``init_round_state``): persisted by
+    ``checkpoint/io.py``, carried unchanged through quiet
+    ``DivergenceTrigger`` rounds, frozen for dead slots and zeroed per row
+    on ``restart_participant``. With an error-feedback codec both
+    memories ride together as ``{"corr": ..., "res": ...}``. The mix runs
+    leaf by leaf in place, the correction updated with it."""
+
+    @property
+    def name(self):
+        return f"d2[{self.topology.name}]"
+
+    @property
+    def stateful(self):
+        return True
+
+    def init_round_state(self, codec, stacked):
+        corr = tree_map(lambda t: torch.zeros(t.shape, dtype=torch.float32,
+                                              device=t.device), stacked)
+        if getattr(codec, "stateful", False):
+            return {"corr": corr, "res": codec.init_state(stacked)}
+        return corr
+
+    def _make_host_aggregate_fn(self, codec):
+        codec_ef = getattr(codec, "stateful", False)
+
+        def aggregate(stacked, weights, state, live=None):
+            corr = state["corr"] if codec_ef else state
+            res = state["res"] if codec_ef else None
+            _, new_res = _mix_into(codec, stacked, weights, res, live,
+                                   serverless=True, corr=corr)
+            return stacked, ({"corr": corr, "res": new_res} if codec_ef
+                             else corr)
+        return aggregate
 
 
 # ---------------------------------------------------------------------------
@@ -791,19 +1081,25 @@ class _PythonRunner:
         ge0 = state["global_epoch"]
         total = learner.epochs_budget(state)
         # the gate's reference, taken before the epochs move the params in
-        # place (a copy of slot 0 before the first sync)
+        # place (a copy of the first live slot before the first sync)
         sync_ref = (learner._sync_ref(state) if policy.divergence_gated
                     else None)
+        # elastic membership: the liveness row rides into the epochs and
+        # the aggregate as a device tensor (None on the static path)
+        live_np = learner._live_np(state)
+        live_row = (None if live_np is None else engine_mod.stage(
+            live_np, np.float32, learner.device))
         lrs, losses = [], []
         for j in range(T_i):
             lr = float(learner.schedule.lr(i, j, T_i, ge0 + j, total))
             lrs.append(lr)
             batches = epoch_batches_fn(i, j)
             _, _, l = learner._epoch(state["params"], state["opt"],
-                                     batches, lr, learner.batch_mask)
+                                     batches, lr, learner.batch_mask,
+                                     live_row)
             losses.append(l)                  # (K,) stays on the device
         if policy.divergence_gated:
-            div = divergence(state["params"], sync_ref)     # one fetch
+            div = divergence(state["params"], sync_ref, live_row)
             if _gate_accepts_delta(policy):
                 synced = bool(policy.should_sync(
                     div, i, delta=learner._round_delta(state)))
@@ -813,16 +1109,30 @@ class _PythonRunner:
             synced = True
         if synced:
             weights = learner.round_weights(i, state)
+            kw = {} if live_row is None else {"live": live_row}
             if self._stateful:
                 averaged, new_res = learner._aggregate_fn(
-                    state["params"], weights, state["residual"])
+                    state["params"], weights, state["residual"], **kw)
             else:
-                averaged = learner._aggregate_fn(state["params"], weights)
+                averaged = learner._aggregate_fn(state["params"], weights,
+                                                 **kw)
                 new_res = None
-            new_avg = averaging.unstack_participant(averaged, 0)
+            k0 = 0
+            fresh_opt = engine_mod.init_stacked_opt(learner.opt, averaged)
+            if live_row is not None:
+                # dead rows: identity carry (no download, own optimizer
+                # state and round state kept), written into the state
+                k0 = int(np.argmax(live_np))
+                averaged = engine_mod.select_live(live_row, averaged,
+                                                  state["params"])
+                fresh_opt = engine_mod.select_live(live_row, fresh_opt,
+                                                   state["opt"])
+                if self._stateful:
+                    new_res = engine_mod.select_live(live_row, new_res,
+                                                     state["residual"])
+            new_avg = averaging.unstack_participant(averaged, k0)
             rel = (float("inf") if state["prev_avg"] is None
                    else relative_change(new_avg, state["prev_avg"]))
-            fresh_opt = engine_mod.init_stacked_opt(learner.opt, averaged)
         else:
             # quiet round (Kamp): local params AND optimizer state kept,
             # the reference unchanged, nothing on the wire (the residual
@@ -830,10 +1140,11 @@ class _PythonRunner:
             averaged, fresh_opt = state["params"], state["opt"]
             new_avg, rel, new_res = sync_ref, div, None
         per_epoch = torch.stack(losses).cpu().numpy()     # one transfer
-        local = [float(np.asarray(x).mean()) for x in per_epoch]
-        return learner._finish_round(state, i, T_i, rel, local, lrs[0],
-                                     lrs[-1], averaged, fresh_opt, new_avg,
-                                     synced=synced, residual=new_res)
+        return learner._finish_round(state, i, T_i, rel,
+                                     _live_loss_means(per_epoch, live_np),
+                                     lrs[0], lrs[-1], averaged, fresh_opt,
+                                     new_avg, synced=synced,
+                                     residual=new_res)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -857,11 +1168,13 @@ class FusedEngine(RoundEngine):
 
 
 def _live_loss_means(losses, live_np=None):
-    """Per-epoch mean loss over the K participants (the static half; the
-    live-row weighting of elastic membership is still to port)."""
-    if live_np is not None:
-        _not_ported("elastic membership")
-    return [float(np.asarray(x).mean()) for x in losses]
+    """Per-epoch mean loss over the LIVE participants (all K when
+    ``live_np`` is None: the static path)."""
+    if live_np is None:
+        return [float(np.asarray(x).mean()) for x in losses]
+    w = np.asarray(live_np, np.float32)
+    n_live = max(float(w.sum()), 1.0)
+    return [float((np.asarray(x) * w).sum() / n_live) for x in losses]
 
 
 class _FusedRunner:
@@ -880,7 +1193,15 @@ class _FusedRunner:
     gated round), then the gate graph (the divergence and the policy's
     traced decision), the round's first fetch, and only on a synced round
     the finalize graph and a second fetch of ``rel``. The host reads the
-    device's decision; it never decides again."""
+    device's decision; it never decides again.
+
+    Under active churn (and only then) the graphs are the live variants:
+    the liveness row is one ``(K,)`` f32 static buffer written with
+    ``copy_`` inside the round's window, like the schedule's scalars, and
+    the mixing matrix (renormalised over the live set, or a time-varying
+    graph's) rides ``CoLearner.round_weights``' static buffer, so a leave,
+    a rejoin or a new matrix never captures again. A static schedule
+    keeps the static graphs."""
 
     def __init__(self, learner, chunk):
         # a weak reference: no cycle keeps a dead learner's graphs and their
@@ -892,6 +1213,7 @@ class _FusedRunner:
         self._gated = policy.divergence_gated
         self._traced_gate = type(policy).traced_should_sync
         self._masked = learner.batch_mask is not None
+        self._live = learner._churn_active
         self._stateful = learner._round_stateful
         dev = learner.device
         if dev.type == "cuda" and isinstance(learner.codec,
@@ -904,14 +1226,15 @@ class _FusedRunner:
         rnd = engine_mod.make_fused_round(
             learner.loss_fn, learner.opt, lr_fn=self._traced_lr,
             aggregate_fn=learner._aggregate_fn, masked=self._masked,
-            stateful=self._stateful)
+            live=self._live, stateful=self._stateful)
         epochs = engine_mod.make_fused_epochs(
             learner.loss_fn, learner.opt, lr_fn=self._traced_lr,
-            masked=self._masked)
+            masked=self._masked, live=self._live)
         fin = engine_mod.make_fused_finalize(
             learner.opt, aggregate_fn=learner._aggregate_fn,
-            stateful=self._stateful)
-        gate = engine_mod.make_fused_gate(policy.traced_should_sync)
+            live=self._live, stateful=self._stateful)
+        gate = engine_mod.make_fused_gate(policy.traced_should_sync,
+                                          live=self._live)
 
         # a graph's outputs are only its temporaries: the state it writes
         # is reached through the arguments
@@ -933,6 +1256,8 @@ class _FusedRunner:
         self._delta = scalar(torch.float32)
         self._sched = {"kind": scalar(torch.int32),
                        "p": scalar(torch.float32, (N_SCHED_PARAMS,))}
+        self._live_row = (scalar(torch.float32, (learner.cfg.n_participants,))
+                          if self._live else None)
 
     def run_round(self, state, epoch_batches_fn):
         """One round: the staging, then a window free of host syncs (the
@@ -957,12 +1282,14 @@ class _FusedRunner:
         i = state["round"]
         T_i = state["ctrl"].T
         K = learner.cfg.n_participants
+        live_np = learner._live_np(state)
         # the last shared model: read by Eq. 4 and the gate, then
         # overwritten in place by the new one on a synced round (before the
-        # first round a copy of slot 0: an ungated round reports rel inf,
-        # a quiet one keeps the copy as the reference)
+        # first round a copy of the first live slot: an ungated round
+        # reports rel inf, a quiet one keeps the copy as the reference)
         first = state["prev_avg"] is None
-        prev_avg = (averaging.unstack_participant(state["params"], 0)
+        k0 = 0 if live_np is None else int(np.argmax(live_np))
+        prev_avg = (averaging.unstack_participant(state["params"], k0)
                     if first else state["prev_avg"])
         single = T_i <= self.chunk and not gated
         chunks = ([(0, T_i)] if single else
@@ -980,9 +1307,14 @@ class _FusedRunner:
             + [j0 for j0, _ in chunks], np.int32, dev)
         delta = (engine_mod.stage(learner._round_delta(state), np.float32,
                                   dev) if gated else None)
+        live_h = (engine_mod.stage(live_np, np.float32, dev) if self._live
+                  else None)
         agg_w = learner.round_weights(i, state)
         batches = staged(*chunks[0])
-        mask = () if not self._masked else (learner.batch_mask,)
+        # the batch mask and the liveness row follow the batches
+        mask = (() if not self._masked else (learner.batch_mask,)) + (
+            (self._live_row,) if self._live else ())
+        live = (self._live_row,) if self._live else ()
         lead = ((state["params"], state["opt"], state["residual"])
                 if self._stateful else (state["params"], state["opt"]))
         with self.graphs.no_sync():
@@ -990,6 +1322,8 @@ class _FusedRunner:
             self._sched["p"].copy_(sched["p"])
             for buf, k in ((self._ge0, 0), (self._total, 1), (self._T, 2)):
                 buf.copy_(ints[k])
+            if self._live:
+                self._live_row.copy_(live_h)
             if single:
                 losses, lrs, last = self._round(
                     *lead, batches, *mask, prev_avg, self._ge0, self._sched,
@@ -1011,10 +1345,10 @@ class _FusedRunner:
                 if gated:
                     self._delta.copy_(delta)
                     div, do_sync = self._gate(state["params"], prev_avg,
-                                              self._delta)
+                                              self._delta, *live)
                     last = torch.stack([div.float(), do_sync.float()])
                 else:
-                    last = self._finalize(*lead, prev_avg, agg_w)
+                    last = self._finalize(*lead, prev_avg, *live, agg_w)
             fetch = torch.cat([losses.reshape(-1), lrs, last.reshape(-1)])
         host = fetch.cpu().numpy()            # the round's (first) host sync
         losses = host[:T_i * K].reshape(T_i, K)
@@ -1024,13 +1358,15 @@ class _FusedRunner:
             rel = float(host[-2])             # a quiet round reports div
         elif gated:
             with self.graphs.no_sync():
-                rel_t = self._finalize(*lead, prev_avg, agg_w).reshape(1)
+                rel_t = self._finalize(*lead, prev_avg, *live,
+                                       agg_w).reshape(1)
             rel_h = float(rel_t.cpu()[0])     # the synced round's second
             rel = float("inf") if first else rel_h
         else:
             rel = float("inf") if first else float(host[-1])
         return learner._finish_round(
-            state, i, T_i, rel, _live_loss_means(losses), float(lrs[0]),
+            state, i, T_i, rel, _live_loss_means(losses, live_np),
+            float(lrs[0]),
             float(lrs[-1]), state["params"], state["opt"], prev_avg,
             synced=synced,
             residual=state["residual"] if self._stateful else None)
@@ -1076,12 +1412,6 @@ def register_sync_policy(name, factory):
     return factory
 
 
-def _not_ported_factory(kind, name):
-    def factory(*args, **kw):
-        _not_ported(f"{kind} {name!r}")
-    return factory
-
-
 def _leafwise_codec(block=DEFAULT_BLOCK, bits=8, error_feedback=False):
     if bits == 8 and not error_feedback:
         return LeafwiseInt8(block=block)
@@ -1105,8 +1435,9 @@ register_codec("fused", _flat_codec)
 register_codec("flat", _flat_codec)            # alias
 register_aggregator("full", FullAverage)
 register_aggregator("partial", PartialParticipation)
-for _name in ("ring", "graph", "d2"):
-    register_aggregator(_name, _not_ported_factory("aggregator", _name))
+register_aggregator("ring", RingGossip)
+register_aggregator("graph", GraphGossip)
+register_aggregator("d2", D2Gossip)
 register_engine("python", lambda chunk=32: PythonEngine())
 register_engine("fused", FusedEngine)
 register_schedule("clr", lambda eta0=0.01, decay_rate=0.25:

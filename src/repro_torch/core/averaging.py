@@ -25,9 +25,16 @@ def unstack_participant(stacked, k: int):
 
 
 @torch.no_grad()
-def average_pjit(stacked):
+def average_pjit(stacked, live=None):
     """Eq. 2: w̄ = (1/K) Σ_k w_k (f32), written back into all K slots IN
-    PLACE; returns ``stacked``."""
+    PLACE; returns ``stacked``. ``live`` (a ``(K,)`` liveness row): only
+    the live slots are written (the mean still runs over all K: the
+    naive-membership ablation's static matrix)."""
     for t in leaves(stacked):
-        t.copy_(torch.mean(t.float(), dim=0, keepdim=True).to(t.dtype))
+        mean = torch.mean(t.float(), dim=0, keepdim=True).to(t.dtype)
+        if live is None:
+            t.copy_(mean)
+        else:
+            alive = (live > 0).reshape((-1,) + (1,) * (t.ndim - 1))
+            t.copy_(torch.where(alive, mean, t))
     return stacked

@@ -14,8 +14,12 @@ captured once on the card; ``set_schedule`` swaps among the built-in
 schedules without a new capture). Ragged shards train under a batch mask
 (``batch_mask``), a weightless ``PartialParticipation`` takes the shard
 sizes (``shard_sizes``), and a divergence-gated sync policy skips the
-aggregation and the wire on quiet rounds. Static membership only: elastic
-membership (churn) is still to port (ROADMAP.md).
+aggregation and the wire on quiet rounds. Elastic membership (``churn``,
+``core/membership.py``): the round's liveness row rides into both
+engines, dead slots are identity carries, the aggregators renormalise
+over the live set (``liveness_aware``), and a slot that joins
+warm-starts from the last synced shared model; a static schedule keeps
+the static path bit for bit.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import api, averaging, engine as engine_mod
+from repro_torch.core import membership as membership_mod
 from repro_torch.device import resolve_device
 from repro_torch.optim.optimizers import get_optimizer
 from repro_torch.tree import leaves, tree_map
@@ -72,6 +77,15 @@ class CoLearner:
     #: (``ParticipantData.batch_mask``); None = equal shards, the unmasked
     #: path. Kept as one device tensor that both engines read.
     batch_mask: Any = None
+    #: elastic membership: a ``membership.ChurnSchedule``, a registry name
+    #: ("none" | "scripted" | "random") or None. A static schedule keeps
+    #: the learner on the static-K path, bit for bit; an active one
+    #: threads the (K,) liveness row through the engines.
+    churn: Any = None
+    #: False = the ablation baseline: keep the STATIC mixing matrix under
+    #: churn (dead rows' stale models enter the mean) while the engines'
+    #: identity carries still apply. True renormalises over the live set.
+    liveness_aware: bool = True
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -79,10 +93,18 @@ class CoLearner:
         self.aggregator = api.get_aggregator(self.aggregator)
         self._round_stateful = (getattr(self.codec, "stateful", False)
                                 or self.aggregator.stateful)
+        K = self.cfg.n_participants
+        # topology-backed aggregators reject graphs that can never reach
+        # consensus at this K up front
+        validate = getattr(self.aggregator, "validate", None)
+        if validate is not None:
+            validate(K)
         self.round_engine = api.get_engine(self.round_engine)
         self.schedule = api.get_schedule(self.schedule, self.cfg)
         self.sync_policy = api.get_sync_policy(self.sync_policy, self.cfg)
-        K = self.cfg.n_participants
+        self.churn = membership_mod.get_churn(self.churn)
+        # a static schedule bypasses the membership machinery entirely
+        self._churn_active = not self.churn.is_static
         if self.shard_sizes is not None:
             self.shard_sizes = tuple(int(s) for s in self.shard_sizes)
             if len(self.shard_sizes) != K:
@@ -105,8 +127,11 @@ class CoLearner:
             self.batch_mask = engine_mod.stage(mask, bool, self.device)
         self.opt = get_optimizer(self.optimizer_name)
         self._epoch = engine_mod.make_epoch_fn(
-            self.loss_fn, self.opt, masked=self.batch_mask is not None)
-        self._aggregate_fn = self.aggregator.make_aggregate_fn(self.codec)
+            self.loss_fn, self.opt, masked=self.batch_mask is not None,
+            live=self._churn_active)
+        # dynamic: the matrix renormalises over the live set every round
+        self._aggregate_fn = self.aggregator.make_aggregate_fn(
+            self.codec, dynamic=self._churn_active and self.liveness_aware)
         self._comm_cache = None
         self._weights = self._weights_np = None
         self._runner = self.round_engine.bind(self)
@@ -151,10 +176,18 @@ class CoLearner:
         self._comm_cache = None
         params = tree_map(lambda t: t.to(self.device), params)
         stacked = averaging.stack_participants(params, K)
+        # membership starts at the schedule's round-0 mask, so standby
+        # slots log no synthetic leave; a static run carries all-live
+        if self._churn_active:
+            mem = membership_mod.Membership(live=tuple(
+                bool(a) for a in self.churn.live_mask(0, K)))
+        else:
+            mem = membership_mod.Membership.all_live(K)
         return {"params": stacked,
                 "opt": engine_mod.init_stacked_opt(self.opt, stacked),
                 "ctrl": self.sync_policy.init_state(self.cfg.T0),
                 "round": 0, "global_epoch": 0, "prev_avg": None, "log": [],
+                "membership": mem,
                 "residual": self.aggregator.init_round_state(self.codec,
                                                              stacked)}
 
@@ -204,30 +237,64 @@ class CoLearner:
         """The aggregator's (K, K) mixing matrix for this round as a device
         tensor (None for statically-known schemes, e.g. Eq. 2). It lives in
         one static buffer, staged again only when the matrix changes, so
-        the fused engine's graphs read it at one address."""
-        if not self.aggregator.uses_weights:
+        the fused engine's graphs read it at one address. Under active
+        churn with ``liveness_aware`` the matrix renormalises over the
+        round's live set (``state["membership"]``), so a matrix is always
+        produced."""
+        K = self.cfg.n_participants
+        if self._churn_active and self.liveness_aware:
+            live = (state["membership"].live_mask() if state is not None
+                    else None)
+            w = self.aggregator.mixing_matrix(round_index, K, live=live)
+        elif not self.aggregator.uses_weights:
             return None
-        w = np.asarray(self.aggregator.mixing_matrix(
-            round_index, self.cfg.n_participants), np.float32)
+        else:
+            w = self.aggregator.mixing_matrix(round_index, K)
+        # a copy: a cached matrix is read-only
+        w = np.array(w, np.float32)
         if self._weights_np is None or not np.array_equal(w,
                                                           self._weights_np):
             if self._weights is None or self._weights.shape != w.shape:
                 self._weights = torch.empty(w.shape, dtype=torch.float32,
                                             device=self.device)
-            self._weights.copy_(engine_mod.stage(w, np.float32,
-                                                 self.device))
-            self._weights_np = w.copy()
+            self._weights.copy_(engine_mod.stage(w, device=self.device))
+            self._weights_np = w
         return self._weights
 
+    def _live_np(self, state):
+        """The round's bool (K,) liveness row (None on the static path:
+        the engines then run the static graphs)."""
+        if not self._churn_active:
+            return None
+        return state["membership"].live_mask()
+
     def _round_delta(self, state):
-        """The round's divergence threshold (static membership: the
-        policy's own)."""
-        return self.sync_policy.round_delta(())
+        """The round's divergence threshold: the policy's, moved by this
+        round's membership events (a join forces the sync, so the joined
+        slot gets the current shared model)."""
+        events = (state["membership"].round_events(state["round"])
+                  if self._churn_active else ())
+        return self.sync_policy.round_delta(events)
 
     def run_round(self, state, epoch_batches_fn):
         """One communication round. ``epoch_batches_fn(round, epoch)``
         returns the ``(K, n_batches, B, ...)`` tensors of that local epoch
-        on the learner's device; each participant sees only its own shard."""
+        on the learner's device; each participant sees only its own shard.
+
+        Under active churn the membership advances FIRST: the schedule's
+        round mask is stepped into ``state["membership"]`` (logging joins
+        and leaves) and every slot that joined this round warm-starts from
+        the last synced shared model, in place, before any epoch runs."""
+        if self._churn_active:
+            i = state["round"]
+            new_live = self.churn.live_mask(i, self.cfg.n_participants)
+            if not np.any(new_live):
+                raise ValueError(
+                    f"churn schedule {self.churn.name!r} leaves zero live "
+                    f"participants at round {i}")
+            state["membership"] = state["membership"].step(i, new_live)
+            for k in state["membership"].joined(i):
+                self.restart_participant(state, k)
         return self._runner.run_round(state, epoch_batches_fn)
 
     def _finish_round(self, state, i, T_i, rel, local_losses, lr_first,
@@ -238,16 +305,26 @@ class CoLearner:
         round a gated policy skipped (``synced=False``) the runner passes
         the untouched local params and optimizer state, the unchanged
         sync reference and the divergence as ``rel``, and the round bills
-        zero bytes. A round-independent bill is priced once per learner."""
+        zero bytes. A round-independent bill is priced once per learner;
+        under active churn the live set moves the bill every round."""
         state["params"], state["opt"] = averaged, fresh_opt
         state["prev_avg"] = new_avg
         if residual is not None:
             state["residual"] = residual
+        if self._churn_active:
+            mem = state["membership"]
+            events, n_live = mem.round_events(i), mem.n_live
+        else:
+            events, n_live = (), self.cfg.n_participants
         state["ctrl"] = self.sync_policy.update(state["ctrl"], i, rel,
-                                                synced)
+                                                synced, events=events)
         state["global_epoch"] += T_i
         if not synced:
             comm = 0
+        elif self._churn_active:
+            comm = self.aggregator.comm_bytes(
+                self.codec, state["params"], i,
+                live=state["membership"].live_mask())
         elif self.aggregator.static_comm:
             if self._comm_cache is None:
                 self._comm_cache = self.aggregator.comm_bytes(
@@ -258,7 +335,7 @@ class CoLearner:
         state["round"] = i + 1
         state["log"].append(RoundLog(i, T_i, lr_first, lr_last, rel,
                                      local_losses, comm, synced,
-                                     live=self.cfg.n_participants))
+                                     live=n_live))
         return state
 
     # handles on the fused engine's captured functions (their ``captures``
@@ -283,22 +360,34 @@ class CoLearner:
     def _fused_finalize(self):
         return self._fused_handle("_finalize")
 
+    def _first_live(self, state):
+        live = self._live_np(state)
+        return 0 if live is None else int(np.argmax(live))
+
     def shared_model(self, state):
-        """A copy of the shared model (slot 0 after a synced round)."""
-        return averaging.unstack_participant(state["params"], 0)
+        """A copy of the shared model: the first LIVE slot after a synced
+        round (a dead slot 0 holds its stale pre-crash model)."""
+        return averaging.unstack_participant(state["params"],
+                                             self._first_live(state))
 
     def _sync_ref(self, state):
-        """The last synced shared model (a copy of slot 0 before the first
-        sync): the Eq. 4 and divergence reference of both engines."""
+        """The last synced shared model (a copy of the first live slot
+        before the first sync): the Eq. 4 and divergence reference of both
+        engines."""
         if state["prev_avg"] is not None:
             return state["prev_avg"]
-        return averaging.unstack_participant(state["params"], 0)
+        return averaging.unstack_participant(state["params"],
+                                             self._first_live(state))
 
     # -- failure handling (paper: restart the participant's local training) --
     @torch.no_grad()
     def restart_participant(self, state, k):
         """Reset participant k's params AND optimizer row to the last synced
-        shared model, and zero its round-state (residual) row."""
+        shared model (``_sync_ref``, not slot 0: gossip rows differ, and a
+        quiet round leaves slot 0 drifted), and zero its round-state row
+        (error-feedback residual and/or D² correction). Everything is
+        written into the state's storage, so the fused engine's graphs
+        stay valid."""
         shared = self._sync_ref(state)
         for dst, src in zip(leaves(state["params"]), leaves(shared)):
             dst[k].copy_(src)

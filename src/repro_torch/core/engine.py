@@ -35,8 +35,16 @@ device tensor. The divergence gate (``gated=``) is ``make_fused_gate``
 plus the finalize: the reference selects between the synced and the quiet
 state on the device (``lax.cond``), which a captured graph cannot, so the
 fused runner replays the gate, reads its decision and replays the
-finalize only on a synced round. The liveness row (``live=``) and the pod
-mesh are still to port (ROADMAP.md): asking for them raises
+finalize only on a synced round.
+
+The liveness row of elastic membership (``live=``) is one ``(K,)`` f32
+device tensor, read like the batch mask: a dead participant's steps
+commit nothing (``torch.where``), its epoch loss is 0 with a zero weight,
+and after the aggregation ``select_live`` writes the new rows only into
+the live slots, so a dead row keeps its params, optimizer state and
+round state. The new shared model is the first live row (``first_live``:
+an ``argmax`` on the device). One captured graph serves every live set.
+The pod mesh is still to port (ROADMAP.md): asking for it raises
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -98,6 +106,48 @@ def stack_epoch_batches(per_epoch, device=None):
     return tree_map(stack, *per_epoch)
 
 
+def _alive(live_row, t):
+    """The liveness row as a bool mask broadcast against stacked leaf
+    ``t``."""
+    return (live_row > 0).reshape((-1,) + (1,) * (t.ndim - 1))
+
+
+@torch.no_grad()
+def commit(dst, new, live_row=None):
+    """Write ``new`` into the stacked leaf ``dst``: every row, or with a
+    liveness row only the live ones (a dead row keeps its value)."""
+    if new is dst:
+        return
+    if live_row is None:
+        dst.copy_(new)
+    else:
+        dst.copy_(torch.where(_alive(live_row, dst), new, dst))
+
+
+@torch.no_grad()
+def select_live(live_row, new, old):
+    """Per-slot identity carry over a stacked ``(K, ...)`` tree pair: the
+    live rows of ``new`` are written INTO ``old``'s storage (a
+    ``torch.where`` and a ``copy_`` per leaf, never a second K-tree), the
+    dead rows of ``old`` stay. Leaves of ``new`` that already are
+    ``old``'s storage are skipped. Returns ``old``."""
+    for o, n in zip(leaves(old), leaves(new)):
+        commit(o, n, live_row)
+    return old
+
+
+def first_live(live_row):
+    """Device index (0-d) of the first live slot — the shared-model row
+    under elastic membership (slot 0 may be dead). No host sync."""
+    return torch.argmax(live_row)
+
+
+def unstack_first_live(stacked, live_row):
+    """A copy of the first LIVE participant's model (device index)."""
+    idx = first_live(live_row).reshape(1)
+    return tree_map(lambda t: t.index_select(0, idx)[0], stacked)
+
+
 def init_stacked_opt(opt, stacked):
     """Per-participant optimizer state stacked along K (the counterpart
     of ``jax.vmap(opt.init)``)."""
@@ -107,15 +157,15 @@ def init_stacked_opt(opt, stacked):
     return tree_map(lambda *xs: torch.stack(xs), per[0], *per[1:])
 
 
-def make_epoch_fn(loss_fn, opt, masked=False):
+def make_epoch_fn(loss_fn, opt, masked=False, live=False):
     """One local epoch for all K participants.
 
-    Returns ``epoch_fn(stacked_params, opt_state, batches, lr[, mask]) ->
-    (stacked_params, opt_state, per-participant mean loss (K,))`` where
-    ``batches`` is a tree of ``(K, n_batches, ...)`` tensors and ``lr`` a
-    python float (the python engine) or a 0-d device tensor (the fused
-    engine). Params and optimizer state are updated in place (and
-    returned).
+    Returns ``epoch_fn(stacked_params, opt_state, batches, lr[, mask]
+    [, live_row]) -> (stacked_params, opt_state, per-participant mean loss
+    (K,))`` where ``batches`` is a tree of ``(K, n_batches, ...)`` tensors
+    and ``lr`` a python float (the python engine) or a 0-d device tensor
+    (the fused engine). Params and optimizer state are updated in place
+    (and returned).
 
     ``masked=True`` is the ragged-shard variant: ``mask`` is a ``(K,
     n_batches)`` bool device tensor marking the slots that hold shard k's
@@ -125,20 +175,31 @@ def make_epoch_fn(loss_fn, opt, masked=False):
     carry; its loss is left out of the epoch mean, ``Σ where(valid, loss,
     0) / max(Σ valid, 1)``. (A rate of ``lr·valid`` would not do: ``0·inf``
     is NaN, and momentum and AdamW state would still move.) The mask is
-    read on the device, so one captured graph serves every mask value."""
-    def epoch_fn(stacked, opt_state, batches, lr, mask=None):
+    read on the device, so one captured graph serves every mask value.
+
+    ``live=True`` is the elastic-membership variant: ``live_row`` is the
+    ``(K,)`` f32 0/1 liveness row (after ``mask`` when both are on). A
+    dead participant's commit gate is off for every step (``valid &
+    alive``), and its epoch loss is 0 with a zero weight: the mean is
+    ``Σ where(gate, loss, 0) / max(n·alive, 1)``."""
+    def epoch_fn(stacked, opt_state, batches, lr, mask=None, live_row=None):
         if masked and mask is None:
             raise ValueError("the masked epoch takes the (K, n_batches) "
                              "batch mask")
+        if live and live_row is None:
+            raise ValueError("the live epoch takes the (K,) liveness row")
         K = leaves(stacked)[0].shape[0]
         n_batches = leaves(batches)[0].shape[1]
         means = []
         for k in range(K):
             slot = tree_map(lambda t, _k=k: t[_k], stacked)
             ostate = tree_map(lambda t, _k=k: t[_k], opt_state)
+            alive = live_row[k] > 0 if live else None
             step_losses = []
             for b in range(n_batches):
                 valid = mask[k, b] if masked else None
+                if alive is not None:
+                    valid = alive if valid is None else valid & alive
                 params = tree_map(lambda t: t.detach().requires_grad_(), slot)
                 batch = tree_map(lambda t, _k=k, _b=b: t[_k, _b], batches)
                 loss, _ = loss_fn(params, batch)
@@ -158,7 +219,11 @@ def make_epoch_fn(loss_fn, opt, masked=False):
                 loss = loss.detach()
                 step_losses.append(loss if valid is None
                                    else torch.where(valid, loss, 0.0))
-            if masked:
+            if live:
+                denom = mask[k].sum() if masked else n_batches
+                means.append(torch.stack(step_losses).sum()
+                             / torch.clamp(denom * live_row[k], min=1))
+            elif masked:
                 means.append(torch.stack(step_losses).sum()
                              / torch.clamp(mask[k].sum(), min=1))
             else:
@@ -170,9 +235,10 @@ def make_epoch_fn(loss_fn, opt, masked=False):
 
 def _make_epoch_scan(epoch_fn, lr_fn):
     """scan_epochs(params, opt, batches, j0, T_i, ge0, sched, total,
-    mask=None) -> ((params, opt), (losses (C, K), lrs (C,))): run the
-    leading-dim epochs of ``batches`` with the rate computed on the device
-    by ``lr_fn(sched, j, T_i, ge, total)``; ``mask`` (ragged shards) is
+    mask=None, live_row=None) -> ((params, opt), (losses (C, K), lrs
+    (C,))): run the leading-dim epochs of ``batches`` with the rate
+    computed on the device by ``lr_fn(sched, j, T_i, ge, total)``;
+    ``mask`` (ragged shards) and ``live_row`` (elastic membership) are
     applied every epoch.
 
     ``j0`` (round-local offset of the first staged epoch), ``T_i`` (the
@@ -182,14 +248,14 @@ def _make_epoch_scan(epoch_fn, lr_fn):
     is replayed unchanged as T_i doubles, as the budget updates and across
     built-in schedule swaps."""
     def scan_epochs(stacked, opt_state, batches, j0, T_i, global_epoch0,
-                    sched, total, mask=None):
+                    sched, total, mask=None, live_row=None):
         losses, lrs = [], []
         for c in range(leaves(batches)[0].shape[0]):
             j = j0 + c
             lr = lr_fn(sched, j, T_i, global_epoch0 + j, total)
             ebatches = tree_map(lambda t, _c=c: t[_c], batches)
             stacked, opt_state, loss = epoch_fn(stacked, opt_state,
-                                                ebatches, lr, mask)
+                                                ebatches, lr, mask, live_row)
             losses.append(loss)
             lrs.append(lr)
         return (stacked, opt_state), (torch.stack(losses), torch.stack(lrs))
@@ -197,13 +263,19 @@ def _make_epoch_scan(epoch_fn, lr_fn):
 
 
 def as_aggregate_fn(aggregate_fn=None, compress_fn=None, average_fn=None):
-    """Normalize the aggregation surface to ``aggregate(stacked, weights)``.
+    """Normalize the aggregation surface to ``aggregate(stacked, weights,
+    live=None)``.
 
     ``aggregate_fn`` (from a ``core/api.py`` aggregator) passes through;
     the legacy pair — an optional stacked -> stacked ``compress_fn``
     upload transform followed by a one-argument ``average_fn`` (default
     ``averaging.average_pjit``) — is wrapped, ignoring weights. Passing
-    both surfaces is an error."""
+    both surfaces is an error.
+
+    The aggregate may write its result into ``stacked`` in place; given a
+    liveness row (``live=``) it writes only the live rows. The legacy
+    pair's ``average_fn`` knows no liveness row, so under one it averages
+    a copy and the finalize keeps the dead rows."""
     if aggregate_fn is not None:
         if compress_fn is not None or average_fn is not None:
             raise ValueError(
@@ -212,9 +284,14 @@ def as_aggregate_fn(aggregate_fn=None, compress_fn=None, average_fn=None):
     if average_fn is None:
         average_fn = averaging.average_pjit
 
-    def aggregate(stacked, weights=None):
+    def aggregate(stacked, weights=None, live=None):
         del weights                     # legacy pair: statically uniform
-        uploaded = compress_fn(stacked) if compress_fn is not None else stacked
+        if compress_fn is not None:
+            uploaded = compress_fn(stacked)
+        elif live is not None:
+            uploaded = tree_map(torch.clone, stacked)
+        else:
+            uploaded = stacked
         return average_fn(uploaded)
     return aggregate
 
@@ -229,7 +306,7 @@ def _write_into(dst, src):
     return dst
 
 
-def _make_finalize(opt, aggregate_fn, stateful=False):
+def _make_finalize(opt, aggregate_fn, live=False, stateful=False):
     """Aggregation (Eq. 2) + Eq. 4 metric + per-participant opt reset.
 
     ``finalize(params, opt_state, old_avg, agg_weights=None) -> (params,
@@ -240,32 +317,76 @@ def _make_finalize(opt, aggregate_fn, stateful=False):
     ``new_avg`` IS ``old_avg``'s storage. ``agg_weights`` is the
     aggregator's mixing matrix (None for uniform Eq. 2).
 
-    ``stateful=True`` (error feedback): the residual enters right after
-    ``opt_state``, the aggregate is ``aggregate_fn(params, agg_weights,
-    residual) -> (mixed, new_residual)``, the new residual is written into
-    ``residual`` and appended to the outputs."""
+    ``stateful=True`` (error feedback, the D² correction or both): the
+    round state enters right after ``opt_state``, the aggregate is
+    ``aggregate_fn(params, agg_weights, residual) -> (mixed,
+    new_residual)``, the new state is written into ``residual`` (any
+    tree) and appended to the outputs.
+
+    ``live=True`` (elastic membership): ``finalize(params, opt_state,
+    [residual,] old_avg, live_row, agg_weights=None)``. The aggregate gets
+    the liveness row and writes only live rows in place; whatever it
+    returns apart is written into the live rows (``select_live``), so a
+    dead row keeps its params, optimizer state and round state, and the
+    new shared model is the first live row."""
     @torch.no_grad()
-    def finish(params, opt_state, averaged, old_avg):
-        _write_into(params, averaged)
-        new_avg = tree_map(lambda t: t[0], params)
+    def finish(params, opt_state, averaged, old_avg, live_row=None):
+        if live_row is None:
+            _write_into(params, averaged)
+            new_avg = tree_map(lambda t: t[0], params)
+        else:
+            select_live(live_row, averaged, params)
+            new_avg = unstack_first_live(params, live_row)
         rel = relative_change_tensor(new_avg, old_avg)
         _write_into(old_avg, new_avg)
-        _write_into(opt_state, init_stacked_opt(opt, params))
+        fresh = init_stacked_opt(opt, params)
+        if live_row is None:
+            _write_into(opt_state, fresh)
+        else:
+            select_live(live_row, fresh, opt_state)
         return rel
 
+    def aggregate(params, agg_weights, res_in, live_row):
+        kw = {} if live_row is None else {"live": live_row}
+        return aggregate_fn(params, agg_weights, *res_in, **kw)
+
+    def body(params, opt_state, residual, old_avg, live_row, agg_weights):
+        if stateful:
+            averaged, new_res = aggregate(params, agg_weights, (residual,),
+                                          live_row)
+        else:
+            averaged = aggregate(params, agg_weights, (), live_row)
+        rel = finish(params, opt_state, averaged, old_avg, live_row)
+        out = (params, opt_state, rel, old_avg)
+        if stateful:
+            if live_row is None:
+                _write_into(residual, new_res)
+            else:
+                select_live(live_row, new_res, residual)
+            out += (residual,)
+        return out
+
+    if live and stateful:
+        def finalize_live_ef(params, opt_state, residual, old_avg, live_row,
+                             agg_weights=None):
+            return body(params, opt_state, residual, old_avg, live_row,
+                        agg_weights)
+        return finalize_live_ef
+    if live:
+        def finalize_live(params, opt_state, old_avg, live_row,
+                          agg_weights=None):
+            return body(params, opt_state, None, old_avg, live_row,
+                        agg_weights)
+        return finalize_live
     if stateful:
         def finalize_ef(params, opt_state, residual, old_avg,
                         agg_weights=None):
-            averaged, new_res = aggregate_fn(params, agg_weights, residual)
-            rel = finish(params, opt_state, averaged, old_avg)
-            return params, opt_state, rel, old_avg, _write_into(residual,
-                                                                new_res)
+            return body(params, opt_state, residual, old_avg, None,
+                        agg_weights)
         return finalize_ef
 
     def finalize(params, opt_state, old_avg, agg_weights=None):
-        averaged = aggregate_fn(params, agg_weights)
-        rel = finish(params, opt_state, averaged, old_avg)
-        return params, opt_state, rel, old_avg
+        return body(params, opt_state, None, old_avg, None, agg_weights)
     return finalize
 
 
@@ -274,19 +395,23 @@ def _default_gate(div, delta):
     return div > delta
 
 
-def make_fused_gate(gate_fn=None):
+def make_fused_gate(gate_fn=None, live=False):
     """The divergence gate as its own function, ``gate(params, sync_ref,
-    delta) -> (div, do_sync)``: the Kamp divergence of the locals from the
-    last synced model (0-d f32) and ``gate_fn(div, delta)`` (the policy's
+    delta[, live_row]) -> (div, do_sync)``: the Kamp divergence of the
+    locals from the last synced model (0-d f32; with ``live`` over the
+    live rows only) and ``gate_fn(div, delta)`` (the policy's
     ``traced_should_sync``, default ``div > delta``; a 0-d bool). Every
     input is a device tensor (``delta`` 0-d f32), so one captured graph
-    serves every threshold. The fused runner replays it between the
-    epochs and the finalize: a CUDA graph cannot branch on ``do_sync``."""
+    serves every threshold and live set. The fused runner replays it
+    between the epochs and the finalize: a CUDA graph cannot branch on
+    ``do_sync``."""
     gate_fn = gate_fn or _default_gate
 
     @torch.no_grad()
-    def gate(params, sync_ref, delta):
-        div = divergence_tensor(params, sync_ref)
+    def gate(params, sync_ref, delta, live_row=None):
+        if live and live_row is None:
+            raise ValueError("the live gate takes the (K,) liveness row")
+        div = divergence_tensor(params, sync_ref, live_row)
         return div, gate_fn(div, delta)
     return gate
 
@@ -296,50 +421,54 @@ def _capturing():
             and torch.cuda.is_current_stream_capturing())
 
 
-def _make_gated_finalize(opt, aggregate_fn, gate_fn=None, stateful=False):
+def _make_gated_finalize(opt, aggregate_fn, gate_fn=None, live=False,
+                         stateful=False):
     """Divergence-gated finalize, ``gfinalize(params, opt_state, residual,
-    sync_ref, delta, agg_weights=None) -> (params, opt_state, rel, div,
-    do_sync, new_ref, residual)``: the gate, then on a synced round the
-    finalize of ``_make_finalize`` with ``sync_ref`` as the last shared
-    model (aggregate, Eq. 4 against it, the new model written into it,
-    optimizer reset, residual). A quiet round runs none of it: params,
+    sync_ref, delta, [live_row,] agg_weights=None) -> (params, opt_state,
+    rel, div, do_sync, new_ref, residual)``: the gate, then on a synced
+    round the finalize of ``_make_finalize`` with ``sync_ref`` as the last
+    shared model (aggregate, Eq. 4 against it, the new model written into
+    it, optimizer reset, residual). A quiet round runs none of it: params,
     optimizer state, residual and reference carry through unchanged and
-    ``rel`` is the divergence.
+    ``rel`` is the divergence. ``live``: the divergence runs over the live
+    rows and the synced finalize is the live one.
 
     The reference branches on the device (``lax.cond``); here the branch
     reads ``do_sync`` on the host, so this form runs uncaptured only (the
     CPU, eager card runs). The fused runner splits the round at the gate
     instead (``make_fused_gate``, then the finalize graph)."""
-    gate = make_fused_gate(gate_fn)
-    finalize = _make_finalize(opt, aggregate_fn, stateful=stateful)
+    gate = make_fused_gate(gate_fn, live=live)
+    finalize = _make_finalize(opt, aggregate_fn, live=live,
+                              stateful=stateful)
 
-    def gfinalize(params, opt_state, residual, sync_ref, delta,
-                  agg_weights=None):
+    def gfinalize(params, opt_state, residual, sync_ref, delta, *rest):
         if _capturing():
             raise RuntimeError(
                 "the gated finalize branches on the host; capture the gate "
                 "(make_fused_gate) and the finalize apart")
-        div, do_sync = gate(params, sync_ref, delta)
+        live_in = rest[:1] if live else ()
+        agg_weights = (rest[len(live_in):] or (None,))[0]
+        div, do_sync = gate(params, sync_ref, delta, *live_in)
         rel = div
         if bool(do_sync):
             res_in = (residual,) if stateful else ()
-            rel = finalize(params, opt_state, *res_in, sync_ref,
+            rel = finalize(params, opt_state, *res_in, sync_ref, *live_in,
                            agg_weights)[2]
         return params, opt_state, rel, div, do_sync, sync_ref, residual
     return gfinalize
 
 
-def _bind_mask(body, masked, stateful=False):
-    """Adapt ``body(params, opt, residual, batches, mask, *rest)`` to the
-    public signature (the order of the reference's ``_bind_mask_live``):
-    the residual follows ``opt_state`` when ``stateful`` (bound to None
-    otherwise), the mask follows ``batches`` when ``masked`` (bound to
-    None otherwise)."""
-    if masked:
-        bound = body
-    else:
-        def bound(params, opt_state, residual, batches, *rest):
-            return body(params, opt_state, residual, batches, None, *rest)
+def _bind_mask_live(body, masked, live, stateful=False):
+    """Adapt ``body(params, opt, residual, batches, mask, live_row,
+    *rest)`` to the public signature (the reference's order): the
+    residual follows ``opt_state`` when ``stateful`` (bound to None
+    otherwise), the mask and then the liveness row follow ``batches`` when
+    ``masked`` / ``live`` (bound to None otherwise)."""
+    def bound(params, opt_state, residual, batches, *rest):
+        mask, rest = (rest[0], rest[1:]) if masked else (None, rest)
+        live_row, rest = (rest[0], rest[1:]) if live else (None, rest)
+        return body(params, opt_state, residual, batches, mask, live_row,
+                    *rest)
     if stateful:
         return bound
 
@@ -368,89 +497,101 @@ def make_fused_round(loss_fn, opt, *, lr_fn=None, compress_fn=None,
     ``ge0`` / ``total`` are 0-d int32 device tensors and ``sched`` the
     device parameter pack. Params, optimizer state and ``old_avg`` are
     written in place (see ``_make_finalize``). ``stateful=True``: the
-    residual follows ``opt_state`` and aux grows ``{"residual"}``.
+    round state (any tree) follows ``opt_state`` and aux grows
+    ``{"residual"}``.
 
     ``masked=True`` (ragged shards): the ``(K, n_batches)`` bool device
     mask follows ``batches`` (``make_epoch_fn(masked=True)``).
+    ``live=True`` (elastic membership): the ``(K,)`` f32 liveness row
+    follows (after the mask): dead rows are identity carries through the
+    epochs and the finalize, and the new shared model is the first live
+    row.
 
     ``gated=True`` (``api.DivergenceTrigger``): ``round_fn(params,
-    opt_state, [residual,] batches, [mask,] ge0, sched, total, sync_ref,
-    delta, agg_weights=None)``, the reference's argument order; aux grows
-    {div, synced} and a quiet round keeps the local params and optimizer
-    state and ``new_avg`` is ``sync_ref`` (``_make_gated_finalize``: it
-    branches on the host, so this form is not captured — the fused runner
-    splits a gated round at the gate). ``live`` and a pod axis raise
-    ``NotImplementedError``."""
-    _refuse(live=live, pod=spmd_axis_name is not None)
-    scan_epochs = _make_epoch_scan(make_epoch_fn(loss_fn, opt,
-                                                 masked=masked),
+    opt_state, [residual,] batches, [mask,] [live_row,] ge0, sched, total,
+    sync_ref, delta, agg_weights=None)``, the reference's argument order;
+    aux grows {div, synced} and a quiet round keeps the local params and
+    optimizer state and ``new_avg`` is ``sync_ref``
+    (``_make_gated_finalize``: it branches on the host, so this form is
+    not captured — the fused runner splits a gated round at the gate). A
+    pod axis raises ``NotImplementedError``."""
+    _refuse(pod=spmd_axis_name is not None)
+    scan_epochs = _make_epoch_scan(make_epoch_fn(loss_fn, opt, masked=masked,
+                                                 live=live),
                                    lr_fn or switch_lr)
     agg = as_aggregate_fn(aggregate_fn, compress_fn, average_fn)
 
-    def epochs_from_zero(params, opt_state, batches, mask, ge0, sched,
-                         total):
+    def epochs_from_zero(params, opt_state, batches, mask, live_row, ge0,
+                         sched, total):
         dev = ge0.device
         T_i = torch.full((), leaves(batches)[0].shape[0], dtype=torch.int32,
                          device=dev)
         j0 = torch.zeros((), dtype=torch.int32, device=dev)
         return scan_epochs(params, opt_state, batches, j0, T_i, ge0, sched,
-                           total, mask)
+                           total, mask, live_row)
+
+    def live_args(live_row):
+        return (live_row,) if live else ()
 
     if gated:
-        gfinalize = _make_gated_finalize(opt, agg, gate_fn,
+        gfinalize = _make_gated_finalize(opt, agg, gate_fn, live=live,
                                          stateful=stateful)
 
-        def round_body(params, opt_state, residual, batches, mask, ge0,
-                       sched, total, sync_ref, delta, agg_weights=None):
+        def round_body(params, opt_state, residual, batches, mask, live_row,
+                       ge0, sched, total, sync_ref, delta, agg_weights=None):
             (params, opt_state), (losses, lrs) = epochs_from_zero(
-                params, opt_state, batches, mask, ge0, sched, total)
+                params, opt_state, batches, mask, live_row, ge0, sched,
+                total)
             out = gfinalize(params, opt_state, residual, sync_ref, delta,
-                            agg_weights)
+                            *live_args(live_row), agg_weights)
             aux = {"losses": losses, "lrs": lrs, "rel": out[2],
                    "div": out[3], "synced": out[4], "new_avg": out[5]}
             if stateful:
                 aux["residual"] = out[6]
             return out[0], out[1], aux
-        return _bind_mask(round_body, masked, stateful)
+        return _bind_mask_live(round_body, masked, live, stateful)
 
-    finalize = _make_finalize(opt, agg, stateful=stateful)
+    finalize = _make_finalize(opt, agg, live=live, stateful=stateful)
 
-    def round_body(params, opt_state, residual, batches, mask, old_avg, ge0,
-                   sched, total, agg_weights=None):
+    def round_body(params, opt_state, residual, batches, mask, live_row,
+                   old_avg, ge0, sched, total, agg_weights=None):
         (params, opt_state), (losses, lrs) = epochs_from_zero(
-            params, opt_state, batches, mask, ge0, sched, total)
+            params, opt_state, batches, mask, live_row, ge0, sched, total)
         res_in = (residual,) if stateful else ()
-        out = finalize(params, opt_state, *res_in, old_avg, agg_weights)
+        out = finalize(params, opt_state, *res_in, old_avg,
+                       *live_args(live_row), agg_weights)
         aux = {"losses": losses, "lrs": lrs, "rel": out[2],
                "new_avg": out[3]}
         if stateful:
             aux["residual"] = out[4]
         return out[0], out[1], aux
-    return _bind_mask(round_body, masked, stateful)
+    return _bind_mask_live(round_body, masked, live, stateful)
 
 
 def make_fused_epochs(loss_fn, opt, *, lr_fn=None, spmd_axis_name=None,
                       masked=False, live=False):
     """Memory-bounded building block: ONE CHUNK of epochs.
 
-    Returns ``epochs_fn(params, opt_state, batches, [mask,] j0, T_i, ge0,
-    sched, total) -> (params, opt_state, losses (C, K), lrs (C,))``, params
-    and optimizer state updated in place. ``j0`` / ``T_i`` / ``ge0`` /
-    ``total`` / ``sched`` (and the ragged-shard ``mask`` with ``masked``)
-    are device tensors, so one captured graph serves every chunk, every
-    T_i doubling, budget update, built-in schedule swap and mask value;
-    only a distinct chunk length C captures again."""
-    _refuse(live=live, pod=spmd_axis_name is not None)
-    scan_epochs = _make_epoch_scan(make_epoch_fn(loss_fn, opt,
-                                                 masked=masked),
+    Returns ``epochs_fn(params, opt_state, batches, [mask,] [live_row,]
+    j0, T_i, ge0, sched, total) -> (params, opt_state, losses (C, K), lrs
+    (C,))``, params and optimizer state updated in place. ``j0`` / ``T_i``
+    / ``ge0`` / ``total`` / ``sched`` (and the ragged-shard ``mask`` with
+    ``masked``, the liveness row with ``live``) are device tensors, so one
+    captured graph serves every chunk, every T_i doubling, budget update,
+    built-in schedule swap, mask value and live set; only a distinct chunk
+    length C captures again."""
+    _refuse(pod=spmd_axis_name is not None)
+    scan_epochs = _make_epoch_scan(make_epoch_fn(loss_fn, opt, masked=masked,
+                                                 live=live),
                                    lr_fn or switch_lr)
 
-    def epochs_body(params, opt_state, _residual, batches, mask, j0, T_i,
-                    ge0, sched, total):
+    def epochs_body(params, opt_state, _residual, batches, mask, live_row,
+                    j0, T_i, ge0, sched, total):
         (params, opt_state), (losses, lrs) = scan_epochs(
-            params, opt_state, batches, j0, T_i, ge0, sched, total, mask)
+            params, opt_state, batches, j0, T_i, ge0, sched, total, mask,
+            live_row)
         return params, opt_state, losses, lrs
-    return _bind_mask(epochs_body, masked)
+    return _bind_mask_live(epochs_body, masked, live)
 
 
 def make_fused_finalize(opt, *, compress_fn=None, average_fn=None,
@@ -458,25 +599,24 @@ def make_fused_finalize(opt, *, compress_fn=None, average_fn=None,
                         live=False, stateful=False):
     """End-of-round step for the chunked path: aggregation + Eq. 4 + opt
     reset, ``finalize_fn(params, opt_state, [residual,] old_avg,
-    agg_weights=None) -> (params, opt_state, rel, new_avg[, residual])``,
-    all written in place (``_make_finalize``).
+    [live_row,] agg_weights=None) -> (params, opt_state, rel, new_avg[,
+    residual])``, all written in place (``_make_finalize``).
 
     ``gated=True``: ``finalize_fn(params, opt_state, [residual,] sync_ref,
-    delta, agg_weights=None) -> (params, opt_state, rel, div, synced,
-    new_ref[, residual])``, the gated select of ``_make_gated_finalize``
-    (uncaptured only). ``live`` raises ``NotImplementedError``."""
-    _refuse(live=live)
+    delta, [live_row,] agg_weights=None) -> (params, opt_state, rel, div,
+    synced, new_ref[, residual])``, the gated select of
+    ``_make_gated_finalize`` (uncaptured only)."""
     agg = as_aggregate_fn(aggregate_fn, compress_fn, average_fn)
     if not gated:
-        return _make_finalize(opt, agg, stateful=stateful)
-    gfinalize = _make_gated_finalize(opt, agg, gate_fn, stateful=stateful)
+        return _make_finalize(opt, agg, live=live, stateful=stateful)
+    gfinalize = _make_gated_finalize(opt, agg, gate_fn, live=live,
+                                     stateful=stateful)
     if stateful:
         return gfinalize
 
-    def gfinalize_static(params, opt_state, sync_ref, delta,
-                         agg_weights=None):
+    def gfinalize_static(params, opt_state, sync_ref, delta, *rest):
         return gfinalize(params, opt_state, None, sync_ref, delta,
-                         agg_weights)[:6]
+                         *rest)[:6]
     return gfinalize_static
 
 
@@ -489,8 +629,9 @@ def make_fused_compressed_average(*, block=256, bits=8, mesh=None,
     (example-count-weighted, via K1/K2 and one einsum) or, with
     ``stateful=True``, the error-feedback forms taking the ``(K, N_pad)``
     residual last and returning ``(stacked, new_residual)``. The mean is
-    written into ``stacked`` in place. ``mesh`` (the pod path) is still to
-    port."""
+    written into ``stacked`` in place: into every slot, or with ``live=``
+    (a ``(K,)`` liveness row) into the live ones only. ``mesh`` (the pod
+    path) is still to port."""
     if mesh is not None:
         raise NotImplementedError(
             "the pod-mesh wire path is not yet ported, see ROADMAP.md")
@@ -506,37 +647,40 @@ def make_fused_compressed_average(*, block=256, bits=8, mesh=None,
 
     if stateful and weighted:
         @torch.no_grad()
-        def average_w_ef(stacked, wrow, residual):
+        def average_w_ef(stacked, wrow, residual, live=None):
             layout, buf = _flat(stacked)
             y = buf.add_(residual)
             mean, dq = _weighted_mean(y, wrow)
-            return (flatbuf.unflatten_mean(mean, layout, out=stacked),
+            return (flatbuf.unflatten_mean(mean, layout, out=stacked,
+                                           live=live),
                     y.sub_(dq))
         return average_w_ef
 
     if stateful:
         @torch.no_grad()
-        def average_ef(stacked, residual):
+        def average_ef(stacked, residual, live=None):
             layout, buf = _flat(stacked)
             mean, new_res = kops.quant_avg_dequant_ef(buf, residual,
                                                       block=block, bits=bits)
             del buf
-            return (flatbuf.unflatten_mean(mean, layout, out=stacked),
+            return (flatbuf.unflatten_mean(mean, layout, out=stacked,
+                                           live=live),
                     new_res)
         return average_ef
 
     if weighted:
         @torch.no_grad()
-        def average_w(stacked, wrow):
+        def average_w(stacked, wrow, live=None):
             layout, buf = _flat(stacked)
             mean, _ = _weighted_mean(buf, wrow)
-            return flatbuf.unflatten_mean(mean, layout, out=stacked)
+            return flatbuf.unflatten_mean(mean, layout, out=stacked,
+                                          live=live)
         return average_w
 
     @torch.no_grad()
-    def average(stacked):
+    def average(stacked, live=None):
         layout, buf = _flat(stacked)
         mean = kops.quant_avg_dequant(buf, block=block, bits=bits)
         del buf
-        return flatbuf.unflatten_mean(mean, layout, out=stacked)
+        return flatbuf.unflatten_mean(mean, layout, out=stacked, live=live)
     return average

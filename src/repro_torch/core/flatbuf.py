@@ -100,14 +100,20 @@ def unflatten(buf, layout: FlatLayout):
     return unflatten_like(layout.like, leaves)
 
 
-def unflatten_mean(mean, layout: FlatLayout, out):
+def unflatten_mean(mean, layout: FlatLayout, out, live=None):
     """Write the ``(N_pad,)`` averaged buffer into all K slots of ``out``
     (a stacked tree of this layout) IN PLACE and return ``out`` (the
-    ``average_fn`` contract)."""
+    ``average_fn`` contract). ``live`` (a ``(K,)`` liveness row): only the
+    live slots are written, a dead slot keeps its value."""
     for dst, off, size, shape in zip(tree_leaves(out), layout.offsets,
                                      layout.sizes, layout.shapes):
-        dst.copy_(mean[off:off + size].reshape(shape)[None].expand(
-            layout.k, *shape))
+        m = mean[off:off + size].reshape(shape)[None].expand(
+            layout.k, *shape)
+        if live is None:
+            dst.copy_(m)
+        else:
+            alive = (live > 0).reshape((-1,) + (1,) * len(shape))
+            dst.copy_(torch.where(alive, m.to(dst.dtype), dst))
     return out
 
 

@@ -14,7 +14,7 @@ branch index and parameter pack riding in as device tensors, so a
 schedule swap or a per-round re-parameterisation reuses the captured
 round graphs. ``divergence_tensor`` is the divergence-gated sync
 policy's metric (Kamp et al.) as the fused engine's gate graph computes
-it; its elastic-membership ``live=`` form is still to port (ROADMAP.md).
+it (its ``live=`` form measures the live rows only).
 ``EpochController`` is the legacy flag-driven Eq. 4 controller.
 """
 from __future__ import annotations
@@ -22,6 +22,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.tree import leaves
@@ -140,26 +141,34 @@ def divergence_tensor(stacked, ref, live=None):
     """Kamp-style (1807.03210) local-model divergence as a 0-d f32 device
     tensor (no host sync): the RMS over the K participants of the drift
     from the last synced shared model, relative to that model's norm,
-    ``sqrt(mean_k ‖w_k − w_ref‖²) / ‖w_ref‖``. The elastic-membership
-    ``live`` row is still to port."""
-    if live is not None:
-        raise NotImplementedError(
-            "the live-row divergence (elastic membership) not yet ported, "
-            "see ROADMAP.md")
+    ``sqrt(mean_k ‖w_k − w_ref‖²) / ‖w_ref‖``.
+
+    ``live`` (elastic membership): the ``(K,)`` 0/1 liveness row (a device
+    tensor); the RMS then runs over the live participants only, so a dead
+    slot's stale parameters neither inflate nor dilute the drift."""
     num, den = [], []
     K = leaves(stacked)[0].shape[0]
+    w = None if live is None else live.float()
     for t, r in zip(leaves(stacked), leaves(ref)):
         rf = r.float()
         d = t.float() - rf[None]
-        num.append(torch.sum(d * d))
+        if w is None:
+            num.append(torch.sum(d * d))
+        else:
+            per_k = torch.sum(d * d, dim=tuple(range(1, d.ndim)))
+            num.append(torch.sum(w * per_k))
         den.append(torch.sum(rf * rf))
     num = torch.stack(num).sum()
     den = torch.stack(den).sum()
-    return (torch.sqrt(num / K)
+    n = K if w is None else torch.clamp(w.sum(), min=1.0)
+    return (torch.sqrt(num / n)
             / torch.clamp(torch.sqrt(den), min=1e-12))
 
 
 def divergence(stacked, ref, live=None) -> float:
     """Host-facing divergence: the sums stay on the device and the result
-    crosses to the host once."""
+    crosses to the host once. ``live`` may be a host bool row."""
+    if live is not None and not isinstance(live, torch.Tensor):
+        live = torch.as_tensor(np.asarray(live, np.float32),
+                               device=leaves(stacked)[0].device)
     return float(divergence_tensor(stacked, ref, live).item())

@@ -17,8 +17,14 @@ loop), the clr/elr/warmup_clr/cosine schedules, the ile/fle policies and
 the divergence trigger (``--sync-policy divtrigger --trigger-delta``;
 quiet rounds print ``SKIP(sync)`` and bill 0 bytes), and the iid,
 dirichlet and sizes partitions (ragged shards train under their batch
-mask). Flags whose subsystems are still to port (the gossip aggregators,
-churn, checkpoints) raise ``NotImplementedError``.
+mask), the gossip aggregators (``--aggregator ring|graph|d2`` over every
+registered ``--topology``, ``--er-p``/``--er-seed`` for erdos_renyi),
+elastic membership (``--churn scripted --churn-events
+crash:1:1,rejoin:3:1`` or ``--churn random --churn-p --churn-seed``,
+``--k-max`` standby slots, the ``--naive-membership`` ablation; churned
+rounds print ``live=n/K``) and ``--checkpoint PATH``, which saves the
+round state after the last round in the format
+``repro/checkpoint/io.py`` reads.
 """
 from __future__ import annotations
 
@@ -28,9 +34,12 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.io import save_round_state
 from repro_torch.configs import get_smoke_config
 from repro_torch.configs.base import CoLearnConfig
 from repro_torch.core import api
+from repro_torch.core import membership as membership_mod
+from repro_torch.core import topology as topo_mod
 from repro_torch.core.colearn import CoLearner
 from repro_torch.core.engine import stage
 from repro_torch.data import partition as part_mod
@@ -43,18 +52,19 @@ from repro_torch.tree import leaves
 
 def build_data(cfg, K, batch_size, seq_len, n_examples, seed=0,
                partition="iid", dirichlet_alpha=0.5, sizes=None,
-               drop_remainder=False):
+               drop_remainder=False, k_max=None):
     """Shard the synthetic LM corpus under the chosen data scenario:
     "iid" (the paper's random split), "dirichlet" (label skew over the
     first target token bucketed into 10 classes) or "sizes" (quantity
-    skew with the given counts or fractions)."""
+    skew with the given counts or fractions). ``k_max`` pads the slot
+    list with standby slots that cycle the real shards."""
     x, y = lm_examples(seed, n_examples, seq_len, cfg.vocab_size)
     idx = part_mod.scenario_indices(
         len(x), K, seed, scenario=partition, labels=y[:, 0] % 10,
         dirichlet_alpha=dirichlet_alpha, sizes=sizes, min_size=batch_size,
         drop_remainder=drop_remainder)
     return ParticipantData(part_mod.shard_by_indices([x, y], idx),
-                           batch_size, seed)
+                           batch_size, seed, k_max=k_max)
 
 
 @torch.no_grad()
@@ -91,17 +101,17 @@ def epoch_batches_fn(data, device, steps_per_epoch=0):
     return epoch_batches
 
 
-def round_line(log, ev, next_T, seconds):
+def round_line(log, ev, next_T, seconds, k_live=None):
+    """The round's line; ``k_live`` (the slot count, under churn) adds
+    ``live=n/K``."""
     sync_s = "" if log.synced else " SKIP(sync)"
+    if k_live is not None:
+        sync_s += f" live={log.live}/{k_live}"
     return (f"round {log.round}: T={log.T} lr {log.lr_first:.4f}->"
             f"{log.lr_last:.4f} rel_dw={log.rel_change:.4f} "
             f"local_loss={np.mean(log.local_losses):.4f} eval={ev:.4f} "
             f"comm={log.comm_bytes/2**20:.1f}MiB next_T={next_T}"
             f"{sync_s} ({seconds:.1f}s)")
-
-
-def _not_ported(flag):
-    raise NotImplementedError(f"{flag} not yet ported, see ROADMAP.md")
 
 
 def main(argv=None):
@@ -168,14 +178,6 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
-    for flag, on in ((f"--aggregator {args.aggregator}",
-                      args.aggregator not in ("full", "partial")),
-                     (f"--churn {args.churn}", args.churn != "none"),
-                     ("--k-max", bool(args.k_max)),
-                     ("--naive-membership", args.naive_membership),
-                     ("--checkpoint", bool(args.checkpoint))):
-        if on:
-            _not_ported(flag)
     device = resolve_device(args.device)
     if args.codec and args.compress != "none":
         ap.error("pass --codec or the legacy --compress, not both")
@@ -202,9 +204,39 @@ def main(argv=None):
         ap.error("--churn-events requires --churn scripted")
     if (args.churn_p != 0.2 or args.churn_seed) and args.churn != "random":
         ap.error("--churn-p/--churn-seed require --churn random")
+    if args.k_max and args.churn == "none":
+        ap.error("--k-max requires --churn scripted|random (standby slots "
+                 "only join through membership events)")
+    if args.k_max and args.k_max < args.participants:
+        ap.error(f"--k-max {args.k_max} smaller than --participants "
+                 f"{args.participants}")
+    k_max = args.k_max or args.participants
+    churn = None
+    if args.churn != "none":
+        init_live = args.participants if k_max > args.participants else None
+        if args.churn == "random":
+            churn = membership_mod.RandomChurn(
+                p_fail=args.churn_p, seed=args.churn_seed,
+                initial_live=init_live)
+        else:
+            events = []
+            for spec in filter(None, args.churn_events.split(",")):
+                try:
+                    kind, r, k = spec.split(":")
+                    events.append((kind, int(r), int(k)))
+                except ValueError:
+                    ap.error(f"bad --churn-events entry {spec!r} "
+                             "(want kind:round:slot)")
+            try:
+                churn = membership_mod.ScriptedChurn(
+                    events=tuple(events), initial_live=init_live)
+            except ValueError as e:
+                ap.error(str(e))
+    if args.naive_membership and churn is None:
+        ap.error("--naive-membership requires --churn")
 
     cfg = get_smoke_config(args.arch)
-    K = args.participants
+    K = k_max
     ccfg = CoLearnConfig(
         n_participants=K, T0=args.t0, eta0=args.eta0, epsilon=args.epsilon,
         schedule=args.schedule, epochs_rule=args.epochs_rule,
@@ -221,10 +253,11 @@ def main(argv=None):
         ap.error("--drop-remainder only applies to --partition iid")
     sizes = ([float(s) for s in args.sizes.split(",")] if args.sizes
              else None)
-    data = build_data(cfg, K, args.batch_size, args.seq_len,
+    data = build_data(cfg, args.participants, args.batch_size, args.seq_len,
                       args.n_examples, args.seed, partition=args.partition,
                       dirichlet_alpha=args.dirichlet_alpha, sizes=sizes,
-                      drop_remainder=args.drop_remainder)
+                      drop_remainder=args.drop_remainder,
+                      k_max=k_max if args.k_max else None)
     ex, ey = lm_examples(args.seed + 99, 256, args.seq_len, cfg.vocab_size)
     if args.weighted_avg and args.aggregator != "full":
         ap.error("--weighted-avg only applies to --aggregator full")
@@ -233,6 +266,14 @@ def main(argv=None):
                                               seed=args.seed)
     elif args.weighted_avg:
         aggregator = api.FullAverage(weights=data.sizes)
+    elif args.aggregator in ("graph", "d2"):
+        if args.topology == "erdos_renyi":
+            topo = topo_mod.ErdosRenyiTopology(p=args.er_p,
+                                               seed=args.er_seed)
+        else:
+            topo = topo_mod.get_topology(args.topology)
+        cls = api.D2Gossip if args.aggregator == "d2" else api.GraphGossip
+        aggregator = cls(topology=topo)
     else:
         aggregator = api.get_aggregator(args.aggregator)
     # ragged shards (unequal batch counts): the validity mask goes into
@@ -248,12 +289,17 @@ def main(argv=None):
                         aggregator=aggregator, round_engine=args.engine,
                         schedule=schedule, sync_policy=sync_policy,
                         device=device, shard_sizes=data.sizes,
-                        batch_mask=batch_mask)
+                        batch_mask=batch_mask, churn=churn,
+                        liveness_aware=not args.naive_membership)
     params = tr.init_params(args.seed, cfg, torch.float32, device=device)
     state = learner.init(params)
     del params
     shard_s = (f" shards={list(data.sizes)}" if args.partition != "iid"
                or data.ragged else "")
+    if churn is not None:
+        shard_s += (f" churn={learner.churn.name}"
+                    + (f" k_max={k_max}" if args.k_max else "")
+                    + (" naive" if args.naive_membership else ""))
     print(f"co-learning {cfg.name}: K={K} params="
           f"{tr.count_params(state['params']) // K:,} rounds={args.rounds} "
           f"T0={args.t0} {learner.schedule.name}+{learner.sync_policy.name} "
@@ -268,8 +314,11 @@ def main(argv=None):
         state = learner.run_round(state, batches)
         log = state["log"][-1]
         ev = eval_loss(learner.shared_model(state), cfg, ex, ey)
-        print(round_line(log, ev, state["ctrl"].T, time.time() - t0),
-              flush=True)
+        print(round_line(log, ev, state["ctrl"].T, time.time() - t0,
+                         K if churn is not None else None), flush=True)
+    if args.checkpoint:
+        save_round_state(args.checkpoint, state)
+        print(f"saved {args.checkpoint}.params.npz")
     return 0
 
 

@@ -418,20 +418,24 @@ def test_stack_epoch_batches_and_stage():
 
 
 def test_unported_fused_variants_raise():
+    """Only the pod axis is left unported: every live, gated and masked
+    combination builds, and the live loss mean weighs the live rows."""
     from repro_torch.optim.optimizers import get_optimizer
     opt = get_optimizer("sgd")
-    for kw in ({"live": True}, {"spmd_axis_name": "pod"},
-               {"gated": True, "live": True}, {"masked": True, "live": True}):
+    for make in (tengine.make_fused_round, tengine.make_fused_epochs):
         with pytest.raises(NotImplementedError, match="not yet ported"):
-            tengine.make_fused_round(tiny_loss, opt, **kw)
-    for kw in ({"live": True}, {"masked": True, "live": True}):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            tengine.make_fused_epochs(tiny_loss, opt, **kw)
-    for kw in ({"live": True}, {"gated": True, "live": True}):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            tengine.make_fused_finalize(opt, **kw)
+            make(tiny_loss, opt, spmd_axis_name="pod")
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        tapi._live_loss_means([[1.0, 2.0]], np.ones(2))
+        tengine.make_fused_compressed_average(mesh=object())
+    for kw in ({"live": True}, {"gated": True, "live": True},
+               {"masked": True, "live": True}):
+        assert callable(tengine.make_fused_round(tiny_loss, opt, **kw))
+        assert callable(tengine.make_fused_finalize(
+            opt, **{k: v for k, v in kw.items() if k != "masked"}))
+    assert callable(tengine.make_fused_epochs(tiny_loss, opt, live=True))
+    assert tapi._live_loss_means([[1.0, 2.0]], np.array([True, False])) \
+        == [1.0]
+    assert tapi._live_loss_means([[1.0, 2.0]], np.ones(2)) == [1.5]
 
 
 def test_fused_finalize_writes_in_place_like_the_legacy_pair():

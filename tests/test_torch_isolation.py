@@ -40,6 +40,9 @@ def test_port_imports_no_jax_and_no_reference_package():
     files = _port_files()
     assert (ROOT / "chip_smoke.py").exists()
     assert len(files) > 20
+    # the port's own copies of the reference's numpy-only modules
+    for name in ("membership", "topology"):
+        assert ROOT / "src" / "repro_torch" / "core" / f"{name}.py" in files
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN]
     assert not bad, bad
@@ -80,35 +83,23 @@ def test_entry_points_raise_without_a_card(no_cuda):
 def test_unported_paths_raise_not_implemented():
     from repro_torch.configs import get_smoke_config
     from repro_torch.core import api, engine, schedule
-    from repro_torch.launch import train
     from repro_torch.models import transformer as tr
     from repro_torch.optim.optimizers import get_optimizer
 
-    for spec in ("ring", "graph", "d2"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            api.get_aggregator(spec)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tr.init_params(0, get_smoke_config("internlm2-1.8b").with_(
             n_layers=1, segments=((("mla:dense",), 1),)), device="cpu")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         get_smoke_config("deepseek-v3-671b")
-    # elastic membership: the liveness row, the live divergence and the
-    # live-sampled partial participation
+    # the pod mesh: the gossip permutes, the psums and the pinned vmap
+    for spec in ("full", "partial", "ring", "graph", "d2"):
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            api.get_aggregator(spec).make_aggregate_fn(api.ExactF32(),
+                                                       mesh=object())
     opt = get_optimizer("sgd")
-    for kw in ({"live": True}, {"gated": True, "live": True}):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            engine.make_fused_round(lambda p, b: None, opt, **kw)
-    x = {"w": torch.zeros((2, 256))}
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        schedule.divergence(x, {"w": torch.zeros(256)}, [True, True])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        api.PartialParticipation().mixing_matrix(0, 2, live=[True, True])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        api.PartialParticipation().make_aggregate_fn(api.ExactF32(),
-                                                     dynamic=True)
-    for flags in (["--churn", "random"], ["--aggregator", "ring"],
-                  ["--aggregator", "graph"], ["--aggregator", "d2"],
-                  ["--k-max", "4"], ["--naive-membership"],
-                  ["--checkpoint", "x"]):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            train.main(["--device", "cpu", *flags])
+        engine.make_fused_round(lambda p, b: None, opt, live=True,
+                                spmd_axis_name="pod")
+    # (the live divergence no longer raises: one live row, drift 1)
+    assert schedule.divergence({"w": torch.zeros((2, 256))},
+                               {"w": torch.ones(256)}, [True, False]) == 1.0
