@@ -49,7 +49,7 @@ Phases:
      exponential graph, K = 4, 3 rounds, its matrix changing every
      round; (iv) (ii)'s round state saved after round 2, restored into a
      fresh learner and into (ii)'s own (no capture): rounds 3-4 equal to
-     the uninterrupted run bit for bit;
+     the uninterrupted run bit for bit; and 11(c) (below);
   5. the main path at internlm2-1.8b's full width (depth cut to 16 of 24
      layers, f32, T fixed at 1) through the fused engine, the CLI's
      default: (a) fused
@@ -141,7 +141,31 @@ Phases:
      events), live count, bill, matrix, peak memory; one capture set and
      no capture on a leave, a rejoin or a new matrix; K1/K2 once per
      leaf a round; a dead slot's params and round state unchanged. The
-     counters are zeroed just before each run and read after.
+     counters are zeroed just before each run and read after;
+ 11. continuous operation: (a) at internlm2-1.8b's full width and phase
+     10's depth, K = 3, fused int8 (K3 every round), ILE with T fixed at
+     1, over a token stream under ``CovariateDrift`` (every round's
+     contents differ), 4 rounds through the fused engine (round 0
+     captures, 1-3 replay), each round published into a shared-mode
+     ``ModelBank`` by ``run_round``'s ``on_round_end`` hook and polled
+     into a ``ServeLoop`` (batch 8, 128-token prompt, 64 new tokens) that
+     then generates: per round the round s, swap ms (synchronised),
+     decode tokens/s, prompt s, version, staleness, captures of the round
+     graph and the loop (1 each, flat), peak memory and K3 launches; the
+     loop's params equal ``shared_model`` bit for bit after each poll,
+     the served version's snapshot is unchanged by the next round, the
+     tokens after the last swap equal an eager decode loop over the
+     bank's params, every round's window under the sync guard; the
+     counters are zeroed just before the rounds and read after; (b) the
+     continuous CLI (``repro_torch.launch.continuous``) at its smoke
+     defaults under the divergence trigger with an abrupt drift at round
+     2, 4 rounds, persisting its versions: exit 0, one decode capture;
+     (c) run with phase 4: the smoke config, the divergence trigger and
+     an abrupt drift through the fused engine with ``publish_from`` as the
+     hook, the card against the CPU at 1e-4 with equal sync patterns,
+     bills, versions and staleness; (d) every ``examples/torch_*.py``
+     once on the card at its own sizes (exit 0; the compressed-WAN
+     walkthrough launches K1-K4).
 Before the last line come the ``kernels`` JSON and the card's name and
 power limit as ``nvidia-smi`` gives them; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
@@ -2189,6 +2213,332 @@ def phase_churn_gossip(torch, dev, launches_out):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: continuous operation. (a)'s stream drifts by a covariate shift of
+# the tokens (a growing share of vocab pairs swapped), so every round's
+# contents differ; ILE's ε is one no round's rel reaches, so T stays 1.
+COV11 = 0.1
+EPS11 = 1e-6
+EXAMPLES11 = ("quickstart", "compressed_wan", "elastic_membership",
+              "graph_gossip", "serve_decode", "continuous_serving")
+
+
+def _params_equal(torch, a, b):
+    from repro_torch.tree import leaves
+    la, lb = leaves(a), leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def _eager_tokens(torch, cfg, params, prompts, new, max_seq):
+    """Greedy tokens of an eager ``decode_step`` loop (no graph)."""
+    from repro_torch.models import transformer as tr
+    B, P = prompts.shape
+    cache = tr.init_cache(cfg, B, max_seq, torch.float32, prompts.device)
+    pos = torch.arange(max_seq, dtype=torch.int32, device=prompts.device)
+    for t in range(P):
+        logits, cache = tr.decode_step(params, cfg, cache,
+                                       prompts[:, t:t + 1], pos[t])
+    tok, out = torch.argmax(logits, -1), []
+    for i in range(new):
+        out.append(tok)
+        logits, cache = tr.decode_step(params, cfg, cache, tok, pos[P + i])
+        tok = torch.argmax(logits, -1)
+    return torch.cat(out, dim=1)
+
+
+def phase_continuous(torch, dev, launches_out):
+    """11(a): continuous operation at internlm2-1.8b's full width, depth
+    ``LAYERS10``: K = 3, the fused int8 codec (K3 every round), ILE with T
+    fixed at 1, batch 8 x 256, 2 steps an epoch, over a token stream under
+    ``CovariateDrift``; each round publishes into a shared-mode
+    ``ModelBank`` (``run_round``'s ``on_round_end``), a ``ServeLoop``
+    (batch 8, 128-token prompt, 64 new tokens, max_seq 256) polls and
+    generates. Round 0 captures the round graph, rounds 1-3 replay it. Per
+    round: round s (host clock + sync), swap ms (synced), decode tokens/s,
+    prompt s, version, staleness, captures, peak memory, K3 launches. The
+    loop's params equal ``shared_model`` bit for bit after each poll, and
+    the version it served equals its snapshot bit for bit after the next
+    round; after the last swap its tokens equal an eager decode loop over
+    the bank's params; every round's window runs under the sync guard."""
+    from repro_torch.configs.base import CoLearnConfig
+    from repro_torch.core import api
+    from repro_torch.core.colearn import CoLearner
+    from repro_torch.data.stream import CovariateDrift, ShardStream
+    from repro_torch.data.synthetic import lm_examples
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import epoch_batches_fn, make_loss_fn
+    from repro_torch.models import transformer as tr
+    from repro_torch.serving import ModelBank, ServeLoop
+    cfg = cfg10()
+    K, B, S, steps, rounds = 3, 8, 256, 2, 4
+    SB, P, new, max_seq = 8, 128, 64, 256
+    x, y = lm_examples(0, K * B * steps, S, cfg.vocab_size)
+    stream = ShardStream([x, y], K, B, 0, drift=CovariateDrift(rate=COV11))
+    learner = CoLearner(
+        CoLearnConfig(n_participants=K, T0=1, eta0=0.05, epsilon=EPS11,
+                      max_rounds=rounds),
+        make_loss_fn(cfg), codec=api.get_codec("fused"),
+        round_engine="fused", device=dev)
+    check(learner.sync_policy.name == "ile", "11a: not under ILE")
+    runner = learner._runner
+    graph, guard = runner._round, []
+
+    def round_graph(*a):
+        guard.append(torch.cuda.get_sync_debug_mode())
+        return graph(*a)
+    runner._round = round_graph
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = learner.init(tr.init_params(0, cfg, torch.float32, device=dev))
+    bank = ModelBank()
+    bank.publish(learner.shared_model(state), round_i=0)  # v1: the init
+    loop = ServeLoop(cfg, learner.shared_model(state), batch=SB,
+                     max_seq=max_seq, device=dev)
+    check(loop.poll(bank) and loop.version == 1, "11a: v1 not served")
+    g = torch.Generator(device=dev).manual_seed(11)
+    prompts = torch.randint(0, cfg.vocab_size, (SB, P), generator=g,
+                            device=dev)
+    loop.generate(prompts[:, :8], 4)                        # warm-up
+    batches = epoch_batches_fn(stream, dev, steps)
+    torch.cuda.synchronize()
+    mem_init = torch.cuda.memory_allocated()
+    served = bank.current()
+    tokens0 = [stream.epoch_batches(r, 0)[0] for r in range(rounds)]
+    check(all(not (a == b).all() for a, b in zip(tokens0, tokens0[1:])),
+          "11a: the stream's contents did not change every round")
+    per_round = []
+    ops.reset_launch_counts()
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = learner.run_round(state, batches,
+                                  on_round_end=bank.publish_from)
+        torch.cuda.synchronize()
+        round_s = time.perf_counter() - t0
+        log = state["log"][-1]
+        # the version the loop serves is its snapshot, untouched by the round
+        kept = _params_equal(torch, loop.params, served.params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        swapped = loop.poll(bank)
+        torch.cuda.synchronize()
+        swap_ms = 1e3 * (time.perf_counter() - t0)
+        served = bank.current()
+        shared = learner.shared_model(state)
+        equal = (_params_equal(torch, loop.params, shared)
+                 and _params_equal(torch, loop.params, served.params))
+        del shared
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            gen, st = loop.generate(prompts, new)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        per_round.append({
+            "round": log.round, "T": log.T, "synced": log.synced,
+            "round_s": round_s, "swap_ms": swap_ms, "swapped": swapped,
+            "decode_tokens_per_s": st["tokens_per_s"],
+            "decode_ms_per_step": 1e3 * st["decode_s"] / new,
+            "prompt_s": st["prefill_s"], "version": loop.version,
+            "staleness": bank.staleness(state["round"]),
+            "round_graph_captures": graph.captures,
+            "loop_captures": loop.compile_count(),
+            "local_loss": float(sum(log.local_losses)
+                                / len(log.local_losses)),
+            "rel_change": log.rel_change, "comm_bytes": log.comm_bytes,
+            "loop_equals_shared_model": equal,
+            "previous_snapshot_unchanged": kept,
+            "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9,
+            "reserved_GB": torch.cuda.memory_reserved() / 1e9,
+            "k3_launches": ops.launch_counts()["wire_quant_avg_dequant"]})
+    counts = ops.launch_counts()
+    eager = _eager_tokens(torch, cfg, bank.current().params, prompts, new,
+                          max_seq)
+    tokens_equal = bool(torch.equal(gen, eager))
+    peak = (torch.cuda.max_memory_allocated() / 1e9,
+            torch.cuda.max_memory_reserved() / 1e9)
+    say("continuous", run="11a", model=cfg.name, K=K,
+        codec=learner.codec.name, sync=learner.sync_policy.name,
+        drift=f"covariate rate {COV11}",
+        reduced=f"n_layers 24 -> {LAYERS10} (phase 10's depth: K = 3 "
+                "training copies, the (K, N_pad) wire buffer, the loop's "
+                "params and the bank's snapshot on one card)",
+        params_per_participant=tr.count_params(served.params),
+        batch=B, seq_len=S, steps_per_epoch=steps,
+        serve={"batch": SB, "prompt_len": P, "new_tokens": new,
+               "max_seq": max_seq},
+        rounds=per_round, launches=counts,
+        graphs={f.name: {"captures": f.captures, "replays": f.replays}
+                for f in runner.graphs.functions},
+        window_sync_debug_modes=guard, tokens_equal_eager=tokens_equal,
+        live_after_init_GB=mem_init / 1e9, peak_mem_GB=peak[0],
+        peak_reserved_GB=peak[1])
+    check(all(r["T"] == 1 and r["synced"] for r in per_round),
+          f"11a: T or sync moved: {[(r['T'], r['synced']) for r in per_round]}")
+    check([r["version"] for r in per_round] == [2, 3, 4, 5]
+          and all(r["swapped"] and r["staleness"] == 0 for r in per_round),
+          "11a: versions / swaps / staleness off")
+    check(all(r["loop_equals_shared_model"] for r in per_round),
+          "11a: a swap did not copy the shared model bit for bit")
+    check(all(r["previous_snapshot_unchanged"] for r in per_round),
+          "11a: a published snapshot moved in the next round")
+    check(all(r["round_graph_captures"] == 1 and r["loop_captures"] == 1
+              for r in per_round)
+          and graph.replays == rounds - 1,
+          f"11a: captures by round {[(r['round_graph_captures'], r['loop_captures']) for r in per_round]}")
+    check(guard == [2] * rounds, f"11a: round windows at sync modes {guard}")
+    check(counts["wire_quant_avg_dequant"] == rounds,
+          f"11a: K3 launched {counts['wire_quant_avg_dequant']} times")
+    check(tokens_equal, "11a: the loop's tokens after the swap differ from "
+                        "an eager decode loop over the bank's params")
+    check(all(math.isfinite(r["local_loss"]) for r in per_round),
+          "11a: non-finite loss")
+    check(peak[1] < 80, f"11a: {peak[1]} GB reserved")
+    for name, n in counts.items():
+        launches_out[name] = launches_out.get(name, 0) + n
+    del state, learner, runner, graph, loop, bank, served, gen, eager
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_continuous_cli(torch):
+    """11(b): the continuous CLI on the card at its smoke defaults under
+    the divergence trigger and an abrupt drift at round 2, 4 rounds, each
+    version persisted; exit 0 with one decode capture."""
+    import io
+    from repro_torch.launch import continuous
+    bank_dir = ROOT / "build" / "continuous_bank"
+    shutil.rmtree(bank_dir, ignore_errors=True)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = continuous.main(["--device", "cuda", "--sync-policy",
+                              "divtrigger", "--drift", "abrupt",
+                              "--drift-round", "2", "--rounds", "4",
+                              "--bank-dir", str(bank_dir)])
+    seconds = time.perf_counter() - t0
+    out = buf.getvalue().splitlines()
+    rounds = [x for x in out if x.startswith("round ")]
+    persisted = sorted(p.name for p in bank_dir.glob("v*.npz"))
+    shutil.rmtree(bank_dir, ignore_errors=True)
+    say("continuous", run="11b", rc=rc, seconds=seconds, lines=out,
+        persisted=persisted)
+    check(rc == 0 and len(rounds) == 4, f"11b: rc {rc}, lines {out}")
+    check(all("compiles=1" in x for x in rounds), "11b: a recapture")
+    check(len(persisted) >= 1, "11b: no version persisted")
+
+
+def phase_small_continuous(torch, dev):
+    """11(c), a phase 4 run: continuous operation on the smoke config, K=3,
+    fused int8, the divergence trigger at ``SMALL_GATE_DELTA`` over a
+    stream with an abrupt drift at round 2, ``publish_from`` as the hook,
+    4 rounds through the fused engine, the card against the CPU: rounds
+    within 1e-4, equal sync patterns, bills, versions and staleness, every
+    divergence > 5% from δ."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import CoLearnConfig
+    from repro_torch.core import api
+    from repro_torch.core.colearn import CoLearner
+    from repro_torch.data.stream import AbruptDrift, ShardStream
+    from repro_torch.data.synthetic import lm_examples
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import epoch_batches_fn, make_loss_fn
+    from repro_torch.models import transformer as tr
+    from repro_torch.serving import ModelBank
+    cfg = get_smoke_config("internlm2-1.8b")
+    K, rounds = 3, 4
+    x, y = lm_examples(0, 48, 16, cfg.vocab_size)
+    params = tr.init_params(0, cfg, torch.float32, device="cpu")
+    runs = {}
+    for d in ("cpu", dev):
+        stream = ShardStream([x, y], K, 4, 0, drift=AbruptDrift(at_round=2))
+        learner = CoLearner(
+            CoLearnConfig(n_participants=K, T0=1, eta0=0.05,
+                          epochs_rule="fle", max_rounds=rounds),
+            make_loss_fn(cfg), codec=api.get_codec("fused"),
+            round_engine="fused",
+            sync_policy=api.DivergenceTrigger(delta=SMALL_GATE_DELTA),
+            device=d)
+        gate, divs = _record_gate(learner)
+        state = learner.init(params)
+        bank = ModelBank()
+        bank.publish(learner.shared_model(state), round_i=0)
+        ops.reset_launch_counts()
+        vers = []
+        for _ in range(rounds):
+            state = learner.run_round(state, epoch_batches_fn(stream, d, 2),
+                                      on_round_end=bank.publish_from)
+            vers.append((bank.version, bank.staleness(state["round"])))
+        runs[str(d)] = (state["log"], vers, [float(v) for v in divs],
+                        ops.launch_counts(), learner._runner.graphs.captures)
+        del learner, state, gate, bank
+        gc.collect()
+    (clog, cver, cdivs, ccounts, _), (glog, gver, gdivs, gcounts,
+                                      gcaps) = runs["cpu"], runs[str(dev)]
+    worst = 0.0
+    for a, b in zip(clog, glog):
+        for u, v in [*zip(a.local_losses, b.local_losses),
+                     (a.rel_change, b.rel_change)]:
+            if math.isinf(u):
+                check(math.isinf(v), "11c: rel_change inf on one side only")
+                continue
+            worst = max(worst, abs(u - v) / max(abs(u), 1e-12))
+    margin = min(abs(v - SMALL_GATE_DELTA) / SMALL_GATE_DELTA
+                 for v in cdivs + gdivs)
+    synced = [x.synced for x in glog]
+    say("small-continuous", run="11c", rounds=rounds, K=K, synced=synced,
+        versions_staleness=gver, comm_bytes=[x.comm_bytes for x in glog],
+        log_max_rel_diff=worst, divergences_card=gdivs,
+        divergences_cpu=cdivs, margin=margin, card_launches=gcounts,
+        captures=gcaps)
+    check(margin > 0.05, f"11c: a divergence within {margin:.1%} of delta")
+    check(synced == [x.synced for x in clog] and gver == cver
+          and [x.comm_bytes for x in glog] == [x.comm_bytes for x in clog],
+          f"11c: card {synced} {gver} vs CPU {[x.synced for x in clog]} "
+          f"{cver}")
+    check(0 < sum(synced) < rounds, f"11c: pattern {synced}")
+    check(worst <= 1e-4, f"11c: card vs CPU logs differ by {worst} (rel)")
+    check(gcounts["wire_quant_avg_dequant"] == sum(synced)
+          and not any(ccounts.values()),
+          f"11c: K3 launched {gcounts} for {sum(synced)} syncs")
+    check(gcaps == 3, f"11c: {gcaps} captures (epochs, gate, finalize)")
+
+
+def phase_examples(torch):
+    """11(d): each torch example once on the card at its own sizes, in
+    this process (``main(["--device", "cuda"])``): exit 0; the wire kernels
+    launched by the compressed-WAN walkthrough are recorded."""
+    import importlib.util
+    import io
+    from repro_torch.kernels import ops
+    for name in EXAMPLES11:
+        path = ROOT / "examples" / f"torch_{name}.py"
+        spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        buf = io.StringIO()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = mod.main(["--device", "cuda"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        out = buf.getvalue().splitlines()
+        say("examples", example=f"torch_{name}", rc=rc, seconds=seconds,
+            launches=counts, tail=out[-8:])
+        check(rc == 0, f"11d: torch_{name} returned {rc}")
+        if name == "compressed_wan":
+            check(all(counts.get(k, 0) > 0 for k in (
+                "wire_quantize", "wire_dequantize", "wire_quant_avg_dequant",
+                "wire_quant_avg_dequant_ef")),
+                f"11d: compressed_wan launched {counts}")
+        del mod
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 @contextlib.contextmanager
 def synced_spans(torch, targets):
     """Replace each ``(module, attribute, name)`` function by one that
@@ -2731,6 +3081,7 @@ def main(argv=None):
     phase_small_round(torch, dev)
     phase_small_strategies(torch, dev)
     phase_small_membership(torch, dev)
+    phase_small_continuous(torch, dev)
     mark("4")
 
     launches = {}
@@ -2776,6 +3127,12 @@ def main(argv=None):
     mark("9b")
     phase_churn_gossip(torch, dev, launches)
     mark("10")
+    phase_continuous(torch, dev, launches)
+    mark("11a")
+    phase_continuous_cli(torch)
+    mark("11b")
+    phase_examples(torch)
+    mark("11d")
 
     kernels = []
     for kname, (tag, replaces, source) in KERNEL_META.items():

@@ -14,6 +14,7 @@ _MODULES = {
     "internlm2-1.8b": "internlm2_1_8b",
     "xlstm-1.3b": "xlstm_1_3b",
     "jamba-v0.1-52b": "jamba_v0_1_52b",
+    "phi4-mini-3.8b": "phi4_mini_3_8b",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -276,7 +276,7 @@ class CoLearner:
                   if self._churn_active else ())
         return self.sync_policy.round_delta(events)
 
-    def run_round(self, state, epoch_batches_fn):
+    def run_round(self, state, epoch_batches_fn, on_round_end=None):
         """One communication round. ``epoch_batches_fn(round, epoch)``
         returns the ``(K, n_batches, B, ...)`` tensors of that local epoch
         on the learner's device; each participant sees only its own shard.
@@ -284,7 +284,15 @@ class CoLearner:
         Under active churn the membership advances FIRST: the schedule's
         round mask is stepped into ``state["membership"]`` (logging joins
         and leaves) and every slot that joined this round warm-starts from
-        the last synced shared model, in place, before any epoch runs."""
+        the last synced shared model, in place, before any epoch runs.
+
+        ``on_round_end(learner, state)``, when given, fires after the
+        round's state transition lands — the publication hook for
+        continuous operation (e.g. ``ModelBank.publish_from``). Its return
+        value is ignored; the round's state is returned unchanged. On the
+        fused engine the state's tensors are the captured graphs' bound
+        storage, so a hook only reads them (a clone, as ``publish_from``
+        makes, captures nothing)."""
         if self._churn_active:
             i = state["round"]
             new_live = self.churn.live_mask(i, self.cfg.n_participants)
@@ -295,7 +303,10 @@ class CoLearner:
             state["membership"] = state["membership"].step(i, new_live)
             for k in state["membership"].joined(i):
                 self.restart_participant(state, k)
-        return self._runner.run_round(state, epoch_batches_fn)
+        state = self._runner.run_round(state, epoch_batches_fn)
+        if on_round_end is not None:
+            on_round_end(self, state)
+        return state
 
     def _finish_round(self, state, i, T_i, rel, local_losses, lr_first,
                       lr_last, averaged, fresh_opt, new_avg, synced=True,

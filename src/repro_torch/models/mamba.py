@@ -3,8 +3,9 @@
 
 ``selective_scan_ref`` is the plain recurrence: a Python loop over time
 with the discretisation inside the step, so (B,S,di,st) is never
-materialised (the JAX ``chunked_scan``'s recomputation only matters for a
-backward pass and is not ported). ``mamba_apply(impl="kernel")`` — the
+materialised; under autograd it keeps every step's state for the
+backward pass (the JAX ``chunked_scan``'s recomputation, which bounds that
+memory, is not ported: ROADMAP.md). ``mamba_apply(impl="kernel")`` — the
 JAX ``impl="pallas"`` — runs the scan through ``kernels.ops.
 selective_scan``: the hand-written K6 kernel for CUDA tensors, the plain
 recurrence on the CPU.
@@ -66,20 +67,35 @@ def _ssm_inputs(p, xc, cfg):
 def selective_scan_ref(xc, dt, Bm, Cm, A, D, h0=None):
     """Sequential selective scan. xc: (B,S,di) -> (y (B,S,di) f32, h
     (B,di,st) f32). ``h0`` (B,di,st) f32 is the starting state, updated in
-    place and returned, or None (zeros)."""
+    place and returned, or None (zeros). Under autograd (an input that
+    requires grad: training) each step's state is a new tensor, as the
+    backward pass needs them all, with the same arithmetic; ``h0`` must
+    then be None."""
     B, S, di = xc.shape
     st = A.shape[-1]
     xf = xc.float()
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (xc, dt, Bm, Cm, A, D))
+    if grad and h0 is not None:
+        raise ValueError("selective_scan_ref updates h0 in place, which "
+                         "autograd cannot differentiate; pass h0=None")
     h = (torch.zeros((B, di, st), dtype=_F32, device=xc.device)
          if h0 is None else h0)
-    ys = torch.empty((B, S, di), dtype=_F32, device=xc.device)
+    ys = [] if grad else torch.empty((B, S, di), dtype=_F32,
+                                     device=xc.device)
     for t in range(S):
         dt_t = dt[:, t, :, None]                               # (B,di,1)
         # discretisation inside the step: (B,S,di,st) is never built
         dA = torch.exp(dt_t * A)                               # (B,di,st)
         dBx = dt_t * Bm[:, t, None, :] * xf[:, t, :, None]
-        h.mul_(dA).add_(dBx)
-        ys[:, t] = torch.einsum("bds,bs->bd", h, Cm[:, t])
+        if grad:
+            h = h * dA + dBx
+            ys.append(torch.einsum("bds,bs->bd", h, Cm[:, t]))
+        else:
+            h.mul_(dA).add_(dBx)
+            ys[:, t] = torch.einsum("bds,bs->bd", h, Cm[:, t])
+    if grad:
+        ys = torch.stack(ys, 1)
     return ys + xf * D, h
 
 

@@ -34,6 +34,7 @@ import torch
 
 from repro_torch.checkpoint.io import restore_pytree, save_pytree
 from repro_torch.core import ensemble as ensemble_mod
+from repro_torch.tree import tree_map
 
 #: publication modes: "shared" = the synced shared model (one replica);
 #: "ensemble" = the whole (K,)-stacked participant params, served through
@@ -43,8 +44,11 @@ MODES = ("shared", "ensemble")
 
 @dataclasses.dataclass(frozen=True)
 class ModelSnapshot:
-    """One published model: params + staleness metadata. The params are
-    not copied: the publisher must not update them in place afterwards."""
+    """One published model: immutable params + staleness metadata. A
+    snapshot from :meth:`ModelBank.publish_from` owns copies of the
+    learner's params (the port's engines update those in place);
+    ``publish(params)`` takes the caller's tensors as given, so the caller
+    must not update them in place afterwards."""
 
     version: int
     params: Any
@@ -91,7 +95,10 @@ class ModelBank:
         synced = log.synced if log is not None else True
         if self.publish_on == "synced" and not synced:
             return None
-        params = (state["params"] if self.mode == "ensemble"
+        # copies: the learner's tensors are trained and mixed in place
+        # (``shared_model`` clones the shared row)
+        params = (tree_map(lambda t: t.clone(), state["params"])
+                  if self.mode == "ensemble"
                   else learner.shared_model(state))
         return self.publish(params, round_i=state["round"],
                             global_epoch=state["global_epoch"],

@@ -966,3 +966,137 @@ def test_gpu_round_state_restore_keeps_the_graphs(cuda):
     assert state["membership"] == ref["membership"]
     assert [x.local_losses for x in state["log"][-2:]] == \
         [x.local_losses for x in ref["log"][-2:]]
+
+
+# ---------------------------------------------------------------------------
+# Continuous operation (data/stream.py, run_round's on_round_end hook,
+# launch/continuous.py): drift and read-only hooks capture nothing, a swap
+# is bit-exact, the round window stays sync-free, the card against the CPU.
+# ---------------------------------------------------------------------------
+def _continuous(dev, drift, engine="fused", sync_policy=None, eps=1e-6):
+    """Smoke internlm2, K=3, fused int8, a 48-example token stream (B 4,
+    S 16, 2 steps an epoch), ILE with T fixed at 1 unless a policy is
+    given; returns (learner, state, stream, cfg)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import CoLearnConfig
+    from repro_torch.core import api
+    from repro_torch.core.colearn import CoLearner
+    from repro_torch.data.stream import ShardStream
+    from repro_torch.data.synthetic import lm_examples
+    from repro_torch.launch.train import make_loss_fn
+    from repro_torch.models import transformer as tr
+    cfg = get_smoke_config("internlm2-1.8b")
+    x, y = lm_examples(0, 48, 16, cfg.vocab_size)
+    stream = ShardStream([x, y], 3, 4, 0, drift=drift)
+    learner = CoLearner(
+        CoLearnConfig(n_participants=3, T0=1, eta0=0.05, epsilon=eps,
+                      max_rounds=4),
+        make_loss_fn(cfg), codec=api.get_codec("fused"),
+        round_engine=engine, sync_policy=sync_policy, device=dev)
+    params = tr.init_params(0, cfg, torch.float32, device="cpu")
+    return learner, learner.init(params), stream, cfg
+
+
+@pytest.mark.gpu
+def test_gpu_drift_and_read_only_hooks_capture_nothing(cuda):
+    """Four rounds over a covariate-drifting stream, both banks'
+    ``publish_from`` as hooks: the round graph is captured once and
+    replayed three times, every window runs under the sync guard, the
+    loop captures once, and after every poll its params equal the shared
+    model bit for bit while the version it served before stays equal to
+    its snapshot."""
+    from repro_torch.data.stream import CovariateDrift
+    from repro_torch.launch.train import epoch_batches_fn
+    from repro_torch.serving import ModelBank, ServeLoop
+    from repro_torch.tree import leaves
+    learner, state, stream, cfg = _continuous(cuda, CovariateDrift(0.25))
+    runner = learner._runner
+    graph, guard = runner._round, []
+
+    def recorded(*a):
+        guard.append(torch.cuda.get_sync_debug_mode())
+        return graph(*a)
+    runner._round = recorded
+    shared, ens = ModelBank(), ModelBank(mode="ensemble")
+    shared.publish(learner.shared_model(state), round_i=0)
+    loop = ServeLoop(cfg, learner.shared_model(state), batch=2, max_seq=16,
+                     device=cuda)
+    assert loop.poll(shared)
+    prompts = torch.tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 6)), device=cuda)
+
+    def hook(ln, st):
+        shared.publish_from(ln, st)
+        ens.publish_from(ln, st)
+
+    def equal(a, b):
+        return all(torch.equal(x, y) for x, y in zip(leaves(a), leaves(b)))
+    batches = epoch_batches_fn(stream, cuda, 2)
+    for _ in range(4):
+        served = shared.current()
+        state = learner.run_round(state, batches, on_round_end=hook)
+        assert equal(loop.params, served.params)
+        assert loop.poll(shared)
+        assert equal(loop.params, learner.shared_model(state))
+        assert equal(ens.current().params, state["params"])
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            loop.generate(prompts, 4)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert [x.T for x in state["log"]] == [1] * 4
+    assert (graph.captures, graph.replays) == (1, 3)
+    assert runner.graphs.captures == 1 and loop.compile_count() == 1
+    assert guard == [2] * 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine", ["python", "fused"])
+def test_gpu_continuous_rounds_equal_cpu(cuda, engine):
+    """An abrupt drift at round 2 under the divergence trigger (δ 0.0088:
+    the divergences run 0.0070-0.0106, >= 17% away) with ``publish_from``
+    as the hook: the card's sync pattern, bills, versions and staleness
+    equal the CPU's, its losses within 1e-4."""
+    from repro_torch.core import api
+    from repro_torch.data.stream import AbruptDrift
+    from repro_torch.launch.train import epoch_batches_fn
+    from repro_torch.serving import ModelBank
+    runs = {}
+    for dev in ("cpu", cuda):
+        learner, state, stream, _ = _continuous(
+            dev, AbruptDrift(at_round=2), engine,
+            api.DivergenceTrigger(delta=0.0088))
+        bank = ModelBank()
+        vers = []
+        for _ in range(4):
+            state = learner.run_round(state, epoch_batches_fn(stream, dev, 2),
+                                      on_round_end=bank.publish_from)
+            vers.append((bank.version, bank.staleness(state["round"])))
+        runs[str(dev)] = (state, vers)
+    (cs, cv), (gs, gv) = runs["cpu"], runs[str(cuda)]
+    assert [x.synced for x in gs["log"]] == [x.synced for x in cs["log"]] \
+        == [False, True, False, True]
+    assert gv == cv == [(0, 1_000_000_000), (1, 0), (1, 1), (2, 0)]
+    assert [x.comm_bytes for x in gs["log"]] == \
+        [x.comm_bytes for x in cs["log"]]
+    for x, y in zip(cs["log"], gs["log"]):
+        np.testing.assert_allclose(y.local_losses, x.local_losses, rtol=1e-4)
+        np.testing.assert_allclose(y.rel_change, x.rel_change, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_gpu_continuous_cli_runs(cuda, tmp_path, capsys):
+    """The continuous CLI on the card (divergence trigger, abrupt drift):
+    exit 0, one decode capture, every published version persisted."""
+    from repro_torch.launch import continuous
+    assert continuous.main(["--device", "cuda", "--sync-policy",
+                            "divtrigger", "--trigger-delta", "0.002",
+                            "--drift", "abrupt", "--drift-round", "2",
+                            "--rounds", "4", "--bank-dir",
+                            str(tmp_path)]) == 0
+    out = capsys.readouterr().out.splitlines()
+    rounds = [x for x in out if x.startswith("round ")]
+    assert len(rounds) == 4 and all("compiles=1" in x for x in rounds)
+    version = int(out[-1].rsplit("v", 1)[1])
+    assert sorted(p.name for p in tmp_path.glob("v*.npz")) == sorted(
+        f"v{v}.npz" for v in range(1, version + 1))

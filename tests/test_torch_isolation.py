@@ -1,7 +1,8 @@
 """The PyTorch port stands alone and never falls back to the CPU.
 
-* No module of ``src/repro_torch/`` and not ``chip_smoke.py`` imports
-  ``jax``, ``jaxlib`` or anything of the JAX package ``repro``.
+* No module of ``src/repro_torch/``, no torch example
+  (``examples/torch_*.py``) and not ``chip_smoke.py`` imports ``jax``,
+  ``jaxlib`` or anything of the JAX package ``repro``.
 * Without a card, every entry point raises unless the caller passes
   ``device="cpu"`` (``--device cpu``) explicitly.
 """
@@ -17,7 +18,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 def _port_files():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    return files + examples + [ROOT / "chip_smoke.py"]
 
 
 def _imported_roots(path):
@@ -43,6 +45,11 @@ def test_port_imports_no_jax_and_no_reference_package():
     # the port's own copies of the reference's numpy-only modules
     for name in ("membership", "topology"):
         assert ROOT / "src" / "repro_torch" / "core" / f"{name}.py" in files
+    assert ROOT / "src" / "repro_torch" / "data" / "stream.py" in files
+    assert {f.name for f in files if f.parent.name == "examples"} == {
+        f"torch_{n}.py" for n in ("quickstart", "compressed_wan",
+                                  "elastic_membership", "graph_gossip",
+                                  "serve_decode", "continuous_serving")}
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN]
     assert not bad, bad
@@ -72,6 +79,16 @@ def test_entry_points_raise_without_a_card(no_cuda):
         train.main(["--rounds", "1", "--participants", "2",
                     "--n-examples", "16", "--batch-size", "4",
                     "--seq-len", "8"])
+    from repro_torch.launch import continuous
+    with pytest.raises(RuntimeError, match="CUDA"):
+        continuous.main(["--rounds", "1"])
+    import importlib.util
+    for path in sorted((ROOT / "examples").glob("torch_*.py")):
+        spec = importlib.util.spec_from_file_location(path.stem, path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            mod.main([])
     # asked for explicitly, the CPU is fine
     assert resolve_device("cpu").type == "cpu"
     p = tr.init_params(0, cfg.with_(n_layers=1,

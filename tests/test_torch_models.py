@@ -24,6 +24,8 @@ bf16 tree (``A_log``, ``D`` and the router stay f32) and its npz round
 trip, the loss with the aux term, ``prefill`` against JAX ``"pallas"``
 (K5 and K6 in interpret mode) and ``decode_step`` agree at 1e-5.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -492,6 +494,56 @@ def test_jamba_loss_with_aux_matches_jax():
     _close(tl, jl)
     _close(tm["lm_loss"], jm["lm_loss"])
     _close(tm["aux_loss"], jm["aux_loss"])
+
+
+def test_jamba_every_gradient_matches_jax():
+    """Training the Mamba and MoE layers: every gradient leaf of the loss
+    (with the aux term) through the plain scan, which keeps each step's
+    state under autograd, at 1e-5."""
+    cfg = _jcfg()
+    jp = jtr.init_params(jax.random.PRNGKey(0), cfg, jnp.float32)
+    x, y = _tokens(cfg)
+    (jl, _), jg = jax.value_and_grad(jtr.loss_fn, has_aux=True)(
+        jp, cfg, {"tokens": jnp.asarray(x), "labels": jnp.asarray(y)})
+    tp = tio.params_from_numpy(_np(jp), "cpu")
+    tparams = [t.requires_grad_() for t in leaves(tp)]
+    tl, _ = ttr.loss_fn(tp, cfg, {"tokens": torch.tensor(x),
+                                  "labels": torch.tensor(y)})
+    _close(tl, jl)
+    for g, want in zip(torch.autograd.grad(tl, tparams),
+                       jax.tree.leaves(jg)):
+        _close(g, want)
+    # a state updated in place has no gradient: the plain scan refuses one
+    from repro_torch.models.mamba import selective_scan_ref
+    xc = torch.ones((1, 2, 4), requires_grad=True)
+    ones = (torch.ones((1, 2, 4)), torch.ones((1, 2, 2)),
+            torch.ones((1, 2, 2)), -torch.ones((4, 2)), torch.ones(4))
+    with pytest.raises(ValueError, match="h0"):
+        selective_scan_ref(xc, *ones, h0=torch.zeros((1, 4, 2)))
+
+
+def test_phi4_tied_embeddings_loss_and_gradients_match_jax():
+    """phi4-mini-3.8b's smoke config (tied embeddings: no ``head`` leaf,
+    the LM head reads the embedding table): the tree's keys, the loss and
+    every gradient leaf at 1e-5."""
+    from repro_torch.configs import get_smoke_config as t_smoke
+    cfg = get_smoke_config("phi4-mini-3.8b")
+    tcfg = t_smoke("phi4-mini-3.8b")
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(cfg)
+    jp = jtr.init_params(jax.random.PRNGKey(0), cfg, jnp.float32)
+    assert tcfg.tie_embeddings and "head" not in ttr.init_params(
+        0, tcfg, torch.float32, device="cpu")
+    x, y = _tokens(cfg)
+    (jl, _), jg = jax.value_and_grad(jtr.loss_fn, has_aux=True)(
+        jp, cfg, {"tokens": jnp.asarray(x), "labels": jnp.asarray(y)})
+    tp = tio.params_from_numpy(_np(jp), "cpu")
+    tparams = [t.requires_grad_() for t in leaves(tp)]
+    tl, _ = ttr.loss_fn(tp, tcfg, {"tokens": torch.tensor(x),
+                                   "labels": torch.tensor(y)})
+    _close(tl, jl)
+    for g, want in zip(torch.autograd.grad(tl, tparams),
+                       jax.tree.leaves(jg)):
+        _close(g, want)
 
 
 @pytest.mark.parametrize("impl", ["kernel", "ref"])

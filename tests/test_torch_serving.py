@@ -150,6 +150,40 @@ def test_bank_ensemble_mode_matches_jax():
         lin_apply, stack, jnp.asarray(x), jnp.asarray(y))))
 
 
+@pytest.mark.parametrize("engine", ["python", "fused"])
+@pytest.mark.parametrize("mode", ["ensemble", "shared"])
+def test_published_snapshot_survives_the_next_round(mode, engine):
+    """A snapshot from ``publish_from`` is the bank's own: the engines
+    train and mix the learner's tensors in place, and the round after the
+    publication leaves the snapshot bit for bit unchanged, in both modes
+    (an ensemble publication used to hand over the live stacked tree)."""
+    from repro_torch.configs.base import CoLearnConfig
+    from repro_torch.core.colearn import CoLearner
+
+    def loss(p, b):
+        return torch.nn.functional.cross_entropy(lin_apply(p, b[0]),
+                                                 b[1]), {}
+    x, y = cls_data(n=48)
+    batches = (torch.tensor(x).reshape(3, 2, 8, 4),
+               torch.tensor(y).reshape(3, 2, 8))
+    learner = CoLearner(CoLearnConfig(n_participants=3, T0=1, eta0=0.5,
+                                      max_rounds=3),
+                        loss, round_engine=engine, device="cpu")
+    state = learner.init(_t(lin_params(0)))
+    state = learner.run_round(state, lambda i, j: batches)
+    bank = ModelBank(mode=mode)
+    snap = bank.publish_from(learner, state)
+    kept = {k: v.clone() for k, v in snap.params.items()}
+    live = {k: v.clone() for k, v in state["params"].items()}
+    state = learner.run_round(state, lambda i, j: batches)
+    assert not torch.equal(state["params"]["w"], live["w"])  # it trained
+    for k, v in snap.params.items():
+        assert torch.equal(v, kept[k]), k
+        assert all(v.data_ptr() != t.data_ptr()
+                   for t in state["params"].values())
+    assert bank.current() is snap
+
+
 def test_bank_rejects_bad_modes(tmp_path):
     with pytest.raises(ValueError):
         ModelBank(mode="nope")
