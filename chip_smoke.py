@@ -165,7 +165,28 @@ Phases:
      hook, the card against the CPU at 1e-4 with equal sync patterns,
      bills, versions and staleness; (d) every ``examples/torch_*.py``
      once on the card at its own sizes (exit 0; the compressed-WAN
-     walkthrough launches K1-K4).
+     walkthrough launches K1-K4);
+ 12. the paper's own tasks (``repro_torch.paper_tasks``): (a) the nine
+     convnet / GRU / CRNN testbeds' logits, loss and every gradient on a
+     batch of 32, card against CPU from the same params at 1e-5, with
+     cuDNN's TF32 switched on globally (the port keeps its convolutions
+     in f32 itself); (b) Table 2, ``cifar_like.run()`` at its defaults
+     (three image models, n = 4,000, K = 5, 6 rounds, 8 for co-learning):
+     each row and each run's seconds, then resnet_tiny's co-learning run
+     once more through the fused engine (one round capture per T, its
+     replayed rounds' seconds an epoch beside the python engine's, peak
+     memory); (c) Tables 4-6, ``tasks.run()`` at 4 rounds of its 5
+     (``ROUNDS12C``), and the heterogeneity sweep,
+     ``ablation.heterogeneity()``, at its defaults: the sweep's
+     shard sizes and coverage equal ``benchmarks/BENCH_heterogeneity.json``
+     row for row, its accuracies printed beside the committed JAX rows
+     (not held: the inits differ); (d) resnet_tiny, K = 5, the fused
+     engine, 2 steps an epoch, 3 rounds, under the fused int8 codec (K3
+     once a round) and the leaf-wise one (K1 and K2 once per quantized
+     leaf a round), card against CPU at 1e-4 per round (losses, rel, T,
+     LR) with equal bills; the counters are zeroed just before each run
+     and read after, and land in the kernels line; (e) the two paper-task
+     examples as in 11(d).
 Before the last line come the ``kernels`` JSON and the card's name and
 power limit as ``nvidia-smi`` gives them; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
@@ -2504,14 +2525,14 @@ def phase_small_continuous(torch, dev):
     check(gcaps == 3, f"11c: {gcaps} captures (epochs, gate, finalize)")
 
 
-def phase_examples(torch):
-    """11(d): each torch example once on the card at its own sizes, in
-    this process (``main(["--device", "cuda"])``): exit 0; the wire kernels
-    launched by the compressed-WAN walkthrough are recorded."""
+def phase_examples(torch, names=EXAMPLES11, tag="11d"):
+    """11(d) (and 12(e)): each torch example once on the card at its own
+    sizes, in this process (``main(["--device", "cuda"])``): exit 0; the
+    wire kernels launched by the compressed-WAN walkthrough are recorded."""
     import importlib.util
     import io
     from repro_torch.kernels import ops
-    for name in EXAMPLES11:
+    for name in names:
         path = ROOT / "examples" / f"torch_{name}.py"
         spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
         mod = importlib.util.module_from_spec(spec)
@@ -2525,17 +2546,293 @@ def phase_examples(torch):
         seconds = time.perf_counter() - t0
         counts = {k: v for k, v in ops.launch_counts().items() if v}
         out = buf.getvalue().splitlines()
-        say("examples", example=f"torch_{name}", rc=rc, seconds=seconds,
-            launches=counts, tail=out[-8:])
-        check(rc == 0, f"11d: torch_{name} returned {rc}")
+        say("examples", part=tag, example=f"torch_{name}", rc=rc,
+            seconds=seconds, launches=counts, tail=out[-8:])
+        check(rc == 0, f"{tag}: torch_{name} returned {rc}")
         if name == "compressed_wan":
             check(all(counts.get(k, 0) > 0 for k in (
                 "wire_quantize", "wire_dequantize", "wire_quant_avg_dequant",
                 "wire_quant_avg_dequant_ef")),
-                f"11d: compressed_wan launched {counts}")
+                f"{tag}: compressed_wan launched {counts}")
         del mod
         gc.collect()
         torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the paper's own tasks (``repro_torch.paper_tasks``). (a)'s
+# batch is the harness's; (d) is resnet_tiny at K = 5, the fused engine,
+# 2 steps an epoch, 3 rounds, under each wire codec with a kernel.
+# (c)'s Tables 4-6 run 4 rounds of the default 5: ILE doubles T to 8 in
+# the fifth, which alone took 30.6 s of gru_text's 63 s co-learning run
+# and 187 s for the six rows (NVIDIA H100 80GB HBM3, 700 W); n stays 4,000.
+BATCH12 = 32
+ROUNDS12C = 4
+TOL12 = {"rtol": 1e-5, "atol": 1e-5}
+CODECS12 = {"fused": ("wire_quant_avg_dequant",),
+            "leafwise": ("wire_quantize", "wire_dequantize")}
+EXAMPLES12 = ("heterogeneous_shards", "multidc_ablation")
+
+
+@contextlib.contextmanager
+def timed_runs(torch, module, names, out):
+    """Replace each harness function ``module.<name>`` by one that
+    synchronises around the call and appends its seconds (and, for a
+    co-learning run, its per-round seconds and T) to ``out``."""
+    saved = {n: getattr(module, n) for n in names}
+
+    def wrap(name, fn):
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*a, **kw)
+            torch.cuda.synchronize()
+            row = {"run": name, "seconds": time.perf_counter() - t0}
+            if "round_s" in res:
+                row.update(round_s=res["round_s"], T=res["T"])
+            out.append(row)
+            return res
+        return timed
+    for n, fn in saved.items():
+        setattr(module, n, wrap(n, fn))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(module, n, fn)
+
+
+def _model_grads(torch, apply_fn, params, x, y):
+    """Logits, the harness's loss and the gradients of ``logits.sum()`` and
+    of that loss, as one flat list of tensors on the CPU."""
+    from repro_torch.paper_tasks.harness import cls_loss
+    from repro_torch.tree import leaves
+    ps = leaves(params)
+    for t in ps:
+        t.requires_grad_(True)
+    logits = apply_fn(params, x)
+    g_sum = torch.autograd.grad(logits.sum(), ps)
+    loss, _ = cls_loss(apply_fn)(params, (x, y))
+    g_loss = torch.autograd.grad(loss, ps)
+    return [t.detach().cpu() for t in (logits, loss, *g_sum, *g_loss)]
+
+
+def _phase12_models(torch, dev):
+    """12(a): the nine models' logits and gradients, card against CPU from
+    the same params, with cuDNN's TF32 switched ON globally (PyTorch's
+    default): the port keeps its convolutions in f32 itself."""
+    from repro_torch.data.synthetic import audio_like, image_like, text_like
+    from repro_torch.models import convnets as cn
+    from repro_torch.tree import tree_map
+    torch.backends.cudnn.allow_tf32 = True
+    worst = {}
+    try:
+        for models, data in ((cn.IMAGE_MODELS, image_like),
+                             (cn.TEXT_MODELS, text_like),
+                             (cn.AUDIO_MODELS, audio_like)):
+            x, y = data(seed=0, n=BATCH12)
+            x, y = torch.as_tensor(x), torch.as_tensor(y, dtype=torch.int64)
+            for name, (init_fn, apply_fn) in models.items():
+                params = init_fn(torch.Generator().manual_seed(0))
+                want = _model_grads(torch, apply_fn, params, x, y)
+                got = _model_grads(torch, apply_fn, tree_map(
+                    lambda t: t.detach().to(dev), params), x.to(dev),
+                    y.to(dev))
+                err = 0.0
+                for a, b in zip(got, want):
+                    d = (a - b).abs()
+                    err = max(err, float(d.max()))
+                    check(bool((d <= TOL12["atol"]
+                                + TOL12["rtol"] * b.abs()).all()),
+                          f"12a: {name} card vs CPU off by {float(d.max())}"
+                          f" (tol {TOL12})")
+                worst[name] = err
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    say("paper-tasks", part="a", models=len(worst), batch=BATCH12,
+        tol=TOL12, cudnn_allow_tf32=True, max_abs_err=worst)
+    check(len(worst) == 9, f"12a: {len(worst)} models, not 9")
+
+
+def _phase12_table2(torch, dev):
+    """12(b): Table 2 at ``cifar_like.run()``'s defaults, then resnet_tiny's
+    co-learning run once more through the fused engine."""
+    from repro_torch.data.synthetic import image_like
+    from repro_torch.models.convnets import IMAGE_MODELS
+    from repro_torch.paper_tasks import cifar_like
+    runs = []
+    torch.cuda.reset_peak_memory_stats()
+    with timed_runs(torch, cifar_like, ("run_vanilla", "run_ensemble",
+                                        "run_colearn"), runs):
+        rows = cifar_like.run(device=dev)
+    peak = torch.cuda.max_memory_allocated()
+    check([r["model"] for r in rows] == ["vgg_tiny", "resnet_tiny",
+                                         "densenet_tiny"],
+          f"12b: Table 2 rows {rows}")
+    for r in rows:
+        check(all(0.0 <= r[k] <= 1.0 for k in ("vanilla", "ensemble",
+                                               "colearn", "local_mean")),
+              f"12b: accuracy out of range {r}")
+    python = runs[5]                       # resnet_tiny's co-learning run
+    # the same run through the fused engine: one round graph per T
+    init_fn, apply_fn = IMAGE_MODELS["resnet_tiny"]
+    train, test = image_like(0, n=4000), image_like(1000, n=1000)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = cifar_like.run_colearn(init_fn, apply_fn, train, test, K=5,
+                                 rounds=8, T0=1, epsilon=0.03, seed=0,
+                                 engine="fused", device=dev)
+    torch.cuda.synchronize()
+    fused_s = time.perf_counter() - t0
+    fused_peak = torch.cuda.max_memory_allocated()
+    graphs = {f.name: {"captures": f.captures, "replays": f.replays}
+              for f in res["learner"]._runner.graphs.functions}
+    check(graphs["round"]["captures"] == len(set(res["T"])),
+          f"12b: fused round graph {graphs['round']} for T {res['T']}")
+    seen, replayed = set(), []
+    for i, T in enumerate(res["T"]):
+        if T in seen:
+            replayed.append(i)
+        seen.add(T)
+    per_epoch = {eng: [r["round_s"][i] / r["T"][i] for i in replayed
+                       if i < len(r["T"])]
+                 for eng, r in (("python", python), ("fused", res))}
+    say("paper-tasks", part="b", table2=rows, runs=runs,
+        peak_mem_GB=peak / 1e9,
+        resnet_fused={"seconds": fused_s, "round_s": res["round_s"],
+                      "T": res["T"], "acc": res["acc"], "graphs": graphs,
+                      "peak_mem_GB": fused_peak / 1e9},
+        resnet_python={"round_s": python["round_s"], "T": python["T"],
+                       "acc": rows[1]["colearn"]},
+        replayed_rounds=replayed, s_per_epoch_replayed=per_epoch)
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _phase12_tasks(torch, dev):
+    """12(c): Tables 4-6 (``tasks.run()``, its rounds cut to
+    ``ROUNDS12C``) and the heterogeneity sweep at
+    ``ablation.heterogeneity()``'s defaults, whose shard sizes and
+    coverage equal the committed JAX rows."""
+    from repro_torch.paper_tasks import ablation, tasks
+    runs = []
+    torch.cuda.reset_peak_memory_stats()
+    with timed_runs(torch, tasks, ("run_vanilla", "run_colearn"), runs):
+        rows = tasks.run(rounds=ROUNDS12C, device=dev)
+    check([r["model"] for r in rows] == [
+        "gru_text", "transformer_text", "crnn_ap", "crnn_mp", "crnn_sa",
+        "crnn_ma"], f"12c: Tables 4-6 rows {rows}")
+    peak = torch.cuda.max_memory_allocated()
+    say("paper-tasks", part="c-tables", rows=rows, runs=runs,
+        reduced=f"rounds 5 -> {ROUNDS12C} (vanilla epochs and co-learning "
+                "rounds): the time budget", peak_mem_GB=peak / 1e9)
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs = []
+    torch.cuda.reset_peak_memory_stats()
+    with timed_runs(torch, ablation, ("run_colearn",), runs):
+        het = ablation.heterogeneity(device=dev)
+    peak = torch.cuda.max_memory_allocated()
+    ref = json.loads((ROOT / "benchmarks" / "BENCH_heterogeneity.json")
+                     .read_text())["rows"]
+    check(len(het) == len(ref), f"12c: {len(het)} sweep rows")
+    for a, b in zip(het, ref):
+        check((a["alpha"], a["weighted"], a["shard_sizes"], a["coverage"])
+              == (b["alpha"], b["weighted"], b["shard_sizes"],
+                  b["coverage"]),
+              f"12c: sweep row {a} against the committed {b}")
+    say("paper-tasks", part="c-heterogeneity", runs=runs,
+        peak_mem_GB=peak / 1e9,
+        rows=[{"alpha": a["alpha"], "weighted": a["weighted"],
+               "shard_sizes": a["shard_sizes"], "coverage": a["coverage"],
+               "final_acc": a["final_acc"], "curve": a["curve"],
+               "jax_final_acc": b["final_acc"], "jax_curve": b["curve"]}
+              for a, b in zip(het, ref)])
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _phase12_kernels(torch, dev, launches_out):
+    """12(d): resnet_tiny co-learning rounds through the fused engine under
+    the fused int8 codec (K3) and the leaf-wise one (K1 + K2), card
+    against CPU from the same params, per round at 1e-4."""
+    from repro_torch.data.synthetic import image_like
+    from repro_torch.kernels import ops
+    from repro_torch.models.convnets import IMAGE_MODELS
+    from repro_torch.paper_tasks.harness import run_colearn
+    from repro_torch.tree import leaves
+    init_fn, apply_fn = IMAGE_MODELS["resnet_tiny"]
+    params = init_fn(torch.Generator().manual_seed(0))
+    train, test = image_like(0, n=4000), image_like(1000, n=1000)
+    K, rounds = 5, 3
+    for codec, kernels in CODECS12.items():
+        runs = {}
+        for d in ("cpu", dev):
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            runs[str(d)] = run_colearn(
+                lambda gen: params, apply_fn, train, test, K=K,
+                rounds=rounds, T0=1, epsilon=0.03, steps_cap=2,
+                engine="fused", codec=codec, device=d)
+            if d != "cpu":
+                torch.cuda.synchronize()
+            runs[str(d)]["seconds"] = time.perf_counter() - t0
+            runs[str(d)]["launches"] = ops.launch_counts()
+        cpu, card = runs["cpu"], runs[str(dev)]
+        check(not any(cpu["launches"].values()), "12d: the CPU run launched")
+        worst = 0.0
+        for a, b in zip(cpu["state"]["log"], card["state"]["log"]):
+            check((a.T, a.comm_bytes) == (b.T, b.comm_bytes),
+                  f"12d {codec}: T / comm bytes {a} vs {b}")
+            for x, y in [*zip(a.local_losses, b.local_losses),
+                         (a.lr_first, b.lr_first), (a.lr_last, b.lr_last),
+                         (a.rel_change, b.rel_change)]:
+                if math.isinf(x):
+                    check(math.isinf(y), "12d: rel inf on one side only")
+                    continue
+                worst = max(worst, abs(x - y) / max(abs(x), 1e-12))
+        check(worst <= 1e-4, f"12d {codec}: card vs CPU logs differ by "
+                             f"{worst} (rel)")
+        check(cpu["comm_bytes"] == card["comm_bytes"]
+              and cpu["total_comm_bytes"] == card["total_comm_bytes"],
+              f"12d {codec}: comm bytes differ")
+        n_leaves = sum(t.ndim > 0 and t.numel() >= 256
+                       for t in leaves(card["state"]["params"]))
+        per_round = 1 if codec == "fused" else n_leaves
+        counts = card["launches"]
+        check(all(counts[k] == rounds * per_round for k in kernels),
+              f"12d {codec}: launches {counts}, not {per_round} a round")
+        graphs = {f.name: {"captures": f.captures, "replays": f.replays}
+                  for f in card["learner"]._runner.graphs.functions}
+        for k in kernels:
+            launches_out[k] = launches_out.get(k, 0) + counts[k]
+        say("paper-tasks", part="d", codec=codec, K=K, rounds=rounds,
+            steps_per_epoch=2, log_max_rel_diff=worst,
+            comm_bytes=card["comm_bytes"], T=card["T"],
+            launches={k: counts[k] for k in kernels}, graphs=graphs,
+            seconds={"cpu": cpu["seconds"], "card": card["seconds"]},
+            round_s_card=card["round_s"], acc_card=card["acc"],
+            acc_cpu=cpu["acc"])
+        del runs, cpu, card
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_paper_tasks(torch, dev, launches_out, mark):
+    """Phase 12: the paper's tasks on the card, (a)-(e)."""
+    _phase12_models(torch, dev)
+    mark("12a")
+    _phase12_table2(torch, dev)
+    mark("12b")
+    _phase12_tasks(torch, dev)
+    mark("12c")
+    _phase12_kernels(torch, dev, launches_out)
+    mark("12d")
+    phase_examples(torch, EXAMPLES12, "12e")
+    mark("12e")
 
 
 # ---------------------------------------------------------------------------
@@ -3133,6 +3430,7 @@ def main(argv=None):
     mark("11b")
     phase_examples(torch)
     mark("11d")
+    phase_paper_tasks(torch, dev, launches, mark)
 
     kernels = []
     for kname, (tag, replaces, source) in KERNEL_META.items():

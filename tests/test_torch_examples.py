@@ -125,3 +125,40 @@ def test_continuous_serving(capsys):
     assert out[-1] == (f"served 192 tokens across 6 batches while training "
                        f"6 rounds; final version v{1 + n_sync} of "
                        f"{1 + n_sync}")
+
+
+def test_heterogeneous_shards(capsys):
+    from repro_torch.data.partition import dirichlet_partition
+    from repro_torch.data.synthetic import image_like
+    out = run("heterogeneous_shards", capsys, "--n-examples", "400",
+              "--rounds", "2")
+    assert out[0].startswith("== quantity skew")
+    for line in out[1:3]:
+        assert re.match(r"^  weighted=(False|True): shards=\[200, 100, 50, "
+                        r"50\] acc/round=\['\S+', '\S+'\]$", line), line
+    assert out[3].startswith("== label skew")
+    _, y = image_like(seed=0, n=400)
+    for line, alpha in zip(out[4:6], (0.1, 1.0)):
+        want = [len(i) for i in dirichlet_partition(y, 4, alpha, 0,
+                                                    min_size=32)]
+        assert line.startswith(f"  alpha={alpha}: shards={want} "), line
+        assert sum(want) == 400
+    assert out[-1] == ("every example trained: shard sizes above always "
+                       "sum to 400")
+
+
+def test_multidc_ablation(capsys):
+    out = run("multidc_ablation", capsys, "--n-examples", "320",
+              "--rounds", "1")
+    rows = [x for x in out if x.startswith("ablation,resnet_tiny,")]
+    assert [x.split(",")[2] for x in rows] == [
+        "clr+ile", "clr+fle", "elr+ile", "elr+fle"]
+    assert all(x.endswith(",T=[1]") for x in rows)
+    assert re.match(r"^best combo: (clr|elr)\+(ile|fle) \(paper: clr\+ile\)$",
+                    out[out.index(rows[-1]) + 1])
+    table = [x for x in out if x.startswith("table2,")]
+    assert [x.split(",")[1] for x in table] == ["vgg_tiny", "resnet_tiny"]
+    for line in table:
+        accs = dict(kv.split("=") for kv in line.split(",")[2:])
+        assert set(accs) == {"vanilla", "ensemble", "colearn", "local_mean"}
+        assert all(0.0 <= float(a) <= 1.0 for a in accs.values())

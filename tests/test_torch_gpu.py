@@ -1100,3 +1100,135 @@ def test_gpu_continuous_cli_runs(cuda, tmp_path, capsys):
     version = int(out[-1].rsplit("v", 1)[1])
     assert sorted(p.name for p in tmp_path.glob("v*.npz")) == sorted(
         f"v{v}.npz" for v in range(1, version + 1))
+
+
+# ---------------------------------------------------------------------------
+# The paper's tasks (``models/convnets.py``, ``paper_tasks/harness.py``)
+def _convnet_cases():
+    from repro_torch.models import convnets as cn
+    return [(name, fns) for models in (cn.IMAGE_MODELS, cn.TEXT_MODELS,
+                                       cn.AUDIO_MODELS)
+            for name, fns in models.items()]
+
+
+def _convnet_batch(name, n=32):
+    from repro_torch.data.synthetic import audio_like, image_like, text_like
+    data = (image_like if name.endswith("_tiny") else text_like
+            if name.endswith("_text") else audio_like)
+    x, y = data(seed=0, n=n)
+    return torch.as_tensor(x), torch.as_tensor(y, dtype=torch.int64)
+
+
+def _convnet_outputs(apply_fn, params, x, y):
+    from repro_torch.paper_tasks.harness import cls_loss
+    from repro_torch.tree import leaves
+    ps = leaves(params)
+    for t in ps:
+        t.requires_grad_(True)
+    logits = apply_fn(params, x)
+    g_sum = torch.autograd.grad(logits.sum(), ps)
+    loss, _ = cls_loss(apply_fn)(params, (x, y))
+    g_loss = torch.autograd.grad(loss, ps)
+    return [t.detach().cpu() for t in (logits, loss, *g_sum, *g_loss)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", [n for n, _ in _convnet_cases()])
+def test_gpu_convnets_match_cpu(cuda, name):
+    """Logits and every gradient, card against CPU from the same params,
+    at 1e-5, with cuDNN's TF32 at PyTorch's default (on)."""
+    from repro_torch.tree import tree_map
+    init_fn, apply_fn = dict(_convnet_cases())[name]
+    params = init_fn(torch.Generator().manual_seed(0))
+    x, y = _convnet_batch(name)
+    want = _convnet_outputs(apply_fn, params, x, y)
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got = _convnet_outputs(apply_fn, tree_map(
+            lambda t: t.detach().to(cuda), params), x.to(cuda), y.to(cuda))
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    assert torch.backends.cudnn.allow_tf32 == prev
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def _scaled_err(got, want):
+    """Worst |got - want| over max |want|, per tensor: the f32 summation
+    order alone moves a 2,048-term weight-gradient sum by ~1e-6 of its
+    scale, TF32 rounding by ~1e-4 to 1e-3."""
+    return [float((a - b).abs().max() / b.abs().max())
+            for a, b in zip(got, want)]
+
+
+@pytest.mark.gpu
+def test_gpu_convnet_conv_stays_f32_under_tf32(cuda):
+    """A 3x3 conv of fan-in 3·3·48: cuDNN under TF32 is ~1e-3 off the CPU,
+    the port's ``_conv`` (forward and both gradients) within 1e-5 of each
+    tensor's scale with the global TF32 flag left on, and the flag is on
+    again after the call."""
+    import torch.nn.functional as F
+    from repro_torch.models.convnets import _conv
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(32, 8, 8, 48, generator=g)
+    w = torch.randn(3, 3, 48, 48, generator=g) * (3 * 3 * 48) ** -0.5
+
+    def run(dev, fn):
+        xd = x.to(dev).requires_grad_(True)
+        wd = w.to(dev).requires_grad_(True)
+        y = fn(xd, wd)
+        gx, gw = torch.autograd.grad((y * y).sum(), (xd, wd))
+        return [t.detach().cpu() for t in (y, gx, gw)]
+
+    def raw(xd, wd):
+        y = F.conv2d(F.pad(xd.permute(0, 3, 1, 2), (1, 1, 1, 1)),
+                     wd.permute(3, 2, 0, 1))
+        return y.permute(0, 2, 3, 1)
+
+    want = run("cpu", _conv)
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32 = run(cuda, raw)
+        got = run(cuda, _conv)
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    # the test can fail: TF32 convolutions are well outside the tolerance
+    raw_err, port_err = _scaled_err(tf32, want), _scaled_err(got, want)
+    assert max(raw_err) > 1e-4, raw_err
+    assert max(port_err) <= 1e-5, (port_err, raw_err)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_gpu_captured_resnet_round_equals_python(cuda):
+    """resnet_tiny through the harness, K = 5, 3 rounds: the fused engine's
+    captured rounds equal the python engine's on the card (logs at 1e-5,
+    accuracies within one test example, the same shared model at 1e-5)."""
+    from repro_torch.data.synthetic import image_like
+    from repro_torch.models.convnets import IMAGE_MODELS
+    from repro_torch.paper_tasks.harness import run_colearn
+    from repro_torch.tree import leaves
+    init_fn, apply_fn = IMAGE_MODELS["resnet_tiny"]
+    params = init_fn(torch.Generator().manual_seed(0))
+    train, test = image_like(0, n=640), image_like(1000, n=200)
+    runs = {eng: run_colearn(lambda gen: params, apply_fn, train, test,
+                             K=5, rounds=3, T0=1, epsilon=0.03,
+                             steps_cap=2, engine=eng, device=cuda)
+            for eng in ("python", "fused")}
+    py, fu = runs["python"], runs["fused"]
+    rnd = fu["learner"]._fused_round
+    assert rnd.captures == len(set(fu["T"])) and rnd.replays >= 1
+    assert py["T"] == fu["T"] and py["comm_bytes"] == fu["comm_bytes"]
+    for a, b in zip(py["state"]["log"], fu["state"]["log"]):
+        np.testing.assert_allclose(b.local_losses, a.local_losses,
+                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose([b.lr_first, b.lr_last, b.rel_change],
+                                   [a.lr_first, a.lr_last, a.rel_change],
+                                   rtol=1e-5, atol=1e-5)
+    assert all(abs(a - b) <= 1 / 200 + 1e-9
+               for a, b in zip(py["acc"], fu["acc"]))
+    for a, b in zip(leaves(py["final_params"]), leaves(fu["final_params"])):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)

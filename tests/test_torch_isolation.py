@@ -49,7 +49,12 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert {f.name for f in files if f.parent.name == "examples"} == {
         f"torch_{n}.py" for n in ("quickstart", "compressed_wan",
                                   "elastic_membership", "graph_gossip",
-                                  "serve_decode", "continuous_serving")}
+                                  "serve_decode", "continuous_serving",
+                                  "heterogeneous_shards",
+                                  "multidc_ablation")}
+    assert {f.name for f in files if f.parent.name == "paper_tasks"} == {
+        "__init__.py", "harness.py", "cifar_like.py", "tasks.py",
+        "ablation.py"}
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN]
     assert not bad, bad
@@ -82,6 +87,10 @@ def test_entry_points_raise_without_a_card(no_cuda):
     from repro_torch.launch import continuous
     with pytest.raises(RuntimeError, match="CUDA"):
         continuous.main(["--rounds", "1"])
+    from repro_torch.paper_tasks import ablation, cifar_like, tasks
+    for script in (cifar_like, tasks, ablation):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            script.main([])
     import importlib.util
     for path in sorted((ROOT / "examples").glob("torch_*.py")):
         spec = importlib.util.spec_from_file_location(path.stem, path)
