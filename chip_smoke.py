@@ -9,8 +9,10 @@ Phases:
   2. build the kernels from ``src/repro_torch/kernels/csrc`` (one nvcc per
      source, all started together);
   3. each kernel (K1-K7) against its plain PyTorch version on the card
-     at small odd shapes and at the main path's shapes (K5 at both
-     internlm2-1.8b's and jamba-v0.1-52b's attention; K1 and K2 both
+     at small odd shapes and at the main path's shapes (K5 at
+     internlm2-1.8b's and jamba-v0.1-52b's attention and at phase 13's:
+     arctic-480b's 56 / 8 heads, qwen1.5-32b's MHA 40 / 40 and
+     musicgen-large's 32 / 32 at head size 64; K1 and K2 both
      over the leaves of the K=3 stacked tree and once over its flat
      (3, N_pad) buffer, bit for bit), timed with CUDA
      events (median of >= 10 runs after warm-up; the plain mLSTM and
@@ -175,7 +177,7 @@ Phases:
      each row and each run's seconds, then resnet_tiny's co-learning run
      once more through the fused engine (one round capture per T, its
      replayed rounds' seconds an epoch beside the python engine's, peak
-     memory); (c) Tables 4-6, ``tasks.run()`` at 4 rounds of its 5
+     memory); (c) Tables 4-6, ``tasks.run()`` at 3 rounds of its 5
      (``ROUNDS12C``), and the heterogeneity sweep,
      ``ablation.heterogeneity()``, at its defaults: the sweep's
      shard sizes and coverage equal ``benchmarks/BENCH_heterogeneity.json``
@@ -186,7 +188,31 @@ Phases:
      leaf a round), card against CPU at 1e-4 per round (losses, rel, T,
      LR) with equal bills; the counters are zeroed just before each run
      and read after, and land in the kernels line; (e) the two paper-task
-     examples as in 11(d).
+     examples as in 11(d);
+ 13. the six architectures ported last, f32: (a) deepseek-v3-671b at
+     full width (d 7168, 128 heads, q_lora 1536, kv_lora 512, 256
+     experts top-8 plus a shared one, vocab 129,280), cut to one
+     ``mla:dense`` and one ``mla:moe`` layer and no MTP head: init (its
+     peak against the params' bytes), two prefills of 4 x 2048 with
+     synchronised spans (MLA layers, their latent attention, MoE and
+     dense FFNs; K5 launched 0 times: MLA never reaches it), then (b)-(d)
+     of the serving phases at batch 4 with no swap (two copies do not
+     fit) and the loop's prefill at the least drop-free factor
+     (``ceil(n_experts / top_k)``), with the latent cache's floats per
+     token and layer (576) beside a 128-head K/V cache's, and decode's ms
+     a step against two bounds: every weight once (what the capacity
+     dispatch reads: all experts) and the routed one (the experts a
+     step's 4 x top_k choices can reach, min(E, 4 top_k), beside every
+     other weight); (b) arctic-480b at full width, one
+     ``gqa:moe_dense`` layer, prefill 8 x 2048 through K5 (one launch a
+     prefill) with K5, MoE and dense-FFN spans, then as (a); (c)
+     qwen2-72b (QKV biases drawn) and internvl2-76b (256 prefix
+     embeddings + 1,792 tokens) at full width, 2 of 80 layers: the K5
+     prefill of 8 x 2048 against the plain prefill at 1e-4; (d) the six
+     smoke configs card against CPU at 1e-4: the loss (MTP and aux in
+     it), every gradient and ``decode_step`` logits; (e) the train CLI,
+     fused engine, 2 rounds of deepseek-v3-671b and arctic-480b, and
+     internvl2-76b stopping on its missing prefix.
 Before the last line come the ``kernels`` JSON and the card's name and
 power limit as ``nvidia-smi`` gives them; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
@@ -254,6 +280,13 @@ FA_SMALL = [(1, 128, 128, 4, 4, 32, 32, 0), (2, 256, 256, 8, 2, 64, 64, 0),
 # layer (phase 8: 4 query heads per KV head)
 FA_PATH = (8, 2048, 2048, 16, 8, 128, 128, 0)
 FA_PATH_JAMBA = (8, 2048, 2048, 32, 8, 128, 128, 0)
+# ... and the attention shapes phase 13's architectures give it: arctic-
+# 480b's 56 / 8 heads (group 7), qwen1.5-32b's MHA 40 / 40 and
+# musicgen-large's 32 / 32 at head size 64 (qwen2-72b's and
+# internvl2-76b's 64 / 8 are held through their prefills in 13(c))
+FA_PATH_NEW = {"arctic-480b": (8, 2048, 2048, 56, 8, 128, 128, 0),
+               "qwen1.5-32b": (8, 2048, 2048, 40, 40, 128, 128, 0),
+               "musicgen-large": (8, 2048, 2048, 32, 32, 64, 64, 0)}
 # K7 against its plain version: the JAX suite's tolerance
 # (tests/test_kernels.py). (B, S, H, hd): one step, odd lengths, the JAX
 # sweep's shapes and xlstm-1.3b's head size
@@ -2563,11 +2596,14 @@ def phase_examples(torch, names=EXAMPLES11, tag="11d"):
 # phase 12: the paper's own tasks (``repro_torch.paper_tasks``). (a)'s
 # batch is the harness's; (d) is resnet_tiny at K = 5, the fused engine,
 # 2 steps an epoch, 3 rounds, under each wire codec with a kernel.
-# (c)'s Tables 4-6 run 4 rounds of the default 5: ILE doubles T to 8 in
-# the fifth, which alone took 30.6 s of gru_text's 63 s co-learning run
-# and 187 s for the six rows (NVIDIA H100 80GB HBM3, 700 W); n stays 4,000.
+# (c)'s Tables 4-6 run 3 rounds of the default 5 (T 1, 1, 2; n stays
+# 4,000): the host's dispatch paces them, so their time follows the
+# host's speed. At 4 rounds they took 155.6 s on one host and 276.9 s on
+# a slower one, where the whole script reached 1,106 s of its 1,200
+# (NVIDIA H100 80GB HBM3, 700 W); the fourth round (T 4) costs as much as
+# the three before it.
 BATCH12 = 32
-ROUNDS12C = 4
+ROUNDS12C = 3
 TOL12 = {"rtol": 1e-5, "atol": 1e-5}
 CODECS12 = {"fused": ("wire_quant_avg_dequant",),
             "leafwise": ("wire_quantize", "wire_dequantize")}
@@ -2949,8 +2985,8 @@ def _per_layer(torch, cfg, params, xs, ys, tol, tag):
 
 
 def _loop_swap(torch, dev, cfg, params, g, tol, tag, bound_ms,
-               end_to_end=True, swap=True):
-    """(b)-(d) of the serving phases: the ``ServeLoop`` at batch 8 (128 +
+               end_to_end=True, swap=True, batch=8):
+    """(b)-(d) of the serving phases: the ``ServeLoop`` at ``batch`` (128 +
     64 tokens, every ``generate`` under the sync guard), its decode step
     captured once, when the loop is built, and replayed for every prompt
     and decode token; (c) with ``swap``, a second model published to a
@@ -2964,13 +3000,13 @@ def _loop_swap(torch, dev, cfg, params, g, tol, tag, bound_ms,
     against the kernel prefill at ``tol``: every layer on the same inputs
     and, when ``end_to_end``, the last-prompt logits. Otherwise the
     logits' distance is recorded beside that of ``prefill(impl="ref")``,
-    the spread of two f32 orderings of the same model. (d) runs at a
-    drop-free MoE capacity factor where the model has experts: which
-    tokens a capacity drops depends on how many tokens a call sees.
-    Returns the record."""
+    the spread of two f32 orderings of the same model. (d) runs at the
+    least drop-free MoE capacity factor, ``ceil(n_experts / top_k)``, where
+    the model has experts: which tokens a capacity drops depends on how
+    many tokens a call sees. Returns the record."""
     from repro_torch.models import transformer as tr
     from repro_torch.serving import ModelBank, ServeLoop
-    B, P, new, max_seq = 8, 128, 64, 256
+    B, P, new, max_seq = batch, 128, 64, 256
     prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=g,
                             device=dev)
     torch.cuda.synchronize()
@@ -3047,8 +3083,10 @@ def _loop_swap(torch, dev, cfg, params, g, tol, tag, bound_ms,
     del cache, eager
 
     # (d) the loop's token-by-token prefill against the kernel prefill
-    cfg_d = (cfg.with_(capacity_factor=float(cfg.n_experts))
-             if cfg.n_experts else cfg)
+    cfg_d = cfg
+    if cfg.n_experts:
+        cfg_d = cfg.with_(capacity_factor=float(-(-cfg.n_experts
+                                                   // cfg.top_k)))
     with recorded_layer_decodes(torch, tr, cfg_d.n_layers,
                                 (B, P, cfg.d_model), dev) as (xs, ys):
         loop_d = ServeLoop(cfg_d, params1, batch=B, max_seq=max_seq,
@@ -3165,6 +3203,23 @@ def decode_weight_bytes(params, cfg, batch):
     if not cfg.tie_embeddings:
         n -= params["embed"]["table"].numel() - batch * cfg.d_model
     return 4 * n
+
+
+def routed_weight_bytes(params, cfg, batch):
+    """``decode_weight_bytes`` with, of each MoE layer's routed experts,
+    only the ``min(E, batch * top_k)`` that the batch's choices can reach:
+    the least a decode step needs, where the capacity dispatch reads all
+    E experts' weights."""
+    from repro_torch.tree import leaves_with_path
+    named = [(path.rsplit("/", 1), t)
+             for path, t in leaves_with_path(params)]
+    moes = {parent for (parent, name), _ in named if name == "router"}
+    routed = sum(t.numel() for (parent, name), t in named
+                 if parent in moes and name in ("wi", "wg", "wo"))
+    E = cfg.n_experts
+    unused = E - min(E, batch * cfg.top_k) if E else 0
+    return (decode_weight_bytes(params, cfg, batch)
+            - 4 * routed * unused // max(E, 1))
 
 
 def phase_xlstm_serving(torch, dev, launches_out, k7_ms, bw):
@@ -3328,6 +3383,320 @@ def phase_jamba_serving(torch, dev, launches_out, k6_ms, bw):
 
 
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# Phase 13: the six architectures ported last
+# ---------------------------------------------------------------------------
+# 13(a)/(b): deepseek-v3-671b and arctic-480b at full width, cut in depth
+# to what fits one card in f32 (their MoE leaves are the largest single
+# tensors the port makes: 15.0 and 17.8 GB). (c): qwen2-72b and
+# internvl2-76b at full width, 2 of 80 layers. Prefill batches and the
+# loop's batch per model.
+LAYERS13 = 2
+B13_DEEPSEEK, B13_ARCTIC, B13_DENSE, S13 = 4, 8, 8, 2048
+LOOP_B13 = 4
+SMOKE13 = ("qwen1.5-32b", "qwen2-72b", "musicgen-large", "internvl2-76b",
+           "arctic-480b", "deepseek-v3-671b")
+TOL13 = {"rtol": 1e-4, "atol": 1e-4}
+
+
+def deepseek13_cfg():
+    """deepseek-v3-671b at full width: one ``mla:dense`` and one
+    ``mla:moe`` layer (the segment structure kept), no MTP head."""
+    from repro_torch.configs import get_config
+    return get_config("deepseek-v3-671b").with_(
+        n_layers=2, segments=((("mla:dense",), 1), (("mla:moe",), 1)),
+        mtp_depth=0)
+
+
+def arctic13_cfg():
+    """arctic-480b at full width: one ``gqa:moe_dense`` layer."""
+    from repro_torch.configs import get_config
+    return get_config("arctic-480b").with_(
+        n_layers=1, segments=((("gqa:moe_dense",), 1),))
+
+
+def _init13(torch, cfg, dev):
+    """Init at full width -> (params, record): seconds, values, bytes, the
+    largest leaf and the allocator's peak during init, which the in-place
+    ``trunc_normal`` holds to the params plus at most one leaf."""
+    from repro_torch.models import transformer as tr
+    from repro_torch.tree import leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = tr.init_params(0, cfg, torch.float32, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = tr.count_params(params)
+    leaf = max(t.numel() for t in leaves(params))
+    peak = torch.cuda.max_memory_allocated() - base
+    check(peak <= 4 * (n + leaf),
+          f"13: init of {cfg.name} peaked at {peak / 1e9:.2f} GB over "
+          f"{4 * n / 1e9:.2f} GB of params (largest leaf "
+          f"{4 * leaf / 1e9:.2f} GB)")
+    return params, {"params": n, "params_GB": 4 * n / 1e9,
+                    "largest_leaf_GB": 4 * leaf / 1e9, "init_s": init_s,
+                    "init_peak_mem_GB": peak / 1e9}
+
+
+def _serve13(torch, dev, launches_out, bw, cfg, tag, B, seed, reduced,
+             span_targets, per_prefill, cache_floats):
+    """13(a)/(b): a full-width MoE model cut in depth: two prefills of
+    B x 2048 through ``make_prefill_step(impl="kernel")`` (the second with
+    synchronised spans), then the ``ServeLoop`` (batch ``LOOP_B13``, 128 +
+    64 tokens) against an eager loop of the same model (two copies do not
+    fit: no swap) and the loop's prefill against the kernel prefill at a
+    drop-free factor. Decode stands beside two bounds: every weight once
+    (``decode_weight_bytes``: the capacity dispatch reads every expert)
+    and the routed one (``routed_weight_bytes``). ``cache_floats``: the
+    decode cache's f32 floats per token and layer."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tr
+    g = torch.Generator(device=dev).manual_seed(seed)
+    params, init = _init13(torch, cfg, dev)
+    torch.cuda.reset_peak_memory_stats()
+    tokens = torch.randint(0, cfg.vocab_size, (B, S13), generator=g,
+                           device=dev)
+    n_layers = cfg.n_layers
+    state_bytes = 4 * LOOP_B13 * 256 * cache_floats * n_layers
+    bound_ms = 1e3 * (decode_weight_bytes(params, cfg, LOOP_B13)
+                      + 2 * state_bytes) / bw
+    routed_bytes = routed_weight_bytes(params, cfg, LOOP_B13)
+    routed_ms = 1e3 * (routed_bytes + 2 * state_bytes) / bw
+    ops.reset_launch_counts()
+    prefill_s, spans, _ = _prefills(torch, cfg, params, tokens, per_prefill,
+                                    tag, span_targets=span_targets)
+    peak_prefill = torch.cuda.max_memory_allocated()
+    del tokens
+    torch.cuda.empty_cache()
+    rec = _loop_swap(torch, dev, cfg, params, g, TOL13, tag, bound_ms,
+                     swap=False, batch=LOOP_B13)
+    counts = ops.launch_counts()
+    for kernel, n in per_prefill.items():
+        check(counts[kernel] == 4 * n,
+              f"{tag}: {kernel} launched {counts[kernel]} times over four "
+              f"prefills, not {4 * n}")
+    for name, n in counts.items():
+        launches_out[name] = launches_out.get(name, 0) + n
+    out = dict(model=cfg.name, part=tag.rstrip("/"), n_layers=n_layers,
+               layer_kinds=cfg.layer_kinds(), reduced=reduced,
+               dtype="float32", batch=B, **init,
+               capacity_factor=cfg.capacity_factor,
+               prefill={"seq_len": S13, "seconds": prefill_s,
+                        "tokens_per_s": [B * S13 / x for x in prefill_s],
+                        "launches_per_prefill": per_prefill,
+                        "spans_s_second_prefill": spans,
+                        "span_shares_second_prefill": {
+                            k: v / prefill_s[1] for k, v in spans.items()},
+                        "peak_mem_GB": peak_prefill / 1e9},
+               decode_cache_floats_per_token_layer=cache_floats,
+               decode_state_GB=state_bytes / 1e9,
+               decode_bound_ms_per_step=bound_ms,
+               decode_routed_weight_GB=routed_bytes / 1e9,
+               decode_routed_bound_ms_per_step=routed_ms,
+               decode_ms_over_routed_bound=[
+                   x / routed_ms for x in rec["loop"]["decode_ms_per_step"]],
+               launches=counts, **rec)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _phase13_dense(torch, dev, launches_out, arch, seed):
+    """13(c): ``arch`` at full width, 2 of 80 layers: a prefill of 8 x
+    2048 through K5 (one launch a layer), held against the plain prefill
+    on the card at ``TOL13``; internvl2's batch is 256 prefix embeddings
+    and 1,792 tokens (S = 2048, as the reference's input specs split it).
+    """
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_prefill_step
+    full = get_config(arch)
+    cfg = full.with_(n_layers=LAYERS13,
+                     segments=((full.segments[0][0], LAYERS13),))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    params, init = _init13(torch, cfg, dev)
+    if cfg.qkv_bias:                      # zeros at init: give them values
+        for seg in params["segments"]:
+            for layer in seg.values():
+                for name in ("bq", "bk", "bv"):
+                    layer["mixer"][name].normal_(0.0, 0.5, generator=g)
+    torch.cuda.reset_peak_memory_stats()
+    P = cfg.prefix_len if cfg.input_mode == "tokens+prefix" else 0
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B13_DENSE, S13 - P),
+                                     generator=g, device=dev)}
+    if P:
+        batch["prefix"] = torch.randn((B13_DENSE, P, cfg.d_model),
+                                      generator=g, device=dev)
+    secs = {}
+    logits = {}
+    for impl in ("kernel", "ref", "kernel"):
+        before = ops.launch_counts()["flash_attention"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits[impl] = make_prefill_step(cfg, impl=impl)(params, batch)
+        torch.cuda.synchronize()
+        secs.setdefault(impl, []).append(time.perf_counter() - t0)
+        n = ops.launch_counts()["flash_attention"] - before
+        want = cfg.n_layers if impl == "kernel" else 0
+        check(n == want, f"13c {arch}: K5 launched {n} times in a "
+                         f"{impl} prefill, not {want}")
+        launches_out["flash_attention"] = (
+            launches_out.get("flash_attention", 0) + n)
+    check(tuple(logits["kernel"].shape) == (B13_DENSE, cfg.vocab_size)
+          and bool(torch.isfinite(logits["kernel"]).all()),
+          f"13c {arch}: prefill logits not finite or misshapen")
+    err = _close(torch, logits["kernel"], logits["ref"], TOL13,
+                 f"13c {arch}: kernel prefill vs plain prefill")
+    out = dict(model=cfg.name, part="c", n_layers=cfg.n_layers,
+               reduced=f"n_layers {full.n_layers} -> {cfg.n_layers}",
+               dtype="float32", batch=B13_DENSE, seq_len=S13, prefix_len=P,
+               qkv_bias=cfg.qkv_bias,
+               k5_shape=[B13_DENSE, S13, cfg.n_heads, cfg.n_kv_heads,
+                         cfg.head_dim], **init,
+               prefill_s=secs, tokens_per_s={
+                   k: [B13_DENSE * S13 / x for x in v]
+                   for k, v in secs.items()},
+               kernel_vs_plain_max_abs_err=err,
+               logits_max_abs=float(logits["ref"].abs().max()),
+               peak_mem_GB=torch.cuda.max_memory_allocated() / 1e9, tol=TOL13)
+    del params, batch, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _phase13_smoke(torch, dev):
+    """13(d): the six smoke configs, card against CPU from the same params
+    at ``TOL13``: the loss (the MTP and aux losses in it) and every
+    gradient, then 6 ``decode_step`` logits over a fresh cache."""
+    import numpy as np
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as tr
+    from repro_torch.tree import leaves, tree_map
+    worst = {}
+    for arch in SMOKE13:
+        cfg = get_smoke_config(arch)
+        cpu = tr.init_params(0, cfg, torch.float32, device="cpu")
+        rng = np.random.default_rng(0)
+        P = cfg.prefix_len if cfg.input_mode == "tokens+prefix" else 0
+        b = {"tokens": rng.integers(0, cfg.vocab_size, (2, 16)),
+             "labels": rng.integers(0, cfg.vocab_size, (2, P + 16))}
+        b["labels"][:, :P] = -1
+        if P:
+            b["prefix"] = rng.standard_normal((2, P, cfg.d_model)).astype(
+                np.float32)
+        res = {}
+        for where in ("cpu", dev):
+            ps = (cpu if where == "cpu" else
+                  tree_map(lambda t: t.detach().to(dev), cpu))
+            flat = [t.requires_grad_(True) for t in leaves(ps)]
+            tb = {k: torch.as_tensor(v, device=where) for k, v in b.items()}
+            loss, m = tr.loss_fn(ps, cfg, tb)
+            grads = torch.autograd.grad(loss, flat)
+            with torch.no_grad():
+                cache = tr.init_cache(cfg, 2, 8, torch.float32, where)
+                dec = []
+                for t in range(6):
+                    lg, _ = tr.decode_step(ps, cfg, cache,
+                                           tb["tokens"][:, t:t + 1],
+                                           torch.tensor(t, device=where))
+                    dec.append(lg)
+            res[str(where)] = [x.detach().cpu() for x in
+                               (loss, *m.values(), *grads, *dec)]
+        err = 0.0
+        for a, w in zip(res[str(dev)], res["cpu"]):
+            err = max(err, _close(torch, a, w, TOL13,
+                                  f"13d {arch}: card vs CPU"))
+        worst[arch] = err
+        check("mtp_loss" in m if cfg.mtp_depth else True,
+              f"13d {arch}: no MTP loss")
+    return {"part": "d", "archs": list(SMOKE13), "tol": TOL13,
+            "max_abs_err": worst}
+
+
+def _phase13_cli(torch):
+    """13(e): the train CLI on the card, fused engine (its default), 2
+    rounds each for deepseek-v3-671b (MLA, MoE and the MTP loss inside
+    the captured epochs) and arctic-480b; internvl2-76b stops before its
+    first round, naming the prefix its batches would need."""
+    import io
+    from repro_torch.launch import train
+    args = ["--device", "cuda", "--participants", "2", "--rounds", "2",
+            "--t0", "1", "--n-examples", "32", "--batch-size", "4",
+            "--seq-len", "16", "--steps-per-epoch", "2"]
+    runs = {}
+    for arch in ("deepseek-v3-671b", "arctic-480b"):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = train.main(args + ["--arch", arch])
+        lines = buf.getvalue().splitlines()
+        rounds = [x for x in lines if x.startswith("round ")]
+        runs[arch] = {"rc": rc, "seconds": time.perf_counter() - t0,
+                      "lines": lines}
+        check(rc == 0 and len(rounds) == 2 and "engine=fused" in lines[0]
+              and all("nan" not in x for x in rounds),
+              f"13e {arch}: rc {rc}, lines {lines}")
+    err = io.StringIO()
+    code = None
+    with contextlib.redirect_stderr(err):
+        try:
+            train.main(args + ["--arch", "internvl2-76b"])
+        except SystemExit as e:
+            code = e.code
+    runs["internvl2-76b"] = {"exit": code, "stderr": err.getvalue()}
+    check(code == 2 and "'prefix'" in err.getvalue(),
+          f"13e: internvl2-76b did not stop on its prefix: {code}, "
+          f"{err.getvalue()}")
+    return {"part": "e", "runs": runs}
+
+
+def phase_new_archs(torch, dev, launches_out, bw, mark):
+    """Phase 13: the six architectures ported last (see the docstring)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as attn, mla as mla_mod, \
+        moe as moe_mod, transformer as tr
+    cfg = deepseek13_cfg()
+    say("new-archs", **_serve13(
+        torch, dev, launches_out, bw, cfg, "13a/", B13_DEEPSEEK, 13,
+        "n_layers 61 -> 2 (one mla:dense, one mla:moe: the segment "
+        "structure kept); mtp_depth 1 -> 0 for the served copy (only "
+        "loss_fn reads the MTP head, whose own mla:moe layer, 11.5 B "
+        "values, does not fit beside the model in f32)",
+        [(mla_mod, "mla_apply", "mla_layers"),
+         (mla_mod, "chunked_attention", "latent_attention"),
+         (moe_mod, "moe_apply", "moe_ffns"),
+         (tr, "ffn_apply", "dense_ffns")],
+        {"flash_attention": 0}, cfg.kv_lora_rank + cfg.qk_rope_dim),
+        mha_cache_floats_per_token_layer=cfg.n_heads * (
+            cfg.qk_nope_dim + cfg.qk_rope_dim + cfg.v_head_dim))
+    mark("13a")
+    cfg = arctic13_cfg()
+    say("new-archs", **_serve13(
+        torch, dev, launches_out, bw, cfg, "13b/", B13_ARCTIC, 14,
+        "n_layers 35 -> 1 (one gqa:moe_dense layer); 480 B values do not "
+        "fit one card",
+        [(attn, "attn_apply", "attention_layer"),
+         (ops, "flash_attention", "k5"),
+         (moe_mod, "moe_apply", "moe_ffns"),
+         (tr, "ffn_apply", "dense_ffn")],
+        {"flash_attention": 1}, 2 * cfg.n_kv_heads * cfg.head_dim))
+    mark("13b")
+    for arch, seed in (("qwen2-72b", 15), ("internvl2-76b", 16)):
+        say("new-archs", **_phase13_dense(torch, dev, launches_out, arch,
+                                          seed))
+    mark("13c")
+    say("new-archs", **_phase13_smoke(torch, dev))
+    mark("13d")
+    say("new-archs", **_phase13_cli(torch))
+    mark("13e")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -3372,6 +3741,9 @@ def main(argv=None):
                                                  FA_PATH, 4)
     timing["flash_attention_jamba"] = phase_flash_full(
         torch, dev, errs, name, bw, FA_PATH_JAMBA, 12)
+    for seed, (arch, shape) in enumerate(FA_PATH_NEW.items(), 30):
+        timing[f"flash_attention_{arch}"] = phase_flash_full(
+            torch, dev, errs, name, bw, shape, seed)
     timing["mlstm"] = phase_mlstm_full(torch, dev, errs, name, bw)
     timing["selective_scan"] = phase_scan_full(torch, dev, errs, name, bw)
     mark("3 path shapes")
@@ -3431,6 +3803,7 @@ def main(argv=None):
     phase_examples(torch)
     mark("11d")
     phase_paper_tasks(torch, dev, launches, mark)
+    phase_new_archs(torch, dev, launches, bw, mark)
 
     kernels = []
     for kname, (tag, replaces, source) in KERNEL_META.items():

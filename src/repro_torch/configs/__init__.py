@@ -1,7 +1,6 @@
 """Config registry: ``get_config(arch_id)`` / ``get_smoke_config(arch_id)``.
 
-Only the architectures the port runs are listed; the others are still to
-port (ROADMAP.md).
+The ten architectures of the JAX package, registered in its order.
 """
 from __future__ import annotations
 
@@ -11,10 +10,16 @@ from repro_torch.configs.base import (CoLearnConfig, InputShape,
                                       INPUT_SHAPES, ModelConfig, TrainConfig)
 
 _MODULES = {
-    "internlm2-1.8b": "internlm2_1_8b",
-    "xlstm-1.3b": "xlstm_1_3b",
-    "jamba-v0.1-52b": "jamba_v0_1_52b",
     "phi4-mini-3.8b": "phi4_mini_3_8b",
+    "qwen1.5-32b": "qwen1_5_32b",
+    "musicgen-large": "musicgen_large",
+    "arctic-480b": "arctic_480b",
+    "internvl2-76b": "internvl2_76b",
+    "xlstm-1.3b": "xlstm_1_3b",
+    "qwen2-72b": "qwen2_72b",
+    "internlm2-1.8b": "internlm2_1_8b",
+    "deepseek-v3-671b": "deepseek_v3_671b",
+    "jamba-v0.1-52b": "jamba_v0_1_52b",
 }
 
 ARCH_IDS = tuple(_MODULES)
@@ -25,9 +30,7 @@ __all__ = ["ARCH_IDS", "CoLearnConfig", "INPUT_SHAPES", "InputShape",
 
 def _mod(arch_id: str):
     if arch_id not in _MODULES:
-        raise NotImplementedError(
-            f"arch {arch_id!r} not yet ported, see ROADMAP.md; ported: "
-            f"{sorted(_MODULES)}")
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_MODULES)}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
 
 

@@ -51,10 +51,11 @@ def flash_attention_fwd(q, k, v, *, n_kv_heads, window=0,
         raise ValueError("q, k and v must lie on one device")
     if max(hd, hd_v) > HD_MAX:
         raise NotImplementedError(
-            f"head sizes above {HD_MAX} (hd={hd}, hd_v={hd_v}) are not yet "
-            "ported: a block keeps 128 query rows and a 64-key tile of K "
-            "and V, 128 wide, in shared memory; wider heads come with MLA, "
-            "see ROADMAP.md")
+            f"head sizes above {HD_MAX} (hd={hd}, hd_v={hd_v}) are outside "
+            "this kernel: a block keeps 128 query rows and a 64-key tile of "
+            "K and V, 128 wide, in shared memory (MLA's 576-wide latent "
+            "attention runs through models.attention.chunked_attention, as "
+            "in the reference)")
     if Sq > Sk:
         raise ValueError(f"Sq={Sq} > Sk={Sk}: the first query rows would "
                          "see no key")

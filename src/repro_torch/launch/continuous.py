@@ -35,7 +35,8 @@ from repro_torch.core.colearn import CoLearner
 from repro_torch.data.stream import ShardStream, get_drift
 from repro_torch.data.synthetic import lm_examples
 from repro_torch.device import resolve_device
-from repro_torch.launch.train import epoch_batches_fn, make_loss_fn
+from repro_torch.launch.train import (epoch_batches_fn, make_loss_fn,
+                                      require_token_inputs)
 from repro_torch.models import transformer as tr
 from repro_torch.serving import ModelBank, ServeLoop
 
@@ -109,6 +110,7 @@ def main(argv=None):
     device = resolve_device(args.device)
 
     cfg = get_smoke_config(args.arch)
+    require_token_inputs(ap, cfg)
     K = args.participants
     drift = drift_from_flags(args)
     x, y = lm_examples(args.seed, args.n_examples, args.seq_len,

@@ -6,14 +6,18 @@ and then greedily decodes through the loop's one decode step (a captured
 CUDA graph on the card, replayed for every token), against a
 KV cache (``--arch internlm2-1.8b``), the recurrent state
 (``--arch xlstm-1.3b``) or both, the Mamba layers' conv tail and SSM
-state beside the attention layer's KV cache (``--arch jamba-v0.1-52b``). It takes the JAX CLI's flags plus ``--device``,
+state beside the attention layer's KV cache (``--arch jamba-v0.1-52b``),
+or MLA's latent cache (``--arch deepseek-v3-671b``); ``--arch`` takes
+any of the ten registered architectures' smoke configs, as the JAX CLI
+does (internvl2-76b decodes tokens only, as there). It takes the JAX
+CLI's flags plus ``--device``,
 which defaults to cuda and raises without a card unless ``cpu`` is
 passed. Params come from the port's own initializer and the prompts from
 numpy, both seeded by ``--seed``.
 
 Usage: PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
-           [--arch xlstm-1.3b|jamba-v0.1-52b] --batch 4 --prompt-len 16 --new-tokens 16 \
-           --max-seq 64
+           [--arch xlstm-1.3b|jamba-v0.1-52b|deepseek-v3-671b|...] \
+           --batch 4 --prompt-len 16 --new-tokens 16 --max-seq 64
 """
 from __future__ import annotations
 

@@ -24,7 +24,11 @@ crash:1:1,rejoin:3:1`` or ``--churn random --churn-p --churn-seed``,
 ``--k-max`` standby slots, the ``--naive-membership`` ablation; churned
 rounds print ``live=n/K``) and ``--checkpoint PATH``, which saves the
 round state after the last round in the format
-``repro/checkpoint/io.py`` reads.
+``repro/checkpoint/io.py`` reads. ``--arch`` takes every registered
+architecture's smoke config, except a ``tokens+prefix`` one (internvl2-76b):
+the synthetic LM corpus has no prefix embeddings to feed it, so the CLI
+stops before the first round and names the missing prefix (the JAX CLI
+fails on it with ``KeyError: 'prefix'`` inside the first step).
 """
 from __future__ import annotations
 
@@ -79,6 +83,16 @@ def eval_loss(params, cfg, x, y, batch=64):
         tot += float(loss) * batch
         n += batch
     return tot / max(n, 1)
+
+
+def require_token_inputs(ap, cfg):
+    """Stop the CLI (``ap.error``) for a config whose batches need more
+    than tokens: the synthetic corpus makes no ``prefix``."""
+    if cfg.input_mode != "tokens":
+        ap.error(f"{cfg.name}: input_mode {cfg.input_mode!r} needs a "
+                 f"'prefix' of (batch, {cfg.prefix_len}, {cfg.d_model}) "
+                 "embeddings in every batch, and the synthetic LM corpus "
+                 "has no prefix generator")
 
 
 def make_loss_fn(cfg):
@@ -236,6 +250,7 @@ def main(argv=None):
         ap.error("--naive-membership requires --churn")
 
     cfg = get_smoke_config(args.arch)
+    require_token_inputs(ap, cfg)
     K = k_max
     ccfg = CoLearnConfig(
         n_participants=K, T0=args.t0, eta0=args.eta0, epsilon=args.epsilon,

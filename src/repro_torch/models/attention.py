@@ -80,7 +80,8 @@ def chunked_attention(q, k, v, *, n_kv_heads, window=0, q_offset=0,
                       chunk_q=1024, chunk_kv=1024, softmax_scale=None):
     """Online-softmax causal attention. q:(B,Sq,H,hd) k,v:(B,Sk,KV,hd)
     -> (B,Sq,H,hd_v) in q's dtype. The peak score tensor is
-    (B,H,cq,ck) whatever the sequence length."""
+    (B,H,cq,ck) whatever the sequence length. KV == 1 takes the
+    shared-KV (MQA / MLA) path, which never repeats k and v."""
     B, Sq, H, hd = q.shape
     Sk = k.shape[1]
     hd_v = v.shape[-1]
@@ -88,6 +89,9 @@ def chunked_attention(q, k, v, *, n_kv_heads, window=0, q_offset=0,
     cq, ck = _chunk(Sq, chunk_q), _chunk(Sk, chunk_kv)
     G = H // n_kv_heads
     dev = q.device
+    if n_kv_heads == 1:
+        return _shared_kv_attention(q * scale, k[:, :, 0], v[:, :, 0],
+                                    window, q_offset, cq, ck)
 
     qh = (q * scale).transpose(1, 2)                        # (B,H,Sq,hd)
     kh = k.repeat_interleave(G, dim=2).transpose(1, 2)      # (B,H,Sk,hd)
@@ -113,6 +117,39 @@ def chunked_attention(q, k, v, *, n_kv_heads, window=0, q_offset=0,
         outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
     out = torch.cat(outs, dim=2).transpose(1, 2)            # (B,Sq,H,hd_v)
     return out.to(q.dtype)
+
+
+def _shared_kv_attention(q, k, v, window, q_offset, cq, ck):
+    """``chunked_attention`` over one KV head shared by every query head:
+    q (B,Sq,H,hd), already scaled; k (B,Sk,hd); v (B,Sk,hd_v). Each chunk
+    folds the heads into the rows of one batched product, (B, cq*H, hd)
+    by (B, hd, ck), so k and v are read as they are: at MLA's full width
+    (128 heads, 576 wide) a repeated k alone would be 128 times the
+    latent cache."""
+    B, Sq, H, hd = q.shape
+    Sk, hd_v = k.shape[1], v.shape[-1]
+    dev = q.device
+    outs = []
+    for i0 in range(0, Sq, cq):
+        qi = q[:, i0:i0 + cq].reshape(B, cq * H, hd)
+        q_pos = q_offset + i0 + torch.arange(cq, device=dev)
+        m = torch.full((B, cq, H), NEG_INF, dtype=torch.float32, device=dev)
+        l = torch.zeros((B, cq, H), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, cq, H, hd_v), dtype=torch.float32, device=dev)
+        for j0 in range(0, Sk, ck):
+            kc, vc = k[:, j0:j0 + ck], v[:, j0:j0 + ck]
+            k_pos = j0 + torch.arange(ck, device=dev)
+            s = (qi @ kc.transpose(-1, -2)).float().view(B, cq, H, ck)
+            s = s + mask_bias(q_pos, k_pos, window)[:, None, :]
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            pv = p.to(vc.dtype).view(B, cq * H, ck) @ vc
+            acc = acc * corr[..., None] + pv.float().view(B, cq, H, hd_v)
+            m = m_new
+        outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
+    return torch.cat(outs, dim=1).to(q.dtype)               # (B,Sq,H,hd_v)
 
 
 def _out_proj(out, wo):

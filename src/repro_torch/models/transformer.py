@@ -3,19 +3,25 @@
 A config's ``segments`` is a sequence of (pattern, repeats); each pattern
 entry is "<mixer>:<ffn>". Parameters for each pattern position carry a
 leading ``repeats`` dim, as in the JAX tree, and ``forward`` loops over
-it. The port runs ``gqa:dense``, ``mamba:dense``, ``mamba:moe``,
-``mlstm:-`` and ``slstm:-`` layers; ``layer_apply`` returns the layer's
-MoE aux loss beside its output and ``forward`` sums it over the layers.
-The other mixers and FFNs (MLA, Arctic's ``moe_dense``), the
-multi-token-prediction head and the prefix input mode are still to port
-(ROADMAP.md).
+it. Every layer kind of the JAX package runs: the mixers ``gqa``,
+``mla`` (DeepSeek-V3's latent attention), ``mamba``, ``mlstm`` and
+``slstm``; the FFNs ``dense``, ``moe`` and Arctic's ``moe_dense`` (the
+MoE's output plus a dense FFN's beside it, on the same normed input).
+``layer_apply`` returns the layer's MoE aux loss beside its output and
+``forward`` sums it over the layers. ``embed_inputs`` puts a
+``tokens+prefix`` config's precomputed prefix embeddings (InternVL2's
+patch embeddings) before the token embeddings. A config with
+``mtp_depth`` has DeepSeek-V3's multi-token-prediction head: ``loss_fn``
+adds 0.3 times the loss of predicting the token two ahead (its layer's
+aux loss dropped, as in the reference); serving never reads it.
 
 Serving: ``prefill`` is the full-sequence forward with the LM head on the
 last position only (``impl="kernel"`` runs attention through K5, the
 Mamba scan through K6 and the mLSTM recurrence through K7);
 ``init_cache`` / ``decode_step`` run one token against a per-layer cache:
-a KV cache for attention, the conv tail and SSM state for Mamba, the
-recurrent state for xLSTM. The cache is a list of segments, each
+a KV cache for attention, the latent ``c_kv`` / ``k_rope`` cache for
+MLA, the conv tail and SSM state for Mamba, the recurrent state for
+xLSTM. The cache is a list of segments, each
 ``{"p<j>": ...}`` with a leading ``repeats`` dim as in the JAX tree,
 allocated for real (JAX broadcasts one layer's zeros) because
 ``decode_step`` updates it in place; ``reset_cache_`` gives it back its
@@ -28,6 +34,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mam
+from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import xlstm as xl
 from repro_torch.models.layers import (dense_init, embed_apply, embed_init,
@@ -36,13 +43,17 @@ from repro_torch.models.layers import (dense_init, embed_apply, embed_init,
                                        softmax_xent)
 from repro_torch.tree import leaves, tree_map
 
-PORTED_KINDS = ("gqa:dense", "mamba:dense", "mamba:moe", "mlstm:-",
-                "slstm:-")
-_MIXER_INIT = {"gqa": attn.attn_init, "mamba": mam.mamba_init,
-               "mlstm": xl.mlstm_init, "slstm": xl.slstm_init}
-_MIXER_DECODE = {"gqa": attn.attn_decode, "mamba": mam.mamba_decode,
-                 "mlstm": xl.mlstm_decode, "slstm": xl.slstm_decode}
+PORTED_KINDS = ("gqa:dense", "gqa:moe_dense", "mla:dense", "mla:moe",
+                "mamba:dense", "mamba:moe", "mlstm:-", "slstm:-")
+INPUT_MODES = ("tokens", "tokens+prefix")
+_MIXER_INIT = {"gqa": attn.attn_init, "mla": mla_mod.mla_init,
+               "mamba": mam.mamba_init, "mlstm": xl.mlstm_init,
+               "slstm": xl.slstm_init}
+_MIXER_DECODE = {"gqa": attn.attn_decode, "mla": mla_mod.mla_decode,
+                 "mamba": mam.mamba_decode, "mlstm": xl.mlstm_decode,
+                 "slstm": xl.slstm_decode}
 _MIXER_CACHE_RESET = {"gqa": attn.attn_cache_reset_,
+                      "mla": mla_mod.mla_cache_reset_,
                       "mamba": mam.mamba_state_reset_,
                       "mlstm": xl.mlstm_state_reset_,
                       "slstm": xl.slstm_state_reset_}
@@ -50,21 +61,17 @@ _MIXER_CACHE_RESET = {"gqa": attn.attn_cache_reset_,
 
 def _check_kind(kind):
     if kind not in PORTED_KINDS:
-        raise NotImplementedError(
-            f"layer kind {kind!r} not yet ported, see ROADMAP.md "
-            f"(ported: {PORTED_KINDS})")
+        raise ValueError(f"unknown layer kind {kind!r} (known: "
+                         f"{PORTED_KINDS})")
 
 
 def _check_supported(cfg):
     for pattern, _ in cfg.segments:
         for kind in pattern:
             _check_kind(kind)
-    if cfg.mtp_depth:
-        raise NotImplementedError(
-            "multi-token prediction not yet ported, see ROADMAP.md")
-    if cfg.input_mode != "tokens":
-        raise NotImplementedError(
-            f"input_mode {cfg.input_mode!r} not yet ported, see ROADMAP.md")
+    if cfg.input_mode not in INPUT_MODES:
+        raise ValueError(f"unknown input_mode {cfg.input_mode!r} (known: "
+                         f"{INPUT_MODES})")
 
 
 def layer_init(gen, kind, cfg, dtype, stack=()):
@@ -73,9 +80,14 @@ def layer_init(gen, kind, cfg, dtype, stack=()):
     p["mixer"] = _MIXER_INIT[mixer](gen, cfg, dtype, stack)
     if ffn != "-":
         p["norm2"] = rmsnorm_init(cfg.d_model, dtype, stack, gen.device)
-        p["ffn"] = (ffn_init(gen, cfg.d_model, cfg.d_ff, dtype, stack)
-                    if ffn == "dense" else
-                    moe_mod.moe_init(gen, cfg, dtype, stack))
+        if ffn == "dense":
+            p["ffn"] = ffn_init(gen, cfg.d_model, cfg.d_ff, dtype, stack)
+        elif ffn == "moe":
+            p["ffn"] = moe_mod.moe_init(gen, cfg, dtype, stack)
+        else:                                   # Arctic: MoE ∥ dense
+            p["ffn"] = {"moe": moe_mod.moe_init(gen, cfg, dtype, stack),
+                        "dense": ffn_init(gen, cfg.d_model, cfg.d_ff,
+                                          dtype, stack)}
     return p
 
 
@@ -87,8 +99,11 @@ def _ffn_residual(p, kind, x, cfg):
         h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
         if ffn == "dense":
             y = ffn_apply(p["ffn"], h)
-        else:
+        elif ffn == "moe":
             y, aux = moe_mod.moe_apply(p["ffn"], h, cfg)
+        else:
+            y, aux = moe_mod.moe_apply(p["ffn"]["moe"], h, cfg)
+            y = y + ffn_apply(p["ffn"]["dense"], h)
         x = x + y
     return x, aux
 
@@ -99,6 +114,8 @@ def layer_apply(p, kind, x, cfg, positions, impl="ref"):
     h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
     if mixer == "gqa":
         y, _ = attn.attn_apply(p["mixer"], h, cfg, positions, impl)
+    elif mixer == "mla":
+        y, _ = mla_mod.mla_apply(p["mixer"], h, cfg, positions, impl)
     elif mixer == "mamba":
         y = mam.mamba_apply(p["mixer"], h, cfg, impl)
     elif mixer == "mlstm":
@@ -117,6 +134,9 @@ def layer_cache_init(kind, cfg, batch, seq_len, dtype, device, stack=()):
     if mixer == "gqa":
         return attn.attn_cache_init(cfg, batch, seq_len, dtype, device,
                                     stack)
+    if mixer == "mla":
+        return mla_mod.mla_cache_init(cfg, batch, seq_len, dtype, device,
+                                      stack)
     if mixer == "mamba":
         return mam.mamba_state_init(cfg, batch, dtype, device, stack)
     if mixer == "mlstm":
@@ -158,7 +178,29 @@ def init_params(seed, cfg, dtype=torch.bfloat16, device=None):
         params["segments"].append(
             {f"p{j}": layer_init(gen, kind, cfg, dtype, stack=(repeats,))
              for j, kind in enumerate(pattern)})
+    if cfg.mtp_depth:                                   # DeepSeek-V3 MTP head
+        params["mtp"] = {
+            "proj": dense_init(gen, 2 * cfg.d_model, cfg.d_model, dtype),
+            "norm_h": rmsnorm_init(cfg.d_model, dtype, (), dev),
+            "norm_e": rmsnorm_init(cfg.d_model, dtype, (), dev),
+            "layer": layer_init(gen, _mtp_kind(cfg), cfg, dtype, stack=(1,)),
+        }
     return params
+
+
+def _mtp_kind(cfg):
+    """The MTP layer's kind: the last segment's last pattern entry."""
+    return cfg.segments[-1][0][-1]
+
+
+def embed_inputs(params, cfg, batch):
+    """batch: dict with 'tokens' (B,S_t) and, for a ``tokens+prefix``
+    config, 'prefix' (B,P,D), cast to the embeddings' dtype and put
+    before them -> (B, P + S_t, D)."""
+    x = embed_apply(params["embed"], batch["tokens"])
+    if cfg.input_mode == "tokens+prefix":
+        x = torch.cat([batch["prefix"].to(x.dtype), x], dim=1)
+    return x
 
 
 def forward(params, cfg, batch, impl="ref", return_hidden=False,
@@ -169,7 +211,7 @@ def forward(params, cfg, batch, impl="ref", return_hidden=False,
     backward pass: the per-layer recomputation of the JAX package
     (``remat``) is not ported yet (ROADMAP.md)."""
     _check_supported(cfg)
-    x = embed_apply(params["embed"], batch["tokens"])
+    x = embed_inputs(params, cfg, batch)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
@@ -192,11 +234,46 @@ def forward(params, cfg, batch, impl="ref", return_hidden=False,
 
 
 def loss_fn(params, cfg, batch, impl="ref"):
-    """Next-token LM loss. labels: -1 = ignore. Returns (loss, metrics)."""
-    logits, aux = forward(params, cfg, batch, impl)
+    """Next-token LM loss (+aux, +MTP when configured). labels: -1 =
+    ignore. Returns (loss, metrics)."""
+    need_h = bool(cfg.mtp_depth)
+    out = forward(params, cfg, batch, impl, return_hidden=need_h)
+    logits, aux = out[0], out[1]
     loss = softmax_xent(logits, batch["labels"])
+    metrics = {"lm_loss": loss, "aux_loss": aux}
+    if need_h:
+        mtp_loss = _mtp_loss(params, cfg, batch, out[2], impl)
+        metrics["mtp_loss"] = mtp_loss
+        loss = loss + 0.3 * mtp_loss
     total = loss + aux
-    return total, {"lm_loss": loss, "aux_loss": aux, "loss": total}
+    metrics["loss"] = total
+    return total, metrics
+
+
+def _mtp_loss(params, cfg, batch, h, impl):
+    """DeepSeek-V3's depth-1 MTP: the normed hidden state at t beside the
+    normed input embedding at t + 1, projected back to D, through one
+    layer of the last kind (its aux loss dropped, as in the reference),
+    the shared final norm and head, predicting the label at t + 2."""
+    mtp = params["mtp"]
+    B, S = h.shape[0], h.shape[1]
+    emb = embed_inputs(params, cfg, batch)
+    h_in = torch.cat(
+        [rmsnorm_apply(mtp["norm_h"], h[:, :S - 1], cfg.norm_eps),
+         rmsnorm_apply(mtp["norm_e"], emb[:, 1:], cfg.norm_eps)], -1)
+    x2 = h_in @ mtp["proj"]["w"]
+    positions = torch.arange(S - 1, dtype=torch.int32,
+                             device=h.device).expand(B, S - 1)
+    x2, _ = layer_apply(tree_map(lambda t: t[0], mtp["layer"]),
+                        _mtp_kind(cfg), x2, cfg, positions, impl)
+    h2 = rmsnorm_apply(params["final_norm"], x2, cfg.norm_eps)
+    logits2 = lm_head_apply(params["embed"], params.get("head"), h2,
+                            cfg.tie_embeddings)
+    labels = batch["labels"]
+    mtp_labels = torch.cat(
+        [labels[:, 2:], torch.full((B, 1), -1, dtype=labels.dtype,
+                                   device=labels.device)], dim=1)
+    return softmax_xent(logits2, mtp_labels)
 
 
 # ---------------------------------------------------------------------------
@@ -205,6 +282,7 @@ def loss_fn(params, cfg, batch, impl="ref"):
 def init_cache(cfg, batch, seq_len, dtype=torch.bfloat16, device=None):
     """Per pattern position of every segment, with a leading ``repeats``
     dim: a zero ``(repeats, B, S, KV, hd)`` k/v pair for attention, the
+    zero latent pair (``mla.mla_cache_init``) for MLA, the
     conv tail and f32 SSM state (``mamba.mamba_state_init``) for Mamba,
     the f32 recurrent state (``xlstm.*_state_init``) for xLSTM."""
     _check_supported(cfg)

@@ -276,6 +276,34 @@ def test_gpu_moe_apply_under_sync_guard_matches_cpu(cuda, B, S):
     torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 64])
+def test_gpu_moe_dense_layer_under_sync_guard_matches_cpu(cuda, S):
+    """One ``gqa:moe_dense`` layer (arctic's smoke config, K5 on the card
+    at S = 64) under the sync guard against the same call on the CPU at
+    1e-5: the MoE's output plus the dense FFN's, and the aux loss."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as tr
+    from repro_torch.tree import tree_map
+    cfg = get_smoke_config("arctic-480b")
+    gen = torch.Generator().manual_seed(0)
+    p = tr.layer_init(gen, "gqa:moe_dense", cfg, torch.float32)
+    x = torch.tensor(_x((4, S, cfg.d_model), seed=5, scale=1.0))
+    pos = torch.arange(S, dtype=torch.int32).expand(4, S)
+    want_y, want_aux = tr.layer_apply(p, "gqa:moe_dense", x, cfg, pos)
+    pc = tree_map(lambda t: t.to(cuda), p)
+    xc, posc = x.to(cuda), pos.to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, aux = tr.layer_apply(pc, "gqa:moe_dense", xc, cfg, posc,
+                                "kernel")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.testing.assert_close(y.cpu(), want_y, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-5, atol=1e-5)
+
+
 # ---------------------------------------------------------------------------
 # The fused round engine on the card: every round as replays of CUDA graphs
 # captured once (core/graphs.py), against the python engine's eager rounds.
@@ -563,7 +591,10 @@ def test_gpu_fused_capture_failure_raises(cuda):
 # graphs (serving/loop.py, models/xlstm.py slstm_scan), against the same
 # work run eagerly on the card.
 # ---------------------------------------------------------------------------
-SERVE_ARCHS = ["internlm2-1.8b", "xlstm-1.3b", "jamba-v0.1-52b"]
+# deepseek's loop decodes over the MLA latent cache, arctic's through
+# the MoE beside a dense FFN
+SERVE_ARCHS = ["internlm2-1.8b", "xlstm-1.3b", "jamba-v0.1-52b",
+               "deepseek-v3-671b", "arctic-480b"]
 
 
 def _serve_setup(dev, arch, seed=0):

@@ -112,11 +112,14 @@ def test_unported_paths_raise_not_implemented():
     from repro_torch.models import transformer as tr
     from repro_torch.optim.optimizers import get_optimizer
 
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    # every architecture and layer kind of the reference is ported: what
+    # is left raises for what it is, an unknown arch or layer kind
+    with pytest.raises(ValueError, match="unknown layer kind"):
         tr.init_params(0, get_smoke_config("internlm2-1.8b").with_(
-            n_layers=1, segments=((("mla:dense",), 1),)), device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_smoke_config("deepseek-v3-671b")
+            n_layers=1, segments=((("mla:ssm",), 1),)), device="cpu")
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_smoke_config("deepseek-v4")
+    assert get_smoke_config("deepseek-v3-671b").mtp_depth == 1
     # the pod mesh: the gossip permutes, the psums and the pinned vmap
     for spec in ("full", "partial", "ring", "graph", "d2"):
         with pytest.raises(NotImplementedError, match="not yet ported"):

@@ -224,12 +224,42 @@ def test_decode_step_matches_jax(window):
 
 
 def test_decode_of_unported_mixers_raises():
+    """Every layer kind of the reference decodes now (its own tests:
+    ``tests/test_torch_mla.py``, ``tests/test_torch_configs.py``); an
+    unknown kind or input mode raises before touching a tensor."""
     cfg = _cfg()
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ttr.layer_cache_init("gqa:moe_dense", cfg, 1, 8, torch.float32,
-                             "cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ttr.layer_decode({}, "mla:dense", None, cfg, {}, torch.tensor(0))
+    with pytest.raises(ValueError, match="unknown layer kind"):
+        ttr.layer_cache_init("gqa:ssm", cfg, 1, 8, torch.float32, "cpu")
+    with pytest.raises(ValueError, match="unknown layer kind"):
+        ttr.layer_decode({}, "rwkv:dense", None, cfg, {}, torch.tensor(0))
+    with pytest.raises(ValueError, match="unknown input_mode"):
+        ttr.init_cache(cfg.with_(input_mode="embeddings"), 1, 8,
+                       torch.float32, device="cpu")
+    for kind in ("gqa:moe_dense", "mla:dense", "mla:moe"):
+        assert kind in ttr.PORTED_KINDS
+        assert ttr.layer_cache_init(kind, cfg, 1, 8, torch.float32, "cpu")
+
+
+def test_trunc_normal_in_place_equals_the_out_of_place_expression():
+    """``trunc_normal`` works in place on its uniform draw; every value
+    equals the out-of-place expression it replaced, bit for bit."""
+    import math
+    sq2 = math.sqrt(2.0)
+    lo = 0.5 * (1.0 + math.erf(-2.0 / sq2))
+    hi = 0.5 * (1.0 + math.erf(2.0 / sq2))
+    for seed, shape, scale, dtype in ((0, (7,), 0.5, torch.float32),
+                                      (1, (33, 65), 256 ** -0.5,
+                                       torch.float32),
+                                      (2, (3, 4, 129), 0.02, torch.bfloat16),
+                                      (3, (2, 300, 7), 1.0, torch.float32)):
+        u = torch.rand(shape, generator=torch.Generator().manual_seed(seed),
+                       dtype=torch.float32)
+        x = torch.erfinv(2.0 * (lo + u * (hi - lo)) - 1.0) * sq2
+        want = (scale * x.clamp_(-2.0, 2.0)).to(dtype)
+        got = tlayers.trunc_normal(torch.Generator().manual_seed(seed),
+                                   shape, scale, dtype)
+        assert got.dtype == dtype and torch.equal(got, want)
+        assert float(got.float().abs().max()) <= 2.0 * scale
 
 
 # ---------------------------------------------------------------------------
