@@ -166,20 +166,22 @@ Phases:
      an abrupt drift through the fused engine with ``publish_from`` as the
      hook, the card against the CPU at 1e-4 with equal sync patterns,
      bills, versions and staleness; (d) every ``examples/torch_*.py``
-     once on the card at its own sizes (exit 0; the compressed-WAN
-     walkthrough launches K1-K4);
+     once on the card at the sizes its CPU test runs (``EXAMPLES11``;
+     exit 0; the compressed-WAN walkthrough launches K1-K4);
  12. the paper's own tasks (``repro_torch.paper_tasks``): (a) the nine
      convnet / GRU / CRNN testbeds' logits, loss and every gradient on a
      batch of 32, card against CPU from the same params at 1e-5, with
      cuDNN's TF32 switched on globally (the port keeps its convolutions
-     in f32 itself); (b) Table 2, ``cifar_like.run()`` at its defaults
-     (three image models, n = 4,000, K = 5, 6 rounds, 8 for co-learning):
+     in f32 itself); (b) Table 2, ``cifar_like.run()`` at 3 rounds of its
+     6 (``ROUNDS12B``; three image models, n = 4,000, K = 5, 5 rounds for
+     co-learning):
      each row and each run's seconds, then resnet_tiny's co-learning run
      once more through the fused engine (one round capture per T, its
      replayed rounds' seconds an epoch beside the python engine's, peak
-     memory); (c) Tables 4-6, ``tasks.run()`` at 3 rounds of its 5
+     memory); (c) Tables 4-6, ``tasks.run()`` at 1 round of its 5
      (``ROUNDS12C``), and the heterogeneity sweep,
-     ``ablation.heterogeneity()``, at its defaults: the sweep's
+     ``ablation.heterogeneity()``, at 2 rounds of its 5 (``SWEEP12C``;
+     the partition, and so the shards, unchanged): the sweep's
      shard sizes and coverage equal ``benchmarks/BENCH_heterogeneity.json``
      row for row, its accuracies printed beside the committed JAX rows
      (not held: the inits differ); (d) resnet_tiny, K = 5, the fused
@@ -188,7 +190,8 @@ Phases:
      leaf a round), card against CPU at 1e-4 per round (losses, rel, T,
      LR) with equal bills; the counters are zeroed just before each run
      and read after, and land in the kernels line; (e) the two paper-task
-     examples as in 11(d);
+     examples as in 11(d), at half their examples and fewer rounds
+     (``EXAMPLES12``);
  13. the six architectures ported last, f32: (a) deepseek-v3-671b at
      full width (d 7168, 128 heads, q_lora 1536, kv_lora 512, 256
      experts top-8 plus a shared one, vocab 129,280), cut to one
@@ -212,7 +215,28 @@ Phases:
      smoke configs card against CPU at 1e-4: the loss (MTP and aux in
      it), every gradient and ``decode_step`` logits; (e) the train CLI,
      fused engine, 2 rounds of deepseek-v3-671b and arctic-480b, and
-     internvl2-76b stopping on its missing prefix.
+     internvl2-76b stopping on its missing prefix;
+ 14. training the recurrent families (the backward pass of the mLSTM,
+     sLSTM and selective-scan recurrences through ``layers.
+     chunked_scan``: 256-step chunks recomputed in the backward pass),
+     f32: (a) xlstm-1.3b at full width (d 2048, 4 heads of 1024, vocab
+     50,304), depth 48 -> 8 (one xLSTM[7:1] period), B 2 x S 512 (two
+     chunks a recurrence), K = 3, fused int8, T 1, one step an epoch:
+     the python engine for 2 rounds, then the fused engine for 3 (one
+     capture, two replays), the loss falling, the engines' first two
+     rounds within 1e-4, K3 once a round, every window under the sync
+     guard; per round the seconds, training tokens/s, the device split
+     (epochs / finalize) and peak memory; the capture's recording,
+     end-of-capture and instantiation seconds and its node count
+     (``graph_stats``); then one mLSTM layer of that width forward and
+     backward with the recomputation and without: seconds, peak memory,
+     gradients within 1e-6 of their scale; (b) the same for one
+     jamba-v0.1-52b ``mamba:dense`` layer at full width (d 4096, d_inner
+     8192, state 16), B 4 x S 2048; (c) the xlstm and jamba smoke
+     configs at S 512, card against CPU from the same params at 1e-4:
+     the loss and every gradient, then one fused round each (K = 2,
+     captured on the card); (d) the train CLI, 2 rounds of each, under
+     the fused engine (its default) and the python engine.
 Before the last line come the ``kernels`` JSON and the card's name and
 power limit as ``nvidia-smi`` gives them; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
@@ -2272,8 +2296,14 @@ def phase_churn_gossip(torch, dev, launches_out):
 # contents differ; ILE's ε is one no round's rel reaches, so T stays 1.
 COV11 = 0.1
 EPS11 = 1e-6
-EXAMPLES11 = ("quickstart", "compressed_wan", "elastic_membership",
-              "graph_gossip", "serve_decode", "continuous_serving")
+# 11(d)'s examples at the sizes of their CPU tests (at their defaults they
+# took 79-91 s of the script; phase 14 bought that time back)
+EXAMPLES11 = {"quickstart": ("--n-examples", "200"),
+              "compressed_wan": ("--n-examples", "100"),
+              "elastic_membership": ("--n-examples", "160"),
+              "graph_gossip": ("--n-examples", "320"),
+              "serve_decode": ("--n-examples", "90"),
+              "continuous_serving": ()}
 
 
 def _params_equal(torch, a, b):
@@ -2558,14 +2588,15 @@ def phase_small_continuous(torch, dev):
     check(gcaps == 3, f"11c: {gcaps} captures (epochs, gate, finalize)")
 
 
-def phase_examples(torch, names=EXAMPLES11, tag="11d"):
-    """11(d) (and 12(e)): each torch example once on the card at its own
-    sizes, in this process (``main(["--device", "cuda"])``): exit 0; the
-    wire kernels launched by the compressed-WAN walkthrough are recorded."""
+def phase_examples(torch, examples=EXAMPLES11, tag="11d"):
+    """11(d) (and 12(e)): each torch example once on the card at the sizes
+    ``examples`` gives it, in this process (``main(["--device", "cuda",
+    *args])``): exit 0; the wire kernels launched by the compressed-WAN
+    walkthrough are recorded."""
     import importlib.util
     import io
     from repro_torch.kernels import ops
-    for name in names:
+    for name, args in examples.items():
         path = ROOT / "examples" / f"torch_{name}.py"
         spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
         mod = importlib.util.module_from_spec(spec)
@@ -2574,13 +2605,15 @@ def phase_examples(torch, names=EXAMPLES11, tag="11d"):
         ops.reset_launch_counts()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
-            rc = mod.main(["--device", "cuda"])
+            rc = mod.main(["--device", "cuda", *args])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = {k: v for k, v in ops.launch_counts().items() if v}
         out = buf.getvalue().splitlines()
-        say("examples", part=tag, example=f"torch_{name}", rc=rc,
-            seconds=seconds, launches=counts, tail=out[-8:])
+        say("examples", part=tag, example=f"torch_{name}", args=args,
+            reduced=("the example's defaults -> " + " ".join(args)
+                     if args else None),
+            rc=rc, seconds=seconds, launches=counts, tail=out[-8:])
         check(rc == 0, f"{tag}: torch_{name} returned {rc}")
         if name == "compressed_wan":
             check(all(counts.get(k, 0) > 0 for k in (
@@ -2596,18 +2629,26 @@ def phase_examples(torch, names=EXAMPLES11, tag="11d"):
 # phase 12: the paper's own tasks (``repro_torch.paper_tasks``). (a)'s
 # batch is the harness's; (d) is resnet_tiny at K = 5, the fused engine,
 # 2 steps an epoch, 3 rounds, under each wire codec with a kernel.
-# (c)'s Tables 4-6 run 3 rounds of the default 5 (T 1, 1, 2; n stays
-# 4,000): the host's dispatch paces them, so their time follows the
-# host's speed. At 4 rounds they took 155.6 s on one host and 276.9 s on
-# a slower one, where the whole script reached 1,106 s of its 1,200
-# (NVIDIA H100 80GB HBM3, 700 W); the fourth round (T 4) costs as much as
-# the three before it.
+# (b) and (c) are paced by the host's dispatch, so their time follows the
+# host's speed: (c)'s Tables 4-6 took 155.6 s at 4 rounds on one host and
+# 276.9 s on a slower one, where the whole script reached 1,106 s of its
+# 1,200 (NVIDIA H100 80GB HBM3, 700 W). Phase 14 (training the recurrent
+# families, ~300 s, host-bound) took their time back: Table 2 runs 3
+# rounds of its 6 (``ROUNDS12B``; it took 57 s at 6), Tables 4-6 1 round
+# of their 5 (T 1; 57 s at 2 rounds, 106.3 s at 3) and the sweep 2 of its
+# 5 (28 s at 5); n stays 4,000 in all.
 BATCH12 = 32
-ROUNDS12C = 3
+ROUNDS12B = 3
+ROUNDS12C = 1
+SWEEP12C = 2
 TOL12 = {"rtol": 1e-5, "atol": 1e-5}
 CODECS12 = {"fused": ("wire_quant_avg_dequant",),
             "leafwise": ("wire_quantize", "wire_dequantize")}
-EXAMPLES12 = ("heterogeneous_shards", "multidc_ablation")
+# 12(e) at half the examples and fewer rounds (defaults 2,000 / 3 and
+# 3,000 / 5: 54-85 s of the script)
+EXAMPLES12 = {"heterogeneous_shards": ("--n-examples", "1000", "--rounds",
+                                       "2"),
+              "multidc_ablation": ("--n-examples", "1500", "--rounds", "3")}
 
 
 @contextlib.contextmanager
@@ -2691,7 +2732,7 @@ def _phase12_models(torch, dev):
 
 
 def _phase12_table2(torch, dev):
-    """12(b): Table 2 at ``cifar_like.run()``'s defaults, then resnet_tiny's
+    """12(b): Table 2 at ``ROUNDS12B`` rounds, then resnet_tiny's
     co-learning run once more through the fused engine."""
     from repro_torch.data.synthetic import image_like
     from repro_torch.models.convnets import IMAGE_MODELS
@@ -2700,7 +2741,7 @@ def _phase12_table2(torch, dev):
     torch.cuda.reset_peak_memory_stats()
     with timed_runs(torch, cifar_like, ("run_vanilla", "run_ensemble",
                                         "run_colearn"), runs):
-        rows = cifar_like.run(device=dev)
+        rows = cifar_like.run(rounds=ROUNDS12B, device=dev)
     peak = torch.cuda.max_memory_allocated()
     check([r["model"] for r in rows] == ["vgg_tiny", "resnet_tiny",
                                          "densenet_tiny"],
@@ -2736,6 +2777,8 @@ def _phase12_table2(torch, dev):
                        if i < len(r["T"])]
                  for eng, r in (("python", python), ("fused", res))}
     say("paper-tasks", part="b", table2=rows, runs=runs,
+        reduced=f"rounds 6 -> {ROUNDS12B} (co-learning 8 -> "
+                f"{ROUNDS12B + 2}): the time budget",
         peak_mem_GB=peak / 1e9,
         resnet_fused={"seconds": fused_s, "round_s": res["round_s"],
                       "T": res["T"], "acc": res["acc"], "graphs": graphs,
@@ -2750,9 +2793,9 @@ def _phase12_table2(torch, dev):
 
 def _phase12_tasks(torch, dev):
     """12(c): Tables 4-6 (``tasks.run()``, its rounds cut to
-    ``ROUNDS12C``) and the heterogeneity sweep at
-    ``ablation.heterogeneity()``'s defaults, whose shard sizes and
-    coverage equal the committed JAX rows."""
+    ``ROUNDS12C``) and the heterogeneity sweep
+    (``ablation.heterogeneity()``, its rounds cut to ``SWEEP12C``), whose
+    shard sizes and coverage equal the committed JAX rows."""
     from repro_torch.paper_tasks import ablation, tasks
     runs = []
     torch.cuda.reset_peak_memory_stats()
@@ -2770,7 +2813,7 @@ def _phase12_tasks(torch, dev):
     runs = []
     torch.cuda.reset_peak_memory_stats()
     with timed_runs(torch, ablation, ("run_colearn",), runs):
-        het = ablation.heterogeneity(device=dev)
+        het = ablation.heterogeneity(rounds=SWEEP12C, device=dev)
     peak = torch.cuda.max_memory_allocated()
     ref = json.loads((ROOT / "benchmarks" / "BENCH_heterogeneity.json")
                      .read_text())["rows"]
@@ -2781,6 +2824,8 @@ def _phase12_tasks(torch, dev):
                   b["coverage"]),
               f"12c: sweep row {a} against the committed {b}")
     say("paper-tasks", part="c-heterogeneity", runs=runs,
+        reduced=f"rounds 5 -> {SWEEP12C}: the time budget (the curves "
+                "are printed beside the JAX rows' 5, not held)",
         peak_mem_GB=peak / 1e9,
         rows=[{"alpha": a["alpha"], "weighted": a["weighted"],
                "shard_sizes": a["shard_sizes"], "coverage": a["coverage"],
@@ -3697,6 +3742,383 @@ def phase_new_archs(torch, dev, launches_out, bw, mark):
     mark("13e")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: training the recurrent families. (a) xlstm-1.3b at full width,
+# depth 48 -> 8 (one xLSTM[7:1] period: 7 mLSTM + 1 sLSTM), B 2 x S 512 so
+# that every recurrence runs two 256-step chunks (``layers.chunked_scan``:
+# the backward pass keeps the carries at the chunk boundaries and
+# recomputes each chunk), K 3, fused int8, T 1, one step an epoch; (b) one
+# jamba-v0.1-52b ``mamba:dense`` layer at full width, B 4 x S 2048; (c)
+# the smoke configs card vs CPU at S 512; (d) the train CLI.
+LAYERS14 = 8
+K14, B14, S14, STEPS14 = 3, 2, 512, 1
+PY_ROUNDS14, FUSED_ROUNDS14 = 2, 3
+B14B, S14B = 4, 2048
+S14C, K14C = 512, 2
+TOL14 = {"rtol": 1e-4, "atol": 1e-4}
+REMAT_TOL14 = 1e-6
+
+
+def xlstm14_cfg():
+    """xlstm-1.3b at full width: one 8-layer period of the 48."""
+    from repro_torch.configs import get_config
+    return get_config("xlstm-1.3b").with_(
+        n_layers=LAYERS14,
+        segments=((("mlstm:-",) * 7 + ("slstm:-",), 1),))
+
+
+def jamba14_cfg():
+    """jamba-v0.1-52b at full width, one ``mamba:dense`` layer."""
+    from repro_torch.configs import get_config
+    return get_config("jamba-v0.1-52b").with_(
+        n_layers=1, segments=((("mamba:dense",), 1),))
+
+
+@contextlib.contextmanager
+def graph_stats(torch, out):
+    """Every CUDA graph captured inside: the seconds of its recording (from
+    ``capture_begin`` to ``capture_end``), of ending the capture and of
+    instantiating it, apart (``keep_graph=True``), and its node count
+    (``cuGraphGetNodes`` on the raw graph)."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+    cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_size_t)]
+    base = torch.cuda.CUDAGraph
+
+    class Counted(base):
+        def __new__(cls, keep_graph=False):
+            return super().__new__(cls, True)
+
+        def __init__(self, keep_graph=False):
+            super().__init__(True)
+
+        def capture_begin(self, *a, **kw):
+            self._t0 = time.perf_counter()
+            super().capture_begin(*a, **kw)
+
+        def capture_end(self):
+            t1 = time.perf_counter()
+            super().capture_end()
+            t2 = time.perf_counter()
+            n = ctypes.c_size_t(0)
+            rc = cu.cuGraphGetNodes(ctypes.c_void_p(self.raw_cuda_graph()),
+                                    None, ctypes.byref(n))
+            self.instantiate()
+            out.append({"record_s": t1 - self._t0, "end_capture_s": t2 - t1,
+                        "instantiate_s": time.perf_counter() - t2,
+                        "nodes": n.value if rc == 0 else None})
+    torch.cuda.CUDAGraph = Counted
+    try:
+        yield
+    finally:
+        torch.cuda.CUDAGraph = base
+
+
+@contextlib.contextmanager
+def remat_off():
+    """The recurrences' ``chunked_scan`` with ``remat=False`` (a plain
+    loop that keeps every step for the backward pass)."""
+    import functools
+    from repro_torch.models import layers, mamba, xlstm
+    saved = [(m, m.chunked_scan) for m in (mamba, xlstm)]
+    for m, _ in saved:
+        m.chunked_scan = functools.partial(layers.chunked_scan, remat=False)
+    try:
+        yield
+    finally:
+        for m, fn in saved:
+            m.chunked_scan = fn
+
+
+def _train14(torch, dev, cfg, engine, rounds, launches_out):
+    """14(a): one run at full width. Returns (per-round records, the
+    run's record)."""
+    from repro_torch.core import api
+    from repro_torch.data.synthetic import lm_examples
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import (build_data, epoch_batches_fn,
+                                          eval_loss)
+    from repro_torch.models import transformer as tr
+    data = build_data(cfg, K14, B14, S14, K14 * B14 * STEPS14, seed=0)
+    ex, ey = lm_examples(99, 4, S14, cfg.vocab_size)
+    learner = _learner(torch, cfg, api.get_codec("fused"), K14, dev,
+                       engine=engine, rounds=rounds, rule="fle")
+    split = _round_events(torch, learner)
+    guard, stats = [], []
+    if engine == "fused":
+        timed = learner._runner._round
+
+        def guarded(*a):
+            guard.append(torch.cuda.get_sync_debug_mode())
+            return timed(*a)
+        learner._runner._round = guarded
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = learner.init(tr.init_params(0, cfg, torch.float32, device=dev))
+    batches = epoch_batches_fn(data, dev, STEPS14)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    per_round = []
+    with graph_stats(torch, stats):
+        for _ in range(rounds):
+            t0 = time.perf_counter()
+            state = learner.run_round(state, batches)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            epochs_ms, fin_ms = split()
+            log = state["log"][-1]
+            per_round.append({
+                "round": log.round, "T": log.T, "seconds": sec,
+                "tokens_per_s": K14 * STEPS14 * B14 * S14 * log.T / sec,
+                "device_ms": {"epochs": epochs_ms, "finalize": fin_ms},
+                "local_losses": list(log.local_losses),
+                "rel_change": log.rel_change,
+                "comm_MiB": log.comm_bytes / 2**20,
+                "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9})
+    counts = ops.launch_counts()
+    ev = eval_loss(learner.shared_model(state), cfg, ex, ey, batch=2)
+    run = {"engine": engine, "rounds": per_round, "eval_loss": ev,
+           "launches": {k: v for k, v in counts.items() if v},
+           "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9,
+           "peak_reserved_GB": torch.cuda.max_memory_reserved() / 1e9,
+           "params_per_participant": tr.count_params(state["params"]) // K14}
+    if engine == "fused":
+        run.update(graphs={f.name: {"captures": f.captures,
+                                    "replays": f.replays}
+                           for f in learner._runner.graphs.functions},
+                   window_sync_debug_modes=guard, capture=stats)
+        for name, n in counts.items():
+            launches_out[name] = launches_out.get(name, 0) + n
+    check(all(math.isfinite(x) for r in per_round for x in r["local_losses"])
+          and math.isfinite(ev), f"14a {engine}: non-finite loss")
+    check(counts["wire_quant_avg_dequant"] == rounds,
+          f"14a {engine}: K3 launched {counts['wire_quant_avg_dequant']} "
+          f"times in {rounds} synced rounds")
+    del state, learner, split
+    gc.collect()
+    torch.cuda.empty_cache()
+    return per_round, run
+
+
+def _grads14(torch, fn, params, x):
+    """Seconds (host clock, synchronised), peak GB over the live bytes
+    before, and the gradients of ``fn(params, x)`` (a scalar) with
+    respect to every leaf and ``x``."""
+    from repro_torch.tree import leaves
+    ts = [t.requires_grad_(True) for t in leaves(params)] + [
+        x.requires_grad_(True)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    grads = torch.autograd.grad(fn(params, x), ts)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0,
+            (torch.cuda.max_memory_allocated() - base) / 1e9, grads)
+
+
+def _remat14(torch, tag, fn, params, x):
+    """One layer forward and backward with the recomputation and without,
+    each timed alone; their gradients held to each other afterwards
+    (``REMAT_TOL14``, of each gradient's largest magnitude)."""
+    runs = {}
+    for remat in (True, False):
+        with contextlib.nullcontext() if remat else remat_off():
+            sec, peak, grads = _grads14(torch, fn, params, x)
+        runs[remat] = {"seconds": sec, "peak_mem_GB": peak}, grads
+        del grads
+    err = 0.0
+    for a, b in zip(runs[True][1], runs[False][1]):
+        err = max(err, float((a - b).abs().max())
+                  / max(float(b.abs().max()), 1e-30))
+    check(err <= REMAT_TOL14, f"{tag}: remat on / off gradients differ by "
+                              f"{err} of their scale")
+    on, off = runs[True][0], runs[False][0]
+    return {"remat": on, "no_remat": off, "grad_rel_diff": err,
+            "peak_ratio": off["peak_mem_GB"] / max(on["peak_mem_GB"], 1e-9),
+            "seconds_ratio": on["seconds"] / max(off["seconds"], 1e-9)}
+
+
+def _phase14_xlstm(torch, dev, launches_out):
+    """14(a): xlstm-1.3b at full width, depth 8: the python engine for
+    PY_ROUNDS14 rounds, then the fused engine for FUSED_ROUNDS14 (one
+    capture, then replays); then one mLSTM layer of that width with the
+    recomputation and without."""
+    from repro_torch.models import xlstm as xl
+    cfg = xlstm14_cfg()
+    py_rounds, py = _train14(torch, dev, cfg, "python", PY_ROUNDS14, {})
+    fu_rounds, fu = _train14(torch, dev, cfg, "fused", FUSED_ROUNDS14,
+                             launches_out)
+    worst = 0.0
+    for a, b in zip(py_rounds, fu_rounds):
+        for u, v in [*zip(a["local_losses"], b["local_losses"]),
+                     (a["rel_change"], b["rel_change"])]:
+            if math.isinf(u):
+                check(math.isinf(v), "14a: rel inf on one engine only")
+                continue
+            worst = max(worst, abs(u - v) / max(abs(u), 1e-12))
+    check(worst <= TOL14["rtol"],
+          f"14a: the engines' rounds differ by {worst} (rel)")
+    for label, rounds in (("python", py_rounds), ("fused", fu_rounds)):
+        losses = [sum(r["local_losses"]) / len(r["local_losses"])
+                  for r in rounds]
+        check(all(b < a for a, b in zip(losses, losses[1:])),
+              f"14a {label}: the loss did not fall: {losses}")
+    rnd = fu["graphs"]["round"]
+    check((rnd["captures"], rnd["replays"]) == (1, FUSED_ROUNDS14 - 1),
+          f"14a: round graph captured / replayed {rnd}")
+    check(fu["window_sync_debug_modes"] == [2] * FUSED_ROUNDS14,
+          f"14a: windows at sync debug modes {fu['window_sync_debug_modes']}")
+    g = torch.Generator(device=dev).manual_seed(14)
+    p = xl.mlstm_init(g, cfg, torch.float32)
+    x = torch.randn((B14, S14, cfg.d_model), generator=g, device=dev)
+    w = torch.randn((B14, S14, cfg.d_model), generator=g, device=dev)
+    layer = _remat14(torch, "14a mLSTM layer",
+                     lambda p_, x_: (xl.mlstm_apply(p_, x_, cfg) * w).sum(),
+                     p, x)
+    del p, x, w
+    say("recurrent-training", part="a", arch=cfg.name,
+        reduced=f"n_layers 48 -> {LAYERS14} (one xLSTM[7:1] period: 7 "
+                "mLSTM + 1 sLSTM)",
+        d_model=cfg.d_model, heads=cfg.n_heads,
+        head_dim=int(cfg.xlstm_proj_factor * cfg.d_model) // cfg.n_heads,
+        vocab=cfg.vocab_size, K=K14, batch=B14, seq_len=S14,
+        steps_per_epoch=STEPS14, codec="fused int8", python=py, fused=fu,
+        engines_max_rel_diff=worst, mlstm_layer=layer)
+
+
+def _phase14_jamba(torch, dev):
+    """14(b): one jamba ``mamba:dense`` layer (norm, Mamba mixer through
+    the plain scan, dense FFN) at full width, B14B x S14B, with the
+    recomputation and without."""
+    from repro_torch.models import transformer as tr
+    cfg = jamba14_cfg()
+    g = torch.Generator(device=dev).manual_seed(15)
+    p = tr.layer_init(g, "mamba:dense", cfg, torch.float32)
+    x = torch.randn((B14B, S14B, cfg.d_model), generator=g, device=dev)
+    w = torch.randn((B14B, S14B, cfg.d_model), generator=g, device=dev)
+    pos = torch.arange(S14B, device=dev).expand(B14B, S14B)
+
+    def loss(p_, x_):
+        y, _ = tr.layer_apply(p_, "mamba:dense", x_, cfg, pos)
+        return (y * w).sum()
+    layer = _remat14(torch, "14b mamba:dense layer", loss, p, x)
+    say("recurrent-training", part="b", arch=cfg.name,
+        reduced="n_layers 32 -> one mamba:dense layer (one 8-layer period "
+                "is 53 GB of f32 params: K copies and gradients do not fit "
+                "one card; the model trains at its smoke config in (c), "
+                "(d))",
+        d_model=cfg.d_model, d_inner=cfg.d_inner_ssm,
+        ssm_state=cfg.ssm_state_dim, conv=cfg.ssm_conv_dim, d_ff=cfg.d_ff,
+        batch=B14B, seq_len=S14B, layer=layer)
+    del p, x, w
+
+
+def _phase14_smoke(torch, dev):
+    """14(c): the xlstm and jamba smoke configs at S14C, card against CPU
+    from the same params: the loss and every gradient at TOL14, then
+    one fused round each (K14C, exact codec; captured on the card) at
+    TOL14 on its log and params."""
+    import numpy as np
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import api
+    from repro_torch.launch.train import build_data, epoch_batches_fn
+    from repro_torch.models import transformer as tr
+    from repro_torch.tree import leaves, tree_map
+    out = {}
+    for arch in ("xlstm-1.3b", "jamba-v0.1-52b"):
+        cfg = get_smoke_config(arch)
+        cpu = tr.init_params(0, cfg, torch.float32, device="cpu")
+        rng = np.random.default_rng(0)
+        b = {k: rng.integers(0, cfg.vocab_size, (2, S14C))
+             for k in ("tokens", "labels")}
+        data = build_data(cfg, K14C, 2, S14C, K14C * 2, seed=0)
+        res, logs, rounds = {}, {}, {}
+        for where in ("cpu", dev):
+            ps = tree_map(lambda t: t.detach().to(where), cpu)
+            flat = [t.requires_grad_(True) for t in leaves(ps)]
+            tb = {k: torch.as_tensor(v, device=where) for k, v in b.items()}
+            loss, _ = tr.loss_fn(ps, cfg, tb)
+            res[str(where)] = [x.detach().cpu() for x in (
+                loss, *torch.autograd.grad(loss, flat))]
+            learner = _learner(torch, cfg, api.get_codec("exact"), K14C,
+                               where, rounds=1, rule="fle")
+            state = learner.init(cpu)
+            t0 = time.perf_counter()
+            state = learner.run_round(state, epoch_batches_fn(data, where,
+                                                              1))
+            rounds[str(where)] = time.perf_counter() - t0
+            logs[str(where)] = (state["log"][-1], [
+                t.detach().cpu() for t in leaves(state["params"])],
+                learner._runner.graphs.captures)
+            del learner, state
+            gc.collect()
+        err = 0.0
+        for a, w in zip(res[str(dev)], res["cpu"]):
+            err = max(err, _close(torch, a, w, TOL14,
+                                  f"14c {arch}: card vs CPU gradient"))
+        (cl, cp, _), (gl, gp, caps) = logs["cpu"], logs[str(dev)]
+        perr = 0.0
+        for a, w in zip(gp, cp):
+            perr = max(perr, _close(torch, a, w, TOL14,
+                                    f"14c {arch}: fused round params"))
+        lerr = max(abs(u - v) / max(abs(u), 1e-12)
+                   for u, v in zip(cl.local_losses, gl.local_losses))
+        check(lerr <= TOL14["rtol"] and caps == 1,
+              f"14c {arch}: fused round losses differ by {lerr}, "
+              f"{caps} captures")
+        out[arch] = {"grad_max_abs_err": err, "round_params_max_abs_err":
+                     perr, "round_loss_rel_err": lerr,
+                     "round_s": rounds, "captures": caps}
+    say("recurrent-training", part="c", seq_len=S14C, K=K14C, tol=TOL14,
+        archs=out)
+
+
+def _phase14_cli(torch):
+    """14(d): the train CLI on the card, 2 rounds of xlstm-1.3b and of
+    jamba-v0.1-52b (their smoke configs), under the fused engine (the
+    default) and the python engine."""
+    import io
+    from repro_torch.launch import train
+    args = ["--device", "cuda", "--participants", "2", "--rounds", "2",
+            "--t0", "1", "--n-examples", "32", "--batch-size", "4",
+            "--seq-len", "16", "--steps-per-epoch", "2"]
+    runs = {}
+    for arch in ("xlstm-1.3b", "jamba-v0.1-52b"):
+        for engine in ("fused", "python"):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            flags = [] if engine == "fused" else ["--engine", engine]
+            with contextlib.redirect_stdout(buf):
+                rc = train.main(args + ["--arch", arch] + flags)
+            lines = buf.getvalue().splitlines()
+            rounds = [x for x in lines if x.startswith("round ")]
+            runs[f"{arch} {engine}"] = {
+                "rc": rc, "seconds": time.perf_counter() - t0,
+                "lines": lines}
+            check(rc == 0 and len(rounds) == 2
+                  and f"engine={engine}" in lines[0]
+                  and all("nan" not in x for x in rounds),
+                  f"14d {arch} {engine}: rc {rc}, lines {lines}")
+    say("recurrent-training", part="d", runs=runs)
+
+
+def phase_recurrent_training(torch, dev, launches_out, mark):
+    """Phase 14: training the recurrent families (see the docstring)."""
+    _phase14_xlstm(torch, dev, launches_out)
+    mark("14a")
+    _phase14_jamba(torch, dev)
+    mark("14b")
+    _phase14_smoke(torch, dev)
+    mark("14c")
+    _phase14_cli(torch)
+    mark("14d")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -3804,6 +4226,7 @@ def main(argv=None):
     mark("11d")
     phase_paper_tasks(torch, dev, launches, mark)
     phase_new_archs(torch, dev, launches, bw, mark)
+    phase_recurrent_training(torch, dev, launches, mark)
 
     kernels = []
     for kname, (tag, replaces, source) in KERNEL_META.items():

@@ -1,5 +1,6 @@
 """Core layers, ported from ``repro/models/layers.py``: norms, RoPE,
-embeddings, the dense SwiGLU FFN and the LM loss.
+embeddings, the dense SwiGLU FFN, the chunk-recomputed scan of the
+recurrences and the LM loss.
 
 Functional style over plain dicts: ``*_init`` builds a params dict
 (optionally with a stacked leading ``repeats`` dim), ``*_apply`` consumes
@@ -12,6 +13,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 _SQRT2 = math.sqrt(2.0)
 
@@ -106,6 +108,59 @@ def ffn_apply(p, x):
     g = x @ p["wg"]
     h = F.silu(g.float()).to(x.dtype) * h
     return h @ p["wo"]
+
+
+# --------------------------------------------------------------------------
+# Chunk-recomputed scan (the recurrences' backward pass)
+# --------------------------------------------------------------------------
+def needs_grad(*tensors):
+    """Autograd is recording and one of ``tensors`` requires grad (a
+    training step): the recurrences then run functional steps through
+    ``chunked_scan`` instead of their in-place loops."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _index(xs, i):
+    """``xs[i]`` of a tensor, or of each tensor of a tuple."""
+    return tuple(x[i] for x in xs) if isinstance(xs, tuple) else xs[i]
+
+
+def _scan(step, carry, xs):
+    # one unbind per input: its backward is one stack, where indexing
+    # each step would zero, copy and add a whole-length gradient a step
+    seq = (tuple(zip(*(x.unbind(0) for x in xs))) if isinstance(xs, tuple)
+           else xs.unbind(0))
+    ys = []
+    for x_t in seq:
+        carry, y = step(carry, x_t)
+        ys.append(y)
+    return carry, torch.stack(ys)
+
+
+def chunked_scan(step, carry, xs, chunk=256, remat=True):
+    """``carry, y_t = step(carry, x_t)`` over the leading (time) dim of
+    ``xs`` (a tensor or a tuple of tensors); returns ``(carry, ys)``, the
+    ``y_t`` (tensors) stacked on a new leading dim: ``lax.scan`` with
+    gradient checkpoints every ``chunk`` steps, as the reference's
+    ``chunked_scan``. Each chunk runs under ``torch.utils.checkpoint``
+    (non-reentrant, no RNG state: the recurrences draw no random numbers,
+    and reading the CUDA RNG state would raise inside a graph capture), so
+    the backward pass keeps the carry only at chunk boundaries and
+    recomputes each chunk's steps: O(S/chunk) saved carries instead of
+    O(S). ``c = min(chunk, S)``; when ``c`` does not divide S, when
+    ``c == S`` or with ``remat=False`` it is a plain loop. ``step`` must
+    be functional: it writes nothing in place."""
+    S = len(xs[0] if isinstance(xs, tuple) else xs)
+    c = min(chunk, S)
+    if S % c or c == S or not remat:
+        return _scan(step, carry, xs)
+    ys = []
+    for lo in range(0, S, c):
+        carry, y = checkpoint(_scan, step, carry,
+                              _index(xs, slice(lo, lo + c)),
+                              use_reentrant=False, preserve_rng_state=False)
+        ys.append(y)
+    return carry, torch.cat(ys)
 
 
 # --------------------------------------------------------------------------

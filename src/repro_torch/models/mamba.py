@@ -3,9 +3,11 @@
 
 ``selective_scan_ref`` is the plain recurrence: a Python loop over time
 with the discretisation inside the step, so (B,S,di,st) is never
-materialised; under autograd it keeps every step's state for the
-backward pass (the JAX ``chunked_scan``'s recomputation, which bounds that
-memory, is not ported: ROADMAP.md). ``mamba_apply(impl="kernel")`` — the
+materialised. Without autograd it updates the state in place; under
+autograd it runs the reference's functional step through
+``layers.chunked_scan``, whose backward pass keeps the (B,di,st) state
+only every 256 steps and recomputes each chunk, as the reference's does.
+``mamba_apply(impl="kernel")`` — the
 JAX ``impl="pallas"`` — runs the scan through ``kernels.ops.
 selective_scan``: the hand-written K6 kernel for CUDA tensors, the plain
 recurrence on the CPU.
@@ -23,7 +25,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
-from repro_torch.models.layers import trunc_normal
+from repro_torch.models.layers import (chunked_scan, needs_grad,
+                                       trunc_normal)
 
 IMPLS = ("ref", "kernel")
 _F32 = torch.float32
@@ -64,38 +67,46 @@ def _ssm_inputs(p, xc, cfg):
     return dt, Bm.float().contiguous(), Cm.float().contiguous(), A
 
 
+def _ssm_step(A):
+    """The reference's step for the decay rates ``A``, functional."""
+    def step(h, inp):
+        dt_t, B_t, C_t, x_t = inp                  # (B,di) / (B,st) / (B,di)
+        dt_t = dt_t[..., None]                                 # (B,di,1)
+        dA = torch.exp(dt_t * A)                               # (B,di,st)
+        dBx = dt_t * B_t[:, None, :] * x_t[..., None]
+        h = h * dA + dBx
+        return h, torch.einsum("bds,bs->bd", h, C_t)
+    return step
+
+
 def selective_scan_ref(xc, dt, Bm, Cm, A, D, h0=None):
     """Sequential selective scan. xc: (B,S,di) -> (y (B,S,di) f32, h
     (B,di,st) f32). ``h0`` (B,di,st) f32 is the starting state, updated in
     place and returned, or None (zeros). Under autograd (an input that
-    requires grad: training) each step's state is a new tensor, as the
-    backward pass needs them all, with the same arithmetic; ``h0`` must
-    then be None."""
+    requires grad: training) the steps run through ``chunked_scan``, with
+    the same arithmetic, and each state is a new tensor; ``h0`` must then
+    be None."""
     B, S, di = xc.shape
     st = A.shape[-1]
     xf = xc.float()
-    grad = torch.is_grad_enabled() and any(
-        t.requires_grad for t in (xc, dt, Bm, Cm, A, D))
+    grad = needs_grad(xc, dt, Bm, Cm, A, D)
     if grad and h0 is not None:
         raise ValueError("selective_scan_ref updates h0 in place, which "
                          "autograd cannot differentiate; pass h0=None")
     h = (torch.zeros((B, di, st), dtype=_F32, device=xc.device)
          if h0 is None else h0)
-    ys = [] if grad else torch.empty((B, S, di), dtype=_F32,
-                                     device=xc.device)
+    if grad:
+        h, ys = chunked_scan(_ssm_step(A), h, tuple(
+            t.transpose(0, 1) for t in (dt, Bm, Cm, xf)))
+        return ys.transpose(0, 1) + xf * D, h
+    ys = torch.empty((B, S, di), dtype=_F32, device=xc.device)
     for t in range(S):
         dt_t = dt[:, t, :, None]                               # (B,di,1)
         # discretisation inside the step: (B,S,di,st) is never built
         dA = torch.exp(dt_t * A)                               # (B,di,st)
         dBx = dt_t * Bm[:, t, None, :] * xf[:, t, :, None]
-        if grad:
-            h = h * dA + dBx
-            ys.append(torch.einsum("bds,bs->bd", h, Cm[:, t]))
-        else:
-            h.mul_(dA).add_(dBx)
-            ys[:, t] = torch.einsum("bds,bs->bd", h, Cm[:, t])
-    if grad:
-        ys = torch.stack(ys, 1)
+        h.mul_(dA).add_(dBx)
+        ys[:, t] = torch.einsum("bds,bs->bd", h, Cm[:, t])
     return ys + xf * D, h
 
 

@@ -3,8 +3,14 @@ memory) and sLSTM (scalar memory), arXiv:2405.04517.
 
 Both use the stabilized exponential gating of the paper (running max m).
 The plain recurrences ``mlstm_cell_ref`` / ``slstm_cell_ref`` are Python
-loops over time (the JAX ``chunked_scan``'s recomputation only matters
-for a backward pass and is not ported). ``mlstm_apply(impl="kernel")`` —
+loops over time. Without autograd they update the state in place (prefill,
+decode, the captured ``slstm_scan``). Under autograd (grad enabled and an
+input that requires grad: training) they run functional steps, the
+reference's, through ``layers.chunked_scan``: the backward pass keeps the
+(B, H, hd, hd) matrix memory (the sLSTM's four (B, H, hd) tensors) only
+every 256 steps and recomputes each chunk, as the reference's
+``chunked_scan`` does. A given state is then only read, and the new one
+comes back as a new dict. ``mlstm_apply(impl="kernel")`` —
 the JAX ``impl="pallas"`` — runs the recurrence through
 ``kernels.ops.mlstm``: the hand-written K7 kernel for CUDA tensors, the
 plain recurrence on the CPU. The sLSTM recurrence has no kernel in the
@@ -30,7 +36,8 @@ import torch.nn.functional as F
 
 from repro_torch.core.graphs import GraphSet
 from repro_torch.kernels import ops as kops
-from repro_torch.models.layers import trunc_normal
+from repro_torch.models.layers import (chunked_scan, needs_grad,
+                                       trunc_normal)
 
 IMPLS = ("ref", "kernel")
 _F32 = torch.float32
@@ -61,14 +68,34 @@ def mlstm_init(gen, cfg, dtype, stack=()):
     }
 
 
+def _mlstm_step(carry, inp):
+    """One step of the reference's recurrence, functional (a new carry)."""
+    C, n, m = carry
+    q_t, k_t, v_t, i_t, lf_t = inp                          # (B,H,...)
+    lfm = lf_t + m
+    m_new = torch.maximum(lfm, i_t)
+    i_p = torch.exp(i_t - m_new)
+    f_p = torch.exp(lfm - m_new)
+    vk = v_t[..., :, None] * k_t[..., None, :]              # (B,H,hd,hd)
+    C = C * f_p[..., None, None] + vk * i_p[..., None, None]
+    n = n * f_p[..., None] + i_p[..., None] * k_t
+    num = torch.matmul(C, q_t[..., None]).squeeze(-1)       # (B,H,hd)
+    den = torch.maximum(torch.abs((n * q_t).sum(-1)), torch.exp(-m_new))
+    return (C, n, m_new), num / den[..., None]
+
+
 def mlstm_cell_ref(q, k, v, ig, fg, state=None):
     """Stabilized mLSTM recurrence, one time step after another.
 
     q,k,v: (B,S,H,hd); ig,fg: (B,S,H) raw gate pre-activations.
-    state: dict(C:(B,H,hd,hd), n:(B,H,hd), m:(B,H)) f32, updated in place,
-    or None (C = n = 0, m = -inf). Returns (h: (B,S,H,hd) f32, state).
+    state: dict(C:(B,H,hd,hd), n:(B,H,hd), m:(B,H)) f32, or None (C = n =
+    0, m = -inf). Returns (h: (B,S,H,hd) f32, state). Without autograd the
+    state is updated in place and returned; under autograd it is only read
+    (the first step's ``f_p`` is ``exp(-inf) = 0``, whose gradient is 0)
+    and the steps run through ``chunked_scan``, the new state a new dict.
     """
     B, S, H, hd = q.shape
+    grad = needs_grad(q, k, v, ig, fg, *(state or {}).values())
     if state is None:
         state = {"C": _zeros((B, H, hd, hd), q.device),
                  "n": _zeros((B, H, hd), q.device),
@@ -79,6 +106,11 @@ def mlstm_cell_ref(q, k, v, ig, fg, state=None):
     igf = ig.float()
     qf, kf, vf = (t.float() * (hd ** -0.25) for t in (q, k, v))
     vf = vf * hd ** 0.25      # only q,k scaled (standard 1/sqrt(hd) split)
+    if grad:
+        (C, n, m), hs = chunked_scan(
+            _mlstm_step, (C, n, m),
+            tuple(t.transpose(0, 1) for t in (qf, kf, vf, igf, logf)))
+        return hs.transpose(0, 1), {"C": C, "n": n, "m": m}
     hs = torch.empty((B, S, H, hd), dtype=_F32, device=q.device)
     for t in range(S):
         lf_t, i_t, q_t, k_t = logf[:, t], igf[:, t], qf[:, t], kf[:, t]
@@ -178,13 +210,40 @@ def slstm_init(gen, cfg, dtype, stack=()):
     }
 
 
+def _slstm_step(r, b):
+    """The reference's step for recurrence ``r`` and bias ``b``,
+    functional (a new carry)."""
+    def step(carry, wx_t):
+        h, c, n, m = carry
+        pre = wx_t + torch.einsum("bhk,hkg->bhg", h, r) + b    # (B,H,4hd)
+        zt, it, ft, ot = torch.chunk(pre, 4, dim=-1)
+        zt = torch.tanh(zt)
+        ot = torch.sigmoid(ot)
+        lf = F.logsigmoid(ft)
+        lfm = lf + m
+        m_new = torch.maximum(lfm, it)
+        i_p = torch.exp(it - m_new)
+        f_p = torch.exp(lfm - m_new)
+        c = c * f_p + i_p * zt
+        n = n * f_p + i_p
+        h = ot * c / torch.clamp(n, min=1e-6)
+        return (h, c, n, m_new), h
+    return step
+
+
 def slstm_cell_ref(wx, r, b, state):
     """wx: (B,S,H,4*hd) input contributions; recurrence per head.
 
-    state: dict(h,c,n,m: (B,H,hd)) f32, updated in place. Returns
-    (h_seq (B,S,H,hd) f32, state)."""
+    state: dict(h,c,n,m: (B,H,hd)) f32. Returns (h_seq (B,S,H,hd) f32,
+    state). Without autograd the state is updated in place and returned;
+    under autograd it is only read and the steps run through
+    ``chunked_scan``, the new state a new dict."""
     h, c, n, m = state["h"], state["c"], state["n"], state["m"]
     wxf = wx.float()
+    if needs_grad(wx, r, b, h, c, n, m):
+        (h, c, n, m), hs = chunked_scan(_slstm_step(r, b), (h, c, n, m),
+                                        wxf.transpose(0, 1))
+        return hs.transpose(0, 1), {"h": h, "c": c, "n": n, "m": m}
     hs = torch.empty((*wx.shape[:3], r.shape[-2]), dtype=_F32,
                      device=wx.device)
     for t in range(wx.shape[1]):
@@ -243,7 +302,7 @@ def slstm_scan(wx, r, b):
     graph's static ``(hs, state)``, which the next call for the same
     shape overwrites: consume them first (stream order covers work
     enqueued before that call)."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (wx, r, b)):
+    if needs_grad(wx, r, b):
         raise RuntimeError(
             "slstm_scan is forward only (a captured graph has no backward "
             "pass); train through slstm_cell_ref (impl='ref')")

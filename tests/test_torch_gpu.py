@@ -709,6 +709,68 @@ def test_gpu_captured_slstm_matches_plain_loop(cuda):
     xl.release_slstm_graphs()
 
 
+@pytest.mark.gpu
+def test_gpu_captured_xlstm_training_round_equals_cpu(cuda):
+    """Training the xlstm smoke config at S 512 (each recurrence two
+    256-step chunks: forward, recomputation and backward inside the
+    captured round graph), K = 2, two fused rounds (a capture, a replay),
+    every window under the sync guard, against the same rounds on the CPU
+    at 1e-4 (logs and params). A prefill through ``impl="kernel"`` before
+    and after training replays one ``slstm_scan`` graph: training
+    captures none."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import CoLearnConfig
+    from repro_torch.core import api
+    from repro_torch.core.colearn import CoLearner
+    from repro_torch.launch.train import build_data, make_loss_fn
+    from repro_torch.models import transformer as tr
+    from repro_torch.models import xlstm as xl
+    from repro_torch.tree import tree_map
+    cfg = get_smoke_config("xlstm-1.3b")
+    K, B, S = 2, 2, 512
+    data = build_data(cfg, K, B, S, K * B, seed=0)
+    params = tr.init_params(0, cfg, torch.float32, device="cpu")
+    served = tree_map(lambda t: t.to(cuda), params)
+    prompt = {"tokens": torch.tensor(
+        np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 32)),
+        device=cuda)}
+    xl.release_slstm_graphs()
+    before = tr.prefill(served, cfg, prompt, impl="kernel")
+    assert xl.slstm_graph_counts() == {"captures": 1, "replays": 0}
+    runs = {}
+    for dev in ("cpu", cuda):
+        learner = CoLearner(
+            CoLearnConfig(n_participants=K, T0=1, eta0=0.05, epsilon=1e-6,
+                          epochs_rule="fle", max_rounds=2),
+            make_loss_fn(cfg), codec=api.get_codec("exact"),
+            round_engine="fused", device=dev)
+        runner, guard = learner._runner, []
+        captured = runner._round
+
+        def round_graph(*a, _captured=captured, _guard=guard):
+            _guard.append(torch.cuda.get_sync_debug_mode())
+            return _captured(*a)
+        runner._round = round_graph
+        runs[str(dev)] = (learner, _rounds(learner, learner.init(params),
+                                           data, 2), captured, guard)
+    (_, cs, _, _), (_, gs, graph, guard) = runs["cpu"], runs[str(cuda)]
+    assert (graph.captures, graph.replays) == (1, 1)
+    assert guard == [2, 2]
+    for x, y in zip(cs["log"], gs["log"]):
+        assert (x.T, x.comm_bytes) == (y.T, y.comm_bytes)
+        np.testing.assert_allclose(y.local_losses, x.local_losses,
+                                   rtol=1e-4, atol=1e-4)
+        if not np.isinf(x.rel_change):
+            np.testing.assert_allclose(y.rel_change, x.rel_change,
+                                       rtol=1e-4, atol=1e-6)
+    assert _param_diff(cs, gs) <= 1e-4
+    assert xl.slstm_graph_counts() == {"captures": 1, "replays": 0}
+    after = tr.prefill(served, cfg, prompt, impl="kernel")
+    assert xl.slstm_graph_counts() == {"captures": 1, "replays": 1}
+    torch.testing.assert_close(after, before, rtol=1e-5, atol=1e-5)
+    xl.release_slstm_graphs()
+
+
 # ---------------------------------------------------------------------------
 # The rest of the strategy API on the card: the divergence-gated round (the
 # epochs, the gate graph, the finalize graph only on a synced round), the
