@@ -236,7 +236,37 @@ Phases:
      configs at S 512, card against CPU from the same params at 1e-4:
      the loss and every gradient, then one fused round each (K = 2,
      captured on the card); (d) the train CLI, 2 rounds of each, under
-     the fused engine (its default) and the python engine.
+     the fused engine (its default) and the python engine;
+ 15. the pod path: ``POD_RANKS`` = 3 ranks on the one card, started by
+     spawn, over gloo (NCCL refuses two ranks on one device) with a
+     ``file://`` rendezvous under ``build/``, each holding its ``(1, ...)``
+     row. (a) internlm2-1.8b at full width, depth 24 -> 8 (``LAYERS15``),
+     B 8 x 256, 2 steps an epoch, T 1, fused int8, ``FullAverage``, 2
+     rounds through ``make_fused_round_step(mesh=...)`` (the epochs
+     captured once, the finalize eager: K1 and K2 on the rank's row, one
+     all-reduce of the f32 payload, one broadcast of the new shared model
+     from rank 0): every rank's params equal rank 0's bit for bit after
+     each round, K1 and K2 launched once per rank a round, the loss
+     falling; per rank and round the seconds, the epochs and finalize
+     device ms (CUDA events), each collective's device-to-host, wire and
+     host-to-device seconds and payload bytes beside ``wire_bytes``, the
+     peak memory. After the ranks exit, the same rounds on the
+     simulation path on the card (K = 3 stacked, ``mesh=None``), each
+     round from the pod's params before it (rank 0 saves them): params
+     within 1e-5, losses and rel within rtol 1e-5. (b) at the smoke
+     config on the same ranks, 2 rounds of each of nine forms (int4 with
+     error feedback, leaf-wise int8, weights 3:2:1 on ragged masked
+     shards, partial participation m = 2, ``live`` with rank 1 dead in
+     round 1, ``RingGossip``, ``GraphGossip`` over the complete graph
+     (two point-to-point legs; the exponential graph is time-varying and
+     takes the dense fallback, as in the reference), ``D2Gossip`` over
+     the ring, the dense fallback over the exponential graph, flagged),
+     each round then run by rank 0 on the simulation path on the card
+     from the gathered rows: params and round state within 1e-5, losses
+     and rel within rtol 1e-5, equal ``comm_bytes``; the error-feedback
+     residual nonzero and on its rank, the dead row unchanged bit for bit.
+     The ranks report their K1 / K2 launches, which join the kernels
+     line.
 Before the last line come the ``kernels`` JSON and the card's name and
 power limit as ``nvidia-smi`` gives them; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
@@ -4119,6 +4149,456 @@ def phase_recurrent_training(torch, dev, launches_out, mark):
     mark("14d")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the pod path. POD_RANKS ranks share the one card over gloo (NCCL
+# refuses two ranks on one device), started by spawn (this process has CUDA
+# initialised). (a) runs internlm2-1.8b at full width and depth LAYERS15:
+# each rank holds params, grads, the flat buffer, the dequantized payload
+# and old_avg, about 5P f32 with P = 882,411,520 at depth 8 (17.6 GB and
+# activations a rank; depth 12 would need about 80 GB for three).
+POD_RANKS = 3
+LAYERS15 = 8
+B15, S15, STEPS15 = 8, 256, 2
+POD15_TIMEOUT = 600
+TOL15 = 1e-5          # pod vs simulation: only the K-term sum's order
+LOG_TOL15 = {"rtol": 1e-5, "atol": 1e-6}
+
+
+def cfg15():
+    from repro_torch.configs import get_config
+    return get_config("internlm2-1.8b").with_(
+        n_layers=LAYERS15, segments=((("gqa:dense",), LAYERS15),))
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _rows15(torch, data, i, dev, rows, steps):
+    """Round i's one-epoch batch dict for participant rows ``rows``."""
+    from repro_torch.core.engine import stage
+    bx, by = data.epoch_batches(i, 0)
+    return {"tokens": stage(bx[rows, :steps][None], device=dev),
+            "labels": stage(by[rows, :steps][None], device=dev)}
+
+
+def _pod15_rank(rank, world, out_dir, queue, dev_type, cfg_a, cfg_b):
+    """One rank of phase 15, a spawned process: joins the gloo group on
+    ``dev_type``, runs (a) on ``cfg_a`` and (b) on ``cfg_b``, and puts its
+    report (or its traceback) on ``queue``."""
+    import traceback
+    sys.path.insert(0, str(ROOT / "src"))
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    try:
+        import torch
+        import torch.distributed as dist
+        torch.set_num_threads(2)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        from repro_torch.launch import mesh
+        dev = mesh.init_process_mesh(rank, world, f"file://{out_dir}/rdv",
+                                     "gloo", dev_type)
+        try:
+            pmesh = mesh.make_sim_mesh((world,), ("pod",), dev_type)
+            report = {"a": _pod15_full(torch, rank, world, pmesh, dev,
+                                       out_dir, cfg_a)}
+            report["b"] = _pod15_forms(torch, rank, world, pmesh, dev,
+                                       cfg_b)
+        finally:
+            dist.destroy_process_group()
+        queue.put((rank, "ok", report))
+    except Exception:                  # the parent reports it and fails
+        queue.put((rank, "error", traceback.format_exc()))
+
+
+def _counts_since(before):
+    from repro_torch.kernels import ops
+    return {n: c - before[n] for n, c in ops.launch_counts().items()
+            if c != before[n]}
+
+
+def _round_record(torch, rf, dev, seconds, aux, counts):
+    """One pod round's numbers on this rank."""
+    ev = rf.events
+    st = dict(rf.aggregate.pod.stats)
+    split = {op: {part: st.get(f"{op}_{part}", 0.0)
+                  for part in ("d2h_s", "wire_s", "h2d_s", "bytes",
+                               "calls")}
+             for op in ("all_reduce", "new_avg", "gather")}
+    return {"seconds": seconds,
+            "epochs_ms": ev[0].elapsed_time(ev[1]) if ev else None,
+            "finalize_ms": ev[1].elapsed_time(ev[2]) if ev else None,
+            "losses": aux["losses"].cpu().tolist(),
+            "rel": float(aux["rel"]), "launches": counts,
+            "collectives": split,
+            "peak_mem_GB": (torch.cuda.max_memory_allocated(dev) / 1e9
+                            if dev.type == "cuda" else None)}
+
+
+def _pod15_full(torch, rank, world, pmesh, dev, out_dir, cfg):
+    """15(a) on one rank: fused int8, FullAverage, 2 rounds through
+    ``make_fused_round_step(mesh=)``; rank 0 saves its params after each
+    round for the parent's simulation."""
+    from repro_torch.configs.base import CoLearnConfig
+    from repro_torch.core import flatbuf
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import build_data
+    from repro_torch.models import transformer as tr
+    from repro_torch.tree import leaves, leaves_with_path, tree_map
+    data = build_data(cfg, world, B15, S15, world * B15 * STEPS15, seed=0)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    params = tr.init_params(0, cfg, torch.float32, device=dev)
+    init_sum = float(sum(t.sum(dtype=torch.float64) for t in leaves(params)))
+    local = tree_map(lambda t: t[None], params)     # this rank's (1, ...) row
+    ccfg = CoLearnConfig(n_participants=world, T0=1, eta0=0.05, max_rounds=2)
+    rf = steps.make_fused_round_step(cfg, ccfg, mesh=pmesh, codec="fused")
+    pod = rf.aggregate.pod
+    rounds = []
+    for i in range(2):
+        batches = _rows15(torch, data, i, dev, slice(rank, rank + 1),
+                          STEPS15)
+        _sync(torch, dev)
+        pod.reset_stats()
+        before = ops.launch_counts()
+        t0 = time.perf_counter()
+        local, _, aux = rf(local, (), batches, i)
+        _sync(torch, dev)
+        rec = _round_record(torch, rf, dev, time.perf_counter() - t0, aux,
+                            _counts_since(before))
+        # new_avg is rank 0's row, broadcast: equal rows on every rank
+        rec["equals_rank0"] = all(torch.equal(t[0], a) for t, a in zip(
+            leaves(local), leaves(aux["new_avg"])))
+        rounds.append(rec)
+        if rank == 0:
+            torch.save({p: t[0].cpu() for p, t in leaves_with_path(local)},
+                       f"{out_dir}/a_round{i}.pt")
+    g = rf.graphs.functions[0]
+    return {"rounds": rounds, "init_sum": init_sum,
+            "params": tr.count_params(params),
+            "wire_bytes": flatbuf.wire_bytes(flatbuf.make_layout(local)),
+            "epochs_graph": {"captures": g.captures, "replays": g.replays}}
+
+
+def _gather15(torch, pod, tree):
+    """Every rank's ``(1, ...)`` rows of ``tree`` -> the ``(K, ...)``
+    stack, one broadcast from each rank (checks only)."""
+    from repro_torch.tree import leaves, unflatten_like
+    rows = []
+    for j in range(pod.size):
+        buf = [t.clone() if j == pod.index else torch.empty_like(t)
+               for t in leaves(tree)]
+        pod.broadcast_(buf, j)
+        rows.append(buf)
+    return unflatten_like(tree, [torch.cat(ls) for ls in zip(*rows)])
+
+
+def _forms15(api):
+    """15(b)'s forms: name -> (codec, aggregator, step keywords)."""
+    i8 = api.FlatFusedInt8()
+    return {
+        "int4+ef": (api.FlatFusedIntN(bits=4, error_feedback=True),
+                    api.FullAverage(), {}),
+        "leafwise": (api.LeafwiseInt8(), api.FullAverage(), {}),
+        "weights 3:2:1 masked": (i8, api.FullAverage(weights=(3., 2., 1.)),
+                                 {"masked": True}),
+        "partial m=2": (i8, api.PartialParticipation(m=2, seed=0), {}),
+        "live, rank 1 dead in round 1": (i8, api.FullAverage(),
+                                         {"live": True}),
+        "ring": (i8, api.RingGossip(), {}),
+        "graph[complete]": (i8, api.GraphGossip("complete"), {}),
+        "d2[ring]": (i8, api.D2Gossip("ring"), {}),
+        "dense: graph[exponential]": (i8, api.GraphGossip("exponential"),
+                                      {}),
+    }
+
+
+MASK15 = ((True, True, True), (True, True, False), (True, False, False))
+
+
+def _pod15_forms(torch, rank, world, pmesh, dev, cfg):
+    """15(b) on one rank: each form for 2 rounds on the pod; after each
+    round the rows are gathered and rank 0 runs the same round on the
+    simulation path (``mesh=None``, the K rows stacked on the card) from
+    the pod's rows before it, and compares."""
+    import numpy as np
+    from repro_torch.configs.base import CoLearnConfig
+    from repro_torch.core import api
+    from repro_torch.core.collectives import PodAxis
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import build_data
+    from repro_torch.models import transformer as tr
+    from repro_torch.tree import leaves, tree_map
+    checks = PodAxis(pmesh)
+    K, n_batches = world, 3
+    data = build_data(cfg, K, 4, 32, K * 4 * n_batches, seed=1)
+    g = torch.Generator(device=dev).manual_seed(15)
+    base = tr.init_params(1, cfg, torch.float32, device=dev)
+    start = tree_map(lambda t: t[None] + 0.02 * torch.randn(
+        (K, *t.shape), generator=g, device=dev), base)
+    ccfg = CoLearnConfig(n_participants=K, T0=1, eta0=0.05, max_rounds=2)
+    own = slice(rank, rank + 1)
+    out = {}
+    for name, (codec, agg, kw) in _forms15(api).items():
+        pod_rf = steps.make_fused_round_step(cfg, ccfg, mesh=pmesh,
+                                             codec=codec, aggregator=agg,
+                                             **kw)
+        sim_rf = (steps.make_fused_round_step(cfg, ccfg, codec=codec,
+                                              aggregator=agg, device=dev,
+                                              **kw) if rank == 0 else None)
+        stateful = codec.stateful or agg.stateful
+        local = tree_map(lambda t: t[own].clone(), start)
+        state = agg.init_round_state(codec, local)
+        prev = (tree_map(torch.clone, start),
+                agg.init_round_state(codec, start))
+        rec = {"rounds": [], "dense_fallback": pod_rf.aggregate.dense_fallback}
+        for i in range(2):
+            live_np = (np.array([1, 0, 1] if i == 1 else [1, 1, 1],
+                                np.float32) if kw.get("live") else None)
+            W = agg.mixing_matrix(i, K, live=None if live_np is None
+                                  else live_np > 0)
+            Wt = torch.as_tensor(np.array(W), device=dev)
+            live_t = (None if live_np is None
+                      else torch.as_tensor(live_np, device=dev))
+            mask = torch.as_tensor(np.array(MASK15), device=dev)
+
+            def args(rows, st):
+                a = ([st] if stateful else []) + [
+                    _rows15(torch, data, i, dev, rows, n_batches)]
+                if kw.get("masked"):
+                    a.append(mask[rows])
+                if kw.get("live"):
+                    a.append(live_t)
+                a.append(i)
+                if agg.uses_weights or kw.get("live"):
+                    a.append(Wt)
+                return a
+            before_row = [t.clone() for t in leaves(local)]
+            pod_rf.aggregate.pod.reset_stats()
+            cb = ops.launch_counts()
+            local, _, aux = pod_rf(local, (), *args(own, state))
+            if stateful:
+                state = aux["residual"]
+            counts = _counts_since(cb)
+            st = dict(pod_rf.aggregate.pod.stats)
+            r = {"launches": counts, "p2p_legs": st.get("p2p_legs", 0.0),
+                 "moved_bytes": sum(v for k_, v in st.items()
+                                    if k_.endswith("_bytes")),
+                 "comm_bytes": agg.comm_bytes(
+                     codec, tree_map(lambda t: t.expand(K, *t.shape[1:]),
+                                     local), i,
+                     None if live_np is None else live_np > 0),
+                 "rel": float(aux["rel"]), "losses": aux["losses"].tolist()}
+            if kw.get("live") and i == 1 and rank == 1:
+                r["dead_row_unchanged"] = all(
+                    torch.equal(a, b) for a, b in zip(before_row,
+                                                      leaves(local)))
+            if codec.stateful:
+                res = state["res"] if agg.stateful else state
+                r["residual_on_rank"] = [str(res.device), list(res.shape),
+                                         float(res.abs().max())]
+            rows = _gather15(torch, checks, local)
+            srows = (_gather15(torch, checks, state) if stateful else None)
+            if rank == 0:
+                params, sstate = prev
+                params, _, saux = sim_rf(params, (), *args(slice(None),
+                                                           sstate))
+                r["sim"] = {
+                    "max_param_diff": max(float((a - b).abs().max())
+                                          for a, b in zip(leaves(params),
+                                                          leaves(rows))),
+                    "max_loss_diff": float((saux["losses"]
+                                            - aux["losses"]).abs().max()),
+                    "rel": float(saux["rel"]),
+                    "comm_bytes": agg.comm_bytes(
+                        codec, params, i,
+                        None if live_np is None else live_np > 0)}
+                if stateful:
+                    r["sim"]["max_state_diff"] = max(
+                        float((a - b).abs().max()) for a, b in zip(
+                            leaves(saux["residual"]), leaves(srows)))
+                prev = (rows, srows)
+            rec["rounds"].append(r)
+        out[name] = rec
+    return out
+
+
+def phase_pod(torch, dev, launches_out, mark):
+    """Phase 15: the pod path (see the docstring)."""
+    import multiprocessing as mp
+    import queue as queue_mod
+
+    import numpy as np
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import CoLearnConfig
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import build_data
+    from repro_torch.models import transformer as tr
+    from repro_torch.tree import leaves, leaves_with_path, tree_map
+    from repro_torch.models import xlstm
+    out_dir = ROOT / "build" / "pod15"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    # the ranks need the card: this process keeps no graph pool or cache
+    xlstm.release_slstm_graphs()
+    gc.collect()
+    torch.cuda.empty_cache()
+    parent_gb = (torch.cuda.memory_allocated() / 1e9,
+                 torch.cuda.memory_reserved() / 1e9)
+    cfg = cfg15()
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=_pod15_rank, daemon=True, args=(
+        k, POD_RANKS, str(out_dir), q, dev.type, cfg,
+        get_smoke_config("internlm2-1.8b"))) for k in range(POD_RANKS)]
+    t0 = time.time()
+    for p in procs:
+        p.start()
+    reports, errors = {}, []
+    try:
+        while len(reports) < POD_RANKS and not errors:
+            try:
+                k, status, payload = q.get(timeout=5)
+            except queue_mod.Empty:
+                dead = [p.exitcode for p in procs if p.exitcode]
+                if dead or time.time() - t0 > POD15_TIMEOUT:
+                    errors.append(f"ranks exited {dead} or timed out")
+                continue
+            if status == "ok":
+                reports[k] = payload
+            else:
+                errors.append(f"rank {k}: {payload}")
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    check(not errors, "15: " + (errors[0][-4000:] if errors else ""))
+    ranks_s = time.time() - t0
+    mark("15 ranks")
+
+    # (a): each rank's rounds, then the simulation path on the card
+    a = [reports[k]["a"] for k in range(POD_RANKS)]
+    for k, rep in enumerate(a):
+        for i, r in enumerate(rep["rounds"]):
+            check(r["equals_rank0"], f"15a: rank {k} round {i} differs "
+                  "from rank 0's row")
+            check(r["launches"].get("wire_quantize") == 1
+                  and r["launches"].get("wire_dequantize") == 1
+                  and len(r["launches"]) == 2,
+                  f"15a: rank {k} round {i} launched {r['launches']}")
+        check(rep["init_sum"] == a[0]["init_sum"],
+              f"15a: rank {k}'s init differs from rank 0's")
+        losses = [float(np.mean(r["losses"])) for r in rep["rounds"]]
+        check(losses[1] < losses[0], f"15a: the loss did not fall {losses}")
+    torch.cuda.reset_peak_memory_stats()
+    data = build_data(cfg, POD_RANKS, B15, S15, POD_RANKS * B15 * STEPS15,
+                      seed=0)
+    params = tr.init_params(0, cfg, torch.float32, device=dev)
+    check(float(sum(t.sum(dtype=torch.float64) for t in leaves(params)))
+          == a[0]["init_sum"], "15a: the parent's init differs")
+    stacked = tree_map(lambda t: t[None].expand(POD_RANKS, *t.shape)
+                       .contiguous(), params)
+    del params
+    ccfg = CoLearnConfig(n_participants=POD_RANKS, T0=1, eta0=0.05,
+                         max_rounds=2)
+    rf = steps.make_fused_round_step(cfg, ccfg, codec="fused", device=dev)
+    sim = []
+    for i in range(2):
+        if i:      # the round starts from the pod's rows after round i-1
+            saved = torch.load(out_dir / f"a_round{i - 1}.pt", mmap=True)
+            for path, t in leaves_with_path(stacked):
+                t.copy_(saved[path][None].expand_as(t))
+            del saved
+        t1 = time.perf_counter()
+        stacked, _, aux = rf(stacked, (), _rows15(
+            torch, data, i, dev, slice(None), STEPS15), i)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t1
+        pod_row = torch.load(out_dir / f"a_round{i}.pt", mmap=True)
+        diff = max(float((t[0] - pod_row[p].to(dev)).abs().max())
+                   for p, t in leaves_with_path(stacked))
+        del pod_row
+        losses = aux["losses"].cpu().numpy()
+        pod_losses = np.array(a[0]["rounds"][i]["losses"])
+        sim.append({"seconds": sec, "max_param_diff": diff,
+                    "losses": losses.tolist(), "rel": float(aux["rel"]),
+                    "max_loss_diff": float(np.abs(losses - pod_losses)
+                                           .max())})
+        check(diff <= TOL15, f"15a round {i}: pod vs simulation params "
+              f"differ by {diff}")
+        np.testing.assert_allclose(pod_losses, losses, **LOG_TOL15)
+        np.testing.assert_allclose(a[0]["rounds"][i]["rel"],
+                                   float(aux["rel"]), **LOG_TOL15)
+    sim_peak = torch.cuda.max_memory_allocated() / 1e9
+    del stacked, rf, aux
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(out_dir, ignore_errors=True)
+    for rep in a:
+        for r in rep["rounds"]:
+            for n, c in r["launches"].items():
+                launches_out[n] = launches_out.get(n, 0) + c
+    say("pod", part="a", arch=cfg.name, ranks=POD_RANKS, backend="gloo",
+        reduced=f"n_layers 24 -> {LAYERS15} (each rank holds about five "
+                "f32 model copies: params, grads, the flat buffer, the "
+                "dequantized payload, old_avg)",
+        params_per_rank=a[0]["params"], d_model=cfg.d_model,
+        heads=[cfg.n_heads, cfg.n_kv_heads], d_ff=cfg.d_ff,
+        vocab=cfg.vocab_size, batch=B15, seq_len=S15,
+        steps_per_epoch=STEPS15, codec="fused int8",
+        wire_bytes=a[0]["wire_bytes"], ranks_seconds=ranks_s,
+        parent_allocated_reserved_GB_while_ranks_ran=parent_gb,
+        per_rank=a, simulation=sim, simulation_peak_mem_GB=sim_peak)
+    mark("15a")
+
+    # (b): the other forms, as rank 0 compared them on the card
+    b = [reports[k]["b"] for k in range(POD_RANKS)]
+    for name, rec in b[0].items():
+        dense = name.startswith("dense")
+        for k in range(POD_RANKS):
+            check(b[k][name]["dense_fallback"] == dense,
+                  f"15b {name}: rank {k} dense_fallback "
+                  f"{b[k][name]['dense_fallback']}")
+        for i, r in enumerate(rec["rounds"]):
+            s = r["sim"]
+            check(s["max_param_diff"] <= TOL15
+                  and s.get("max_state_diff", 0.0) <= TOL15,
+                  f"15b {name} round {i}: pod vs simulation {s}")
+            np.testing.assert_allclose(r["rel"], s["rel"], **LOG_TOL15)
+            check(s["max_loss_diff"] <= LOG_TOL15["atol"] + LOG_TOL15[
+                "rtol"] * max(abs(x) for x in np.ravel(r["losses"])),
+                f"15b {name} round {i}: losses differ {s}")
+            check(r["comm_bytes"] == s["comm_bytes"],
+                  f"15b {name} round {i}: comm bytes {r['comm_bytes']} vs "
+                  f"{s['comm_bytes']}")
+            for k in range(POD_RANKS):
+                rk = b[k][name]["rounds"][i]
+                if name == "graph[complete]":
+                    check(rk["p2p_legs"] == 2, f"15b {name}: legs {rk}")
+                if "residual_on_rank" in rk:
+                    dv, shape, mx = rk["residual_on_rank"]
+                    check(dv.startswith(dev.type) and shape[0] == 1
+                          and mx > 0, f"15b {name}: residual {rk}")
+                for n, c in rk["launches"].items():
+                    launches_out[n] = launches_out.get(n, 0) + c
+        if name.startswith("live"):
+            check(b[1][name]["rounds"][1].get("dead_row_unchanged"),
+                  "15b live: rank 1's row moved while it was dead")
+    say("pod", part="b", config="internlm2-1.8b smoke", ranks=POD_RANKS,
+        forms={name: {"rank0": b[0][name], "other_ranks": [
+            [{f: r.get(f) for f in ("launches", "p2p_legs", "moved_bytes",
+                                    "residual_on_rank",
+                                    "dead_row_unchanged")}
+             for r in b[k][name]["rounds"]] for k in range(1, POD_RANKS)]}
+            for name in b[0]})
+    mark("15b")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -4227,6 +4707,7 @@ def main(argv=None):
     phase_paper_tasks(torch, dev, launches, mark)
     phase_new_archs(torch, dev, launches, bw, mark)
     phase_recurrent_training(torch, dev, launches, mark)
+    phase_pod(torch, dev, launches, mark)
 
     kernels = []
     for kname, (tag, replaces, source) in KERNEL_META.items():

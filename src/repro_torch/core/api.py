@@ -15,8 +15,22 @@ CUDA graphs captured once, ``core/graphs.py``; under active churn the
 liveness row rides in one static device buffer); the :class:`CLR` /
 :class:`ELR` / :class:`WarmupCLR` / :class:`CosineCyclical` schedules and
 the :class:`ILE` / :class:`FLE` / :class:`DivergenceTrigger` sync
-policies, with the registries and ``get_*`` resolvers. The pod mesh
-(``mesh=``) raises ``NotImplementedError`` (ROADMAP.md).
+policies, with the registries and ``get_*`` resolvers.
+
+The pod path (``make_aggregate_fn(codec, mesh=...)``): one process per
+participant, each aggregating its ``(1, ...)`` slice over the mesh's
+``pod`` group (``core/collectives.py``): the flat codec's fused mean (K1
++ K2 + one all-reduce), the weighted psum (weighted :class:`FullAverage`,
+:class:`PartialParticipation`, the uniform error-feedback mean), the
+leaf-wise codec's roundtrip in front of ``make_average_shard_map``, and
+one point-to-point exchange per ``Topology.edge_perms`` permutation for
+the gossip aggregators. Where the reference's hook returns None (a
+dynamic, time-varying or irregular graph, a stateful codec under gossip)
+it falls back to the dense mix, which under GSPMD gathers every pod's
+row; here that is one broadcast from each rank, O(K·model) traffic, and
+the built function says so (``aggregate.dense_fallback``). Every pod
+aggregate carries its ``PodAxis`` (``aggregate.pod``: its ``stats``
+count the wire). The mixing matrix and the liveness row stay whole.
 
 Aggregation runs IN PLACE on the stacked params: the exact mean and the
 fused flat-buffer mean write into them, and a mixing matrix is applied
@@ -29,6 +43,7 @@ from __future__ import annotations
 
 import abc
 import dataclasses
+import functools
 import inspect
 import math
 import weakref
@@ -41,6 +56,7 @@ import torch
 from repro_torch.core import averaging, compression, flatbuf
 from repro_torch.core import engine as engine_mod
 from repro_torch.core import topology as topo_mod
+from repro_torch.core.collectives import PodAxis, axis_sizes
 from repro_torch.core.graphs import GraphSet, allow_sync
 from repro_torch.core.schedule import (LR_COS_ROUND, LR_EXP_GLOBAL,
                                        LR_EXP_ROUND, N_SCHED_PARAMS, clr_lr,
@@ -50,10 +66,6 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.quantize import DEFAULT_BLOCK, check_bits
 from repro_torch.tree import leaves, tree_map, unflatten_like
-
-
-def _not_ported(what):
-    raise NotImplementedError(f"{what} not yet ported, see ROADMAP.md")
 
 
 def participant_bytes(stacked) -> int:
@@ -416,6 +428,126 @@ def normalized_weights(weights, K: int) -> np.ndarray:
     return w / w.sum()
 
 
+def _pod(mesh, axis, param_specs=None):
+    """The rank's ``PodAxis`` of ``mesh`` (``param_specs``, when given,
+    must place only ``axis``: the intra-pod placements are not ported)."""
+    from repro_torch.sharding.specs import check_pod_specs
+    check_pod_specs(param_specs, mesh, axis)
+    return PodAxis(mesh, axis)
+
+
+def _carry(src, fn):
+    """``fn`` wraps pod aggregate ``src``: it carries ``src``'s marks."""
+    if hasattr(src, "pod"):
+        _on_pod(fn, src.pod, getattr(src, "dense_fallback", False))
+    return fn
+
+
+def _on_pod(fn, pod, dense=False):
+    """Mark a pod aggregate: its ``PodAxis`` and whether it is the dense
+    fallback."""
+    fn.pod, fn.dense_fallback = pod, dense
+    return fn
+
+
+def _check_one_row_per_pod(aggregator, stacked, pod, weights=None):
+    """The pod specialisations mix whole local rows, so they are only
+    correct with exactly one participant row per rank and a matrix over
+    the pod's K: fail loudly instead of mixing the wrong rows."""
+    engine_mod.check_one_row(stacked, pod, f"{aggregator.name!r} "
+                             "aggregation", weights)
+
+
+@torch.no_grad()
+def _pod_mix_into(pod, codec, stacked, weights, residual, live, serverless,
+                  corr=None):
+    """``_mix_into`` on the pod path, the dense fallback: the rank
+    roundtrips its own ``(1, ...)`` row (updating its own error-feedback
+    residual), then ONE broadcast from each of the K ranks gives it every
+    roundtripped row ``rt_j``, and it accumulates ``W[k, j]·rt_j`` (with
+    ``serverless``, its own term is ``W[k, k]`` times its exact value).
+    O(K·model) traffic, as the reference's GSPMD gather. ``live`` is the
+    whole row; only a live rank writes its row (and correction)."""
+    engine_mod.check_one_row(stacked, pod, "dense mix", weights)
+    k = pod.index
+    W = weights.float()
+    own = pod.local(live)
+    xs = leaves(stacked)
+    cs = leaves(corr) if corr is not None else [None] * len(xs)
+    vals = [t.float() + c if c is not None else t.float()
+            for t, c in zip(xs, cs)]
+    sent = (stacked if corr is None else unflatten_like(
+        stacked, [v.to(t.dtype) for v, t in zip(vals, xs)]))
+    if codec.per_leaf:
+        es = leaves(residual) if codec.stateful else [None] * len(xs)
+        rts = []
+        for i, t in enumerate(leaves(sent)):
+            q, e_new = codec.leaf_roundtrip(t, es[i])
+            if codec.stateful:
+                engine_mod.commit(es[i], e_new, own)
+            rts.append(q)
+        new_res = residual
+    elif codec.stateful:
+        rt, new_res = codec.roundtrip_ef(sent, residual)
+        rts = leaves(rt)
+    else:
+        rts, new_res = leaves(codec.roundtrip(sent)), None
+    payload = [q.float() for q in rts]
+    acc = [torch.mul(v, W[k, k]) if serverless else torch.zeros_like(v)
+           for v in vals]
+    for j in range(pod.size):
+        buf = payload if j == k else [torch.empty_like(p) for p in payload]
+        pod.broadcast_(buf, j, op="dense")
+        if serverless and j == k:
+            continue
+        for a, b in zip(acc, buf):
+            a.add_(torch.mul(b, W[k, j]))
+    for t, c, a in zip(xs, cs, acc):
+        if c is not None:
+            engine_mod.commit(c, a - t.float(), own)
+        engine_mod.commit(t, a.to(t.dtype), own)
+    return stacked, new_res
+
+
+def _make_weighted_psum_aggregate(aggregator, codec, mesh, param_specs,
+                                  axis):
+    """Pod-path broadcast-weighted mean, shared by the aggregators whose
+    matrix has identical rows (weighted :class:`FullAverage`,
+    :class:`PartialParticipation`, the uniform error-feedback mean): each
+    rank scales its codec-roundtripped row by ``W[0, k]`` and ONE f32
+    all-reduce of every leaf sums them, O(model) traffic. A stateful
+    codec's roundtrip is the error-feedback one, and its residual stays on
+    its rank: ``aggregate(stacked, weights, residual) -> (mixed,
+    new_res)``."""
+    pod = _pod(mesh, axis, param_specs)
+    stateful = getattr(codec, "stateful", False)
+
+    @torch.no_grad()
+    def mix(stacked, weights, residual, live):
+        _check_one_row_per_pod(aggregator, stacked, pod, weights)
+        if stateful:
+            rt, new_res = codec.roundtrip_ef(stacked, residual)
+        else:
+            rt, new_res = codec.roundtrip(stacked), None
+        w = weights[0][pod.index].float()
+        parts = [torch.mul(t.float(), w) for t in leaves(rt)]
+        del rt
+        pod.all_reduce_(parts, op="psum")
+        own = pod.local(live)
+        for t, p in zip(leaves(stacked), parts):
+            engine_mod.commit(t, p.to(t.dtype), own)
+        return stacked, new_res
+
+    if stateful:
+        def aggregate_ef(stacked, weights, residual, live=None):
+            return mix(stacked, weights, residual, live)
+        return _on_pod(aggregate_ef, pod)
+
+    def aggregate(stacked, weights, live=None):
+        return mix(stacked, weights, None, live)[0]
+    return _on_pod(aggregate, pod)
+
+
 def _check_base(weights, K):
     base = (np.ones(K, np.float64) if weights is None
             else np.asarray(weights, np.float64))
@@ -452,22 +584,45 @@ class Aggregator(abc.ABC):
                           param_specs=None, axis="pod", dynamic=False):
         """The round's aggregate function for ``codec``. ``dynamic=True``
         (elastic membership): the matrix changes per round, so the
-        function honours ``weights`` on every call."""
+        function honours ``weights`` on every call.
+
+        ``mesh`` (a ``DeviceMesh`` with an ``axis`` dim): the pod path,
+        the specialisation hook ``_make_mesh_aggregate_fn``, else the
+        dense fallback (``_pod_mix_into``). ``param_specs`` are optional
+        (every rank's row is whole) and checked when given."""
         if mesh is not None:
-            _not_ported("the pod-mesh aggregation path")
+            fn = self._make_mesh_aggregate_fn(codec, mesh, param_specs, axis,
+                                              dynamic=dynamic)
+            if fn is not None:
+                return fn
+            pod = _pod(mesh, axis, param_specs)
+            return _on_pod(self._make_host_aggregate_fn(
+                codec, mix=functools.partial(_pod_mix_into, pod)), pod,
+                dense=True)
         return self._make_host_aggregate_fn(codec)
 
-    def _make_host_aggregate_fn(self, codec):
+    def _make_host_aggregate_fn(self, codec, mix=_mix_into):
+        """The dense mix (``mix``: ``_mix_into``, or its pod form for the
+        dense fallback)."""
         if getattr(codec, "stateful", False):
             def aggregate_ef(stacked, weights, residual, live=None):
-                return _mix_into(codec, stacked, weights, residual, live,
-                                 serverless=False)
+                return mix(codec, stacked, weights, residual, live,
+                           serverless=False)
             return aggregate_ef
 
         def aggregate(stacked, weights, live=None):
-            return _mix_into(codec, stacked, weights, None, live,
-                             serverless=False)[0]
+            return mix(codec, stacked, weights, None, live,
+                       serverless=False)[0]
         return aggregate
+
+    def _make_mesh_aggregate_fn(self, codec, mesh, param_specs, axis,
+                                dynamic=False):
+        """Pod-path specialisation hook: an aggregate whose only traffic
+        is the aggregator's own wire pattern (a psum, a permute, ...).
+        None falls back to the dense mix. ``dynamic=True``: the matrix
+        varies per round; return None unless the specialisation honours
+        ``weights``."""
+        return None
 
     @abc.abstractmethod
     def comm_bytes(self, codec: WireCodec, stacked, round_index: int,
@@ -521,26 +676,49 @@ class FullAverage(Aggregator):
 
     def make_aggregate_fn(self, codec, *, mesh=None, param_specs=None,
                           axis="pod", dynamic=False):
-        if mesh is not None:
-            _not_ported("the pod-mesh aggregation path")
         stateful = getattr(codec, "stateful", False)
+        if mesh is not None:
+            from repro_torch.sharding.specs import check_pod_specs
+            check_pod_specs(param_specs, mesh, axis)
         if self.weights is not None or dynamic:
             # a per-round weight row: always the weighted paths
-            fused = codec.make_fused_mean(weighted=True, stateful=stateful)
+            fused = codec.make_fused_mean(mesh=mesh, axis=axis,
+                                          weighted=True, stateful=stateful)
             if fused is not None:
                 if stateful:
-                    return lambda stacked, weights, residual, live=None: \
-                        fused(stacked, weights[0], residual, live=live)
-                return lambda stacked, weights, live=None: fused(
-                    stacked, weights[0], live=live)
+                    return _carry(fused, lambda stacked, weights, residual,
+                                  live=None: fused(stacked, weights[0],
+                                                   residual, live=live))
+                return _carry(fused, lambda stacked, weights, live=None:
+                              fused(stacked, weights[0], live=live))
+            if mesh is not None:
+                return _make_weighted_psum_aggregate(self, codec, mesh,
+                                                     param_specs, axis)
             return self._make_host_aggregate_fn(codec)
-        fused = codec.make_fused_mean(stateful=stateful)
+        fused = codec.make_fused_mean(mesh=mesh, axis=axis,
+                                      stateful=stateful)
         if fused is not None:
             if stateful:
-                return lambda stacked, weights, residual, live=None: fused(
-                    stacked, residual, live=live)
-            return lambda stacked, weights=None, live=None: fused(
-                stacked, live=live)
+                return _carry(fused, lambda stacked, weights, residual,
+                              live=None: fused(stacked, residual, live=live))
+            return _carry(fused, lambda stacked, weights=None, live=None:
+                          fused(stacked, live=live))
+        if mesh is not None:
+            if stateful:
+                # the broadcast-weighted psum with a uniform row: each
+                # rank's residual stays on it
+                psum = _make_weighted_psum_aggregate(self, codec, mesh,
+                                                     param_specs, axis)
+                K = psum.pod.size
+                dev = torch.device(mesh.device_type)
+                uni = torch.full((K, K), 1.0 / K, dtype=torch.float32,
+                                 device=dev)
+                return _carry(psum, lambda stacked, weights, residual,
+                              live=None: psum(stacked, uni, residual,
+                                              live=live))
+            sm = averaging.make_average_shard_map(mesh, param_specs, axis)
+            return _carry(sm, lambda stacked, weights=None, live=None: sm(
+                codec.roundtrip(stacked), live=live))
         if stateful:
             def aggregate_ef(stacked, weights, residual, live=None):
                 rt, new_res = codec.roundtrip_ef(stacked, residual)
@@ -550,7 +728,9 @@ class FullAverage(Aggregator):
             averaging.average_pjit(codec.roundtrip(stacked), live=live)
 
     def comm_bytes(self, codec, stacked, round_index, live=None):
-        # the per-LIVE-participant bill is the same expression
+        # the per-LIVE-participant bill is the same expression (the pod
+        # path's all-reduce moves the dequantized f32 payload, as the
+        # reference's psum does; this is the encoded size)
         return codec.wire_bytes(stacked) + participant_bytes(stacked)
 
 
@@ -603,6 +783,13 @@ class PartialParticipation(Aggregator):
         w /= w.sum()
         # every row identical: all K download the same new shared model
         return np.broadcast_to(w, (K, K)).astype(np.float32)
+
+    def _make_mesh_aggregate_fn(self, codec, mesh, param_specs, axis,
+                                dynamic=False):
+        # identical rows (everyone downloads the same weighted mean): the
+        # weighted psum, which honours the row every call (live sets too)
+        return _make_weighted_psum_aggregate(self, codec, mesh, param_specs,
+                                             axis)
 
     def comm_bytes(self, codec, stacked, round_index, live=None):
         K = leaves(stacked)[0].shape[0]
@@ -672,17 +859,71 @@ class GraphGossip(Aggregator):
             self._mix_cache[key] = W
         return W
 
-    def _make_host_aggregate_fn(self, codec):
+    def _make_host_aggregate_fn(self, codec, mix=_mix_into):
         if getattr(codec, "stateful", False):
             def aggregate_ef(stacked, weights, residual, live=None):
-                return _mix_into(codec, stacked, weights, residual, live,
-                                 serverless=True)
+                return mix(codec, stacked, weights, residual, live,
+                           serverless=True)
             return aggregate_ef
 
         def aggregate(stacked, weights, live=None):
-            return _mix_into(codec, stacked, weights, None, live,
-                             serverless=True)[0]
+            return mix(codec, stacked, weights, None, live,
+                       serverless=True)[0]
         return aggregate
+
+    def _mesh_perm_setup(self, mesh, axis, dynamic):
+        """The sparse pod wire pattern: the graph's edge permutations and,
+        per permutation, the ``(K,)`` "k receives from src[k]" map that
+        picks each leg's weight ``W[k, src[k]]`` out of the matrix. None —
+        the dense fallback — when the graph is irregular (no permutation
+        decomposition), time-varying (a wire pattern per round), or
+        elastic membership may route edges outside the pattern."""
+        topo = self.topology
+        if dynamic or topo.time_varying:
+            return None
+        K = axis_sizes(mesh)[axis]
+        perms = topo.edge_perms(0, K)
+        if not perms:
+            return None
+        srcs = []
+        for perm in perms:
+            if len(perm) != K or len({d for _, d in perm}) != K:
+                return None         # partial permute: some pod gets zeros
+            src = [0] * K
+            for s_, d in perm:
+                src[d] = s_
+            srcs.append(tuple(src))
+        return tuple(tuple(p) for p in perms), tuple(srcs)
+
+    def _make_mesh_aggregate_fn(self, codec, mesh, param_specs, axis,
+                                dynamic=False):
+        if getattr(codec, "stateful", False):
+            return None     # no residual plumbing here: the dense fallback
+        setup = self._mesh_perm_setup(mesh, axis, dynamic)
+        if setup is None:
+            return None
+        perms, srcs = setup
+        pod = _pod(mesh, axis, param_specs)
+
+        # one point-to-point exchange per permutation: each rank
+        # roundtrips its own row (its send leg) and receives exactly degree
+        # rows, O(degree) traffic; its own half stays exact
+        @torch.no_grad()
+        def aggregate(stacked, weights, live=None):
+            _check_one_row_per_pod(self, stacked, pod, weights)
+            k = pod.index
+            W = weights.float()
+            qs = [q.float() for q in leaves(codec.roundtrip(stacked))]
+            acc = [torch.mul(t.float(), W[k, k]) for t in leaves(stacked)]
+            for perm, src in zip(perms, srcs):
+                recv = pod.permute(qs, perm, op="gossip")
+                for a, r in zip(acc, recv):
+                    a.add_(r.mul_(W[k, src[k]]))
+            own = pod.local(live)
+            for t, a in zip(leaves(stacked), acc):
+                engine_mod.commit(t, a.to(t.dtype), own)
+            return stacked
+        return _on_pod(aggregate, pod)
 
     def comm_bytes(self, codec, stacked, round_index, live=None):
         # every directed live edge moves one encoded model, and each
@@ -717,6 +958,32 @@ class RingGossip(GraphGossip):
             raise ValueError(
                 "RingGossip is fixed to the ring topology; use "
                 f"GraphGossip(topology={self.topology.name!r}) instead")
+
+    def _make_mesh_aggregate_fn(self, codec, mesh, param_specs, axis,
+                                dynamic=False):
+        # the static permute bakes the all-live ring and has no residual
+        # plumbing: a stateful codec or a per-round (live) matrix takes the
+        # dense fallback
+        if getattr(codec, "stateful", False) or dynamic:
+            return None
+        pod = _pod(mesh, axis, param_specs)
+        K = pod.size
+        perm = tuple((j, (j + 1) % K) for j in range(K))
+
+        # one exchange: each rank roundtrips its own row (the send leg) and
+        # receives its predecessor's; its own half stays exact
+        @torch.no_grad()
+        def aggregate(stacked, weights=None, live=None):
+            del weights                         # the ring matrix is static
+            _check_one_row_per_pod(self, stacked, pod)
+            qs = [q.float() for q in leaves(codec.roundtrip(stacked))]
+            recv = pod.permute(qs, perm, op="ring")
+            own = pod.local(live)
+            for t, r in zip(leaves(stacked), recv):
+                engine_mod.commit(t, (0.5 * t.float() + 0.5 * r).to(t.dtype),
+                                  own)
+            return stacked
+        return _on_pod(aggregate, pod)
 
     def comm_bytes(self, codec, stacked, round_index, live=None):
         # one encoded model sent, one received (the general per-live-edge
@@ -760,17 +1027,54 @@ class D2Gossip(GraphGossip):
             return {"corr": corr, "res": codec.init_state(stacked)}
         return corr
 
-    def _make_host_aggregate_fn(self, codec):
+    def _make_host_aggregate_fn(self, codec, mix=_mix_into):
         codec_ef = getattr(codec, "stateful", False)
 
         def aggregate(stacked, weights, state, live=None):
             corr = state["corr"] if codec_ef else state
             res = state["res"] if codec_ef else None
-            _, new_res = _mix_into(codec, stacked, weights, res, live,
-                                   serverless=True, corr=corr)
+            _, new_res = mix(codec, stacked, weights, res, live,
+                             serverless=True, corr=corr)
             return stacked, ({"corr": corr, "res": new_res} if codec_ef
                              else corr)
         return aggregate
+
+    def _make_mesh_aggregate_fn(self, codec, mesh, param_specs, axis,
+                                dynamic=False):
+        if getattr(codec, "stateful", False):
+            # the correction with an error-feedback residual takes the
+            # dense fallback, as in the reference
+            return None
+        setup = self._mesh_perm_setup(mesh, axis, dynamic)
+        if setup is None:
+            return None
+        perms, srcs = setup
+        pod = _pod(mesh, axis, param_specs)
+
+        # the permutes of GraphGossip over v = y + c; the correction stays
+        # on its rank
+        @torch.no_grad()
+        def aggregate(stacked, weights, corr, live=None):
+            _check_one_row_per_pod(self, stacked, pod, weights)
+            k = pod.index
+            W = weights.float()
+            xs, cs = leaves(stacked), leaves(corr)
+            vf = [t.float() + c for t, c in zip(xs, cs)]
+            vw = unflatten_like(stacked, [v.to(t.dtype)
+                                          for v, t in zip(vf, xs)])
+            qs = [q.float() for q in leaves(codec.roundtrip(vw))]
+            del vw
+            acc = [torch.mul(v, W[k, k]) for v in vf]
+            for perm, src in zip(perms, srcs):
+                recv = pod.permute(qs, perm, op="gossip")
+                for a, r in zip(acc, recv):
+                    a.add_(r.mul_(W[k, src[k]]))
+            own = pod.local(live)
+            for t, c, a in zip(xs, cs, acc):
+                engine_mod.commit(c, a - t.float(), own)
+                engine_mod.commit(t, a.to(t.dtype), own)
+            return stacked, corr
+        return _on_pod(aggregate, pod)
 
 
 # ---------------------------------------------------------------------------

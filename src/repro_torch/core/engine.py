@@ -44,8 +44,22 @@ and after the aggregation ``select_live`` writes the new rows only into
 the live slots, so a dead row keeps its params, optimizer state and
 round state. The new shared model is the first live row (``first_live``:
 an ``argmax`` on the device). One captured graph serves every live set.
-The pod mesh is still to port (ROADMAP.md): asking for it raises
-``NotImplementedError``.
+
+The pod path (``spmd_axis_name="pod"``, an aggregate built against a
+mesh): one process per participant, each holding the ``(1, ...)`` slice
+of the stacked trees. The epochs run unchanged on that slice. The
+aggregate carries its ``collectives.PodAxis`` (``aggregate.pod``), and
+the finalize then writes the rank's own row, reads the new shared model
+from the first live rank (which computes Eq. 4 against its ``old_avg``
+and broadcasts both), and the round gathers the ``(C, K)`` losses. The
+liveness row and the mixing matrix stay whole ``(K,)`` / ``(K, K)``
+tensors; the batch mask, the residual and every tree are the rank's
+slice. ``make_fused_compressed_average(mesh=)`` is the reference's four
+pod variants: per rank the flat buffer, K1 and K2 over its one row, the
+weight where weighted, ONE f32 all-reduce of the ``(1, N_pad)`` payload
+and ``/ K``; an error-feedback residual stays on its rank. The pod
+collectives synchronise with the host, so a pod finalize runs eagerly
+(``launch/steps.make_fused_round_step`` captures the epochs alone).
 """
 from __future__ import annotations
 
@@ -53,18 +67,11 @@ import numpy as np
 import torch
 
 from repro_torch.core import averaging, flatbuf
-from repro_torch.core.schedule import (divergence_tensor,
+from repro_torch.core.collectives import PodAxis
+from repro_torch.core.schedule import (divergence_sums, divergence_tensor,
                                        relative_change_tensor, switch_lr)
 from repro_torch.kernels import ops as kops
 from repro_torch.tree import leaves, tree_map, unflatten_like
-
-
-def _refuse(**variants):
-    for name, on in variants.items():
-        if on:
-            raise NotImplementedError(
-                f"the fused engine's {name} variant not yet ported, see "
-                "ROADMAP.md")
 
 
 def _on(t, dev):
@@ -157,8 +164,9 @@ def init_stacked_opt(opt, stacked):
     return tree_map(lambda *xs: torch.stack(xs), per[0], *per[1:])
 
 
-def make_epoch_fn(loss_fn, opt, masked=False, live=False):
-    """One local epoch for all K participants.
+def make_epoch_fn(loss_fn, opt, spmd_axis_name=None, masked=False,
+                  live=False):
+    """One local epoch for every participant row of the stacked trees.
 
     Returns ``epoch_fn(stacked_params, opt_state, batches, lr[, mask]
     [, live_row]) -> (stacked_params, opt_state, per-participant mean loss
@@ -181,7 +189,14 @@ def make_epoch_fn(loss_fn, opt, masked=False, live=False):
     ``(K,)`` f32 0/1 liveness row (after ``mask`` when both are on). A
     dead participant's commit gate is off for every step (``valid &
     alive``), and its epoch loss is 0 with a zero weight: the mean is
-    ``Σ where(gate, loss, 0) / max(n·alive, 1)``."""
+    ``Σ where(gate, loss, 0) / max(n·alive, 1)``.
+
+    ``spmd_axis_name="pod"`` (the pod path) changes nothing here: the
+    reference pins its vmap to the mesh axis so that no reduction crosses
+    pods, and a rank runs only its own ``(1, ...)`` rows (with its own
+    ``(1, n_batches)`` mask and ``(1,)`` liveness entry)."""
+    del spmd_axis_name
+
     def epoch_fn(stacked, opt_state, batches, lr, mask=None, live_row=None):
         if masked and mask is None:
             raise ValueError("the masked epoch takes the (K, n_batches) "
@@ -328,9 +343,18 @@ def _make_finalize(opt, aggregate_fn, live=False, stateful=False):
     the liveness row and writes only live rows in place; whatever it
     returns apart is written into the live rows (``select_live``), so a
     dead row keeps its params, optimizer state and round state, and the
-    new shared model is the first live row."""
+    new shared model is the first live row.
+
+    An aggregate built against a mesh (``aggregate_fn.pod``) makes this
+    the pod finalize (``_pod_finish``): eager, with the liveness row whole
+    and everything else the rank's slice."""
+    pod = getattr(aggregate_fn, "pod", None)
+
     @torch.no_grad()
     def finish(params, opt_state, averaged, old_avg, live_row=None):
+        if pod is not None:
+            return _pod_finish(pod, opt, params, opt_state, averaged,
+                               old_avg, live_row)
         if live_row is None:
             _write_into(params, averaged)
             new_avg = tree_map(lambda t: t[0], params)
@@ -359,10 +383,11 @@ def _make_finalize(opt, aggregate_fn, live=False, stateful=False):
         rel = finish(params, opt_state, averaged, old_avg, live_row)
         out = (params, opt_state, rel, old_avg)
         if stateful:
-            if live_row is None:
+            own = live_row if pod is None else pod.local(live_row)
+            if own is None:
                 _write_into(residual, new_res)
             else:
-                select_live(live_row, new_res, residual)
+                select_live(own, new_res, residual)
             out += (residual,)
         return out
 
@@ -390,12 +415,57 @@ def _make_finalize(opt, aggregate_fn, live=False, stateful=False):
     return finalize
 
 
+@torch.no_grad()
+def _pod_finish(pod, opt, params, opt_state, averaged, old_avg, live_row):
+    """The pod form of the finalize's state transition: the rank's own row
+    of ``averaged`` into ``params`` (only if the rank is live), then the
+    first live rank measures Eq. 4 of its row against its ``old_avg`` and
+    writes the row into it, and ONE broadcast from that rank gives every
+    rank the new shared model (into ``old_avg``) and ``rel``; the fresh
+    optimizer state as in the simulation. Returns ``rel`` (0-d)."""
+    own = pod.local(live_row)
+    if own is None:
+        _write_into(params, averaged)
+    else:
+        select_live(own, averaged, params)
+    j = pod.first_live(live_row)
+    rel = torch.zeros(1, dtype=torch.float32,
+                      device=leaves(params)[0].device)
+    if pod.index == j:
+        row = tree_map(lambda t: t[0], params)
+        rel.copy_(relative_change_tensor(row, old_avg).reshape(1))
+        _write_into(old_avg, row)
+    pod.broadcast_(leaves(old_avg) + [rel], j, op="new_avg")
+    fresh = init_stacked_opt(opt, params)
+    if own is None:
+        _write_into(opt_state, fresh)
+    else:
+        select_live(own, fresh, opt_state)
+    return rel[0]
+
+
+def _pod_of(aggregate_fn, spmd_axis_name):
+    """The aggregate's ``PodAxis`` when the round runs on the pod path."""
+    pod = getattr(aggregate_fn, "pod", None)
+    if spmd_axis_name is None:
+        if pod is not None:
+            raise ValueError(
+                "an aggregate built against a mesh runs on the pod path; "
+                f"pass spmd_axis_name={pod.axis!r}")
+        return None
+    if pod is None or pod.axis != spmd_axis_name:
+        raise ValueError(
+            f"spmd_axis_name={spmd_axis_name!r} needs an aggregate built "
+            "against that mesh axis (make_aggregate_fn(codec, mesh=...))")
+    return pod
+
+
 def _default_gate(div, delta):
     """The default device gate (``api.SyncPolicy.traced_should_sync``)."""
     return div > delta
 
 
-def make_fused_gate(gate_fn=None, live=False):
+def make_fused_gate(gate_fn=None, live=False, pod=None):
     """The divergence gate as its own function, ``gate(params, sync_ref,
     delta[, live_row]) -> (div, do_sync)``: the Kamp divergence of the
     locals from the last synced model (0-d f32; with ``live`` over the
@@ -404,14 +474,24 @@ def make_fused_gate(gate_fn=None, live=False):
     input is a device tensor (``delta`` 0-d f32), so one captured graph
     serves every threshold and live set. The fused runner replays it
     between the epochs and the finalize: a CUDA graph cannot branch on
-    ``do_sync``."""
+    ``do_sync``. ``pod`` (a ``collectives.PodAxis``): the rows are the
+    rank's, the liveness row whole, and the drift's sum runs over every
+    rank (one scalar all-reduce), so every rank takes the same decision."""
     gate_fn = gate_fn or _default_gate
 
     @torch.no_grad()
     def gate(params, sync_ref, delta, live_row=None):
         if live and live_row is None:
             raise ValueError("the live gate takes the (K,) liveness row")
-        div = divergence_tensor(params, sync_ref, live_row)
+        if pod is None:
+            div = divergence_tensor(params, sync_ref, live_row)
+        else:
+            # the sum over the drifts of every rank's rows: one all-reduce
+            num, den = divergence_sums(params, sync_ref, pod.local(live_row))
+            n = (pod.size if live_row is None
+                 else torch.clamp(live_row.float().sum(), min=1.0))
+            div = (torch.sqrt(pod.all_reduce_scalar(num) / n)
+                   / torch.clamp(torch.sqrt(den), min=1e-12))
         return div, gate_fn(div, delta)
     return gate
 
@@ -437,7 +517,8 @@ def _make_gated_finalize(opt, aggregate_fn, gate_fn=None, live=False,
     reads ``do_sync`` on the host, so this form runs uncaptured only (the
     CPU, eager card runs). The fused runner splits the round at the gate
     instead (``make_fused_gate``, then the finalize graph)."""
-    gate = make_fused_gate(gate_fn, live=live)
+    gate = make_fused_gate(gate_fn, live=live,
+                           pod=getattr(aggregate_fn, "pod", None))
     finalize = _make_finalize(opt, aggregate_fn, live=live,
                               stateful=stateful)
 
@@ -513,13 +594,19 @@ def make_fused_round(loss_fn, opt, *, lr_fn=None, compress_fn=None,
     aux grows {div, synced} and a quiet round keeps the local params and
     optimizer state and ``new_avg`` is ``sync_ref``
     (``_make_gated_finalize``: it branches on the host, so this form is
-    not captured — the fused runner splits a gated round at the gate). A
-    pod axis raises ``NotImplementedError``."""
-    _refuse(pod=spmd_axis_name is not None)
+    not captured — the fused runner splits a gated round at the gate).
+
+    ``spmd_axis_name="pod"`` (the pod path; ``aggregate_fn`` must be built
+    against that mesh axis): every tree, the batches and the mask are the
+    rank's ``(1, ...)`` slice, the liveness row and the mixing matrix the
+    whole ``(K,)`` / ``(K, K)``; aux["losses"] is the whole ``(C, K)``, and
+    ``new_avg`` (in ``old_avg``'s storage on every rank) the first live
+    rank's row. The collectives make this form eager."""
     scan_epochs = _make_epoch_scan(make_epoch_fn(loss_fn, opt, masked=masked,
                                                  live=live),
                                    lr_fn or switch_lr)
     agg = as_aggregate_fn(aggregate_fn, compress_fn, average_fn)
+    pod = _pod_of(agg, spmd_axis_name)
 
     def epochs_from_zero(params, opt_state, batches, mask, live_row, ge0,
                          sched, total):
@@ -527,8 +614,12 @@ def make_fused_round(loss_fn, opt, *, lr_fn=None, compress_fn=None,
         T_i = torch.full((), leaves(batches)[0].shape[0], dtype=torch.int32,
                          device=dev)
         j0 = torch.zeros((), dtype=torch.int32, device=dev)
-        return scan_epochs(params, opt_state, batches, j0, T_i, ge0, sched,
-                           total, mask, live_row)
+        own = live_row if pod is None else pod.local(live_row)
+        (params, opt_state), (losses, lrs) = scan_epochs(
+            params, opt_state, batches, j0, T_i, ge0, sched, total, mask, own)
+        if pod is not None:
+            losses = pod.gather_columns(losses)
+        return (params, opt_state), (losses, lrs)
 
     def live_args(live_row):
         return (live_row,) if live else ()
@@ -579,8 +670,12 @@ def make_fused_epochs(loss_fn, opt, *, lr_fn=None, spmd_axis_name=None,
     ``masked``, the liveness row with ``live``) are device tensors, so one
     captured graph serves every chunk, every T_i doubling, budget update,
     built-in schedule swap, mask value and live set; only a distinct chunk
-    length C captures again."""
-    _refuse(pod=spmd_axis_name is not None)
+    length C captures again.
+
+    ``spmd_axis_name="pod"``: the rank's ``(1, ...)`` rows, its own ``(1,
+    n_batches)`` mask and ``(1,)`` liveness entry; the losses are its
+    ``(C, 1)`` column (``make_epoch_fn``)."""
+    del spmd_axis_name
     scan_epochs = _make_epoch_scan(make_epoch_fn(loss_fn, opt, masked=masked,
                                                  live=live),
                                    lr_fn or switch_lr)
@@ -605,7 +700,11 @@ def make_fused_finalize(opt, *, compress_fn=None, average_fn=None,
     ``gated=True``: ``finalize_fn(params, opt_state, [residual,] sync_ref,
     delta, [live_row,] agg_weights=None) -> (params, opt_state, rel, div,
     synced, new_ref[, residual])``, the gated select of
-    ``_make_gated_finalize`` (uncaptured only)."""
+    ``_make_gated_finalize`` (uncaptured only).
+
+    An aggregate built against a mesh (``aggregate_fn.pod``) makes it the
+    pod finalize: eager, the liveness row and the mixing matrix whole,
+    everything else the rank's slice (``_pod_finish``)."""
     agg = as_aggregate_fn(aggregate_fn, compress_fn, average_fn)
     if not gated:
         return _make_finalize(opt, agg, live=live, stateful=stateful)
@@ -630,11 +729,16 @@ def make_fused_compressed_average(*, block=256, bits=8, mesh=None,
     ``stateful=True``, the error-feedback forms taking the ``(K, N_pad)``
     residual last and returning ``(stacked, new_residual)``. The mean is
     written into ``stacked`` in place: into every slot, or with ``live=``
-    (a ``(K,)`` liveness row) into the live ones only. ``mesh`` (the pod
-    path) is still to port."""
+    (a ``(K,)`` liveness row) into the live ones only.
+
+    ``mesh`` (the pod path, a ``DeviceMesh`` with an ``axis`` dim): the
+    same four signatures over the rank's ``(1, ...)`` tree and ``(1,
+    N_pad)`` residual, with the weight row and ``live`` whole
+    (``_pod_compressed_average``)."""
     if mesh is not None:
-        raise NotImplementedError(
-            "the pod-mesh wire path is not yet ported, see ROADMAP.md")
+        return _pod_compressed_average(PodAxis(mesh, axis), block=block,
+                                       bits=bits, weighted=weighted,
+                                       stateful=stateful)
 
     def _flat(stacked):
         layout = flatbuf.make_layout(stacked, block=block)
@@ -684,3 +788,72 @@ def make_fused_compressed_average(*, block=256, bits=8, mesh=None,
         del buf
         return flatbuf.unflatten_mean(mean, layout, out=stacked, live=live)
     return average
+
+
+def check_one_row(stacked, pod, what, weights=None):
+    """The pod path mixes whole local rows: exactly one participant row
+    per rank, and a weight row or matrix over the pod's K ranks."""
+    rows = leaves(stacked)[0].shape[0]
+    if rows != 1:
+        raise ValueError(
+            f"pod-path {what} requires one participant row per pod: the "
+            f"local params have {rows} rows")
+    if weights is not None and weights.shape[-1] != pod.size:
+        raise ValueError(
+            f"pod-path {what}: weights over K={weights.shape[-1]} "
+            f"participants, the {pod.axis!r} axis has {pod.size} pods")
+
+
+def _pod_compressed_average(pod, *, block, bits, weighted, stateful):
+    """The reference's pod variants (``repro/core/engine.py:366-462``):
+    per rank, ``flatbuf.flatten`` of its ``(1, ...)`` tree, K1 over that
+    row (plus its residual with error feedback) and the local dequantize
+    through K2 (the reference's ``_local_dequant`` computes the same one
+    f32 product per value, so the payload is bit-equal), ``w[k]·dq`` where
+    weighted, ONE f32 all-reduce of the ``(1, N_pad)`` payload over the
+    pods and ``/ K`` where uniform; the new residual ``y − dq`` stays on
+    its rank. The wire is the dequantized f32 payload, as the reference's
+    psum moves it: ``flatbuf.wire_bytes`` is what an encoded transport
+    would carry."""
+    K = pod.size
+
+    @torch.no_grad()
+    def mean(stacked, wrow, residual, live):
+        check_one_row(stacked, pod, "fused mean", wrow)
+        layout = flatbuf.make_layout(stacked, block=block)
+        y = flatbuf.flatten(stacked, layout)
+        if residual is not None:
+            y.add_(residual)
+        q, scale, shape = kops.quantize_blockwise(y, block=block, bits=bits)
+        if residual is None:
+            del y
+        dq = kops.dequantize_blockwise(q, scale, shape, bits=bits)
+        del q, scale
+        new_res = None if residual is None else y.sub_(dq)
+        if wrow is not None:
+            dq.mul_(wrow[pod.index].float())
+        pod.all_reduce_([dq])
+        if wrow is None:
+            dq.div_(torch.full((), float(K), device=dq.device))
+        flatbuf.unflatten_mean(dq.reshape(-1), layout, out=stacked,
+                               live=pod.local(live))
+        return stacked, new_res
+
+    if stateful and weighted:
+        def average_w_ef(stacked, wrow, residual, live=None):
+            return mean(stacked, wrow, residual, live)
+        fn = average_w_ef
+    elif stateful:
+        def average_ef(stacked, residual, live=None):
+            return mean(stacked, None, residual, live)
+        fn = average_ef
+    elif weighted:
+        def average_w(stacked, wrow, live=None):
+            return mean(stacked, wrow, None, live)[0]
+        fn = average_w
+    else:
+        def average(stacked, live=None):
+            return mean(stacked, None, None, live)[0]
+        fn = average
+    fn.pod = pod
+    return fn

@@ -175,6 +175,12 @@ class Captured:
                     "an argument changed its layout or its storage")
             if g is not None:
                 del self._graphs[key], g  # freed now, not during a capture
+                if self.owner.on_cuda and not any(
+                        f._graphs for f in self.owner.functions):
+                    # that was the pool's last graph: the caching
+                    # allocator refuses to capture into a pool no graph
+                    # uses any more, so the set takes a fresh one
+                    self.owner._pool = torch.cuda.graph_pool_handle()
             return self._first(key, args, ptrs, ins)
         for dst, src in zip(leaves(g.inputs), leaves(ins)):
             if src is not dst:

@@ -146,8 +146,19 @@ def divergence_tensor(stacked, ref, live=None):
     ``live`` (elastic membership): the ``(K,)`` 0/1 liveness row (a device
     tensor); the RMS then runs over the live participants only, so a dead
     slot's stale parameters neither inflate nor dilute the drift."""
-    num, den = [], []
+    num, den = divergence_sums(stacked, ref, live)
     K = leaves(stacked)[0].shape[0]
+    n = K if live is None else torch.clamp(live.float().sum(), min=1.0)
+    return (torch.sqrt(num / n)
+            / torch.clamp(torch.sqrt(den), min=1e-12))
+
+
+@torch.no_grad()
+def divergence_sums(stacked, ref, live=None):
+    """The divergence's two sums (0-d f32): ``Σ_k live_k ‖w_k − w_ref‖²``
+    over the given rows and ``‖w_ref‖²`` (the pod gate adds the first
+    over every rank's rows)."""
+    num, den = [], []
     w = None if live is None else live.float()
     for t, r in zip(leaves(stacked), leaves(ref)):
         rf = r.float()
@@ -158,11 +169,7 @@ def divergence_tensor(stacked, ref, live=None):
             per_k = torch.sum(d * d, dim=tuple(range(1, d.ndim)))
             num.append(torch.sum(w * per_k))
         den.append(torch.sum(rf * rf))
-    num = torch.stack(num).sum()
-    den = torch.stack(den).sum()
-    n = K if w is None else torch.clamp(w.sum(), min=1.0)
-    return (torch.sqrt(num / n)
-            / torch.clamp(torch.sqrt(den), min=1e-12))
+    return torch.stack(num).sum(), torch.stack(den).sum()
 
 
 def divergence(stacked, ref, live=None) -> float:

@@ -1,17 +1,239 @@
 """Step functions, ported from ``repro/launch/steps.py``.
 
-The prefill step, the JAX package's entry to the flash attention,
-selective scan and mLSTM kernels: ``make_prefill_step(cfg,
-impl="kernel")`` runs every attention layer through K5, every Mamba layer
-through K6, every mLSTM layer through K7 and every sLSTM layer through
-the captured recurrence (``xlstm.slstm_scan``); and the serve step, one
-token through ``transformer.decode_step`` (the step ``ServeLoop``
-captures).
-The pod-mesh steps are still to port (ROADMAP.md queue 1, the pod path).
+The local training steps (``make_train_step``, its co-learning form
+``make_colearn_train_step``), Eq. 2 as a step (``make_average_step``),
+the fused round as one step over the simulation path or the pod path
+(``make_fused_round_step``), the prefill step (the JAX package's entry to
+the flash attention, selective scan and mLSTM kernels:
+``make_prefill_step(cfg, impl="kernel")`` runs every attention layer
+through K5, every Mamba layer through K6, every mLSTM layer through K7
+and every sLSTM layer through the captured recurrence) and the serve
+step, one token through ``transformer.decode_step`` (the step
+``ServeLoop`` captures).
+
+The reference's ``lowering`` (a JAX scan lowering) and ``compress_impl``
+(the Pallas or plain wire: the port's kernels dispatch on the tensor's
+device) have no counterpart, nor ``remat`` (per-layer recomputation is
+not ported, ROADMAP.md; the step's numbers are the same without it).
 """
 from __future__ import annotations
 
+import numpy as np
+import torch
+
 from repro_torch.models import transformer as tr
+from repro_torch.optim.optimizers import apply_updates, get_optimizer
+from repro_torch.tree import leaves, tree_map, unflatten_like
+
+
+def make_train_step(cfg, optimizer="sgd", lr=0.01, impl="ref",
+                    microbatch=1):
+    """Paper-faithful local step: SGD on the LM loss, ``(params, batch) ->
+    (new params, loss)``. ``microbatch > 1`` accumulates the f32
+    gradients of that many slices of the batch and averages them (the
+    same SGD step, a slice's activations at a time)."""
+    opt = get_optimizer(optimizer)
+
+    def grad_of(params, b):
+        p = tree_map(lambda t: t.detach().requires_grad_(), params)
+        loss, _ = tr.loss_fn(p, cfg, b, impl)
+        grads = torch.autograd.grad(loss, leaves(p))
+        return loss.detach(), unflatten_like(p, grads)
+
+    def train_step(params, batch):
+        if microbatch > 1:
+            mb = tree_map(lambda t: t.reshape(microbatch,
+                                              t.shape[0] // microbatch,
+                                              *t.shape[1:]), batch)
+            grads = tree_map(lambda t: torch.zeros(t.shape,
+                                                   dtype=torch.float32,
+                                                   device=t.device), params)
+            losses = []
+            for i in range(microbatch):
+                loss, gi = grad_of(params, tree_map(lambda t, _i=i: t[_i],
+                                                    mb))
+                with torch.no_grad():
+                    for g, x in zip(leaves(grads), leaves(gi)):
+                        g.add_(x.float())
+                losses.append(loss)
+            n = torch.full((), float(microbatch), device=loss.device)
+            grads = tree_map(lambda g: g / n, grads)
+            loss = torch.stack(losses).mean()
+        else:
+            loss, grads = grad_of(params, batch)
+        with torch.no_grad():
+            upd, _ = opt.update(grads, opt.init(params), params, lr)
+            return apply_updates(params, upd), loss
+
+    return train_step
+
+
+def make_colearn_train_step(cfg, **kw):
+    """One local step for every participant row of a stacked tree: all K
+    in the simulation, the rank's own ``(1, ...)`` row on the pod path
+    (``averaging.participant_step``); no reduction crosses rows."""
+    from repro_torch.core.averaging import participant_step
+    return participant_step(make_train_step(cfg, **kw))
+
+
+def make_average_step():
+    """Eq. 2 over the leading participant dim (``average_pjit``)."""
+    from repro_torch.core.averaging import average_pjit
+    return average_pjit
+
+
+def make_fused_round_step(cfg, ccfg, *, optimizer="sgd", impl="ref",
+                          mesh=None, param_specs=None, codec=None,
+                          aggregator=None, schedule=None, round_index=0,
+                          expose_schedule_args=False, masked=False,
+                          live=False, compress=None, compress_block=256,
+                          codec_bits=8, error_feedback=False, device=None):
+    """The communication round as one step, on the simulation path
+    (``mesh=None``: every tree stacked ``(K, ...)`` on ``device``) or the
+    pod path (``mesh``: a ``DeviceMesh`` with a ``pod`` axis, one process
+    per participant, every tree the rank's ``(1, ...)`` slice, on the
+    mesh's device type).
+
+    ``codec`` / ``aggregator`` / ``schedule`` take ``core/api.py``
+    strategy objects or registry names (``schedule=None`` resolves
+    ``ccfg.schedule``); ``compress=None|"leafwise"|"fused"`` is the legacy
+    spelling of the codec (exclusive with ``codec=``); ``codec_bits`` ∈
+    {8, 4, 1} and ``error_feedback`` parameterise the quantising codecs.
+    The aggregate is ``aggregator.make_aggregate_fn(codec, mesh=mesh,
+    param_specs=param_specs, dynamic=live)``.
+
+    Returns ``round_fn(params, opt_state, [residual,] batches,
+    [batch_mask,] [live_row,] ge0[, sched, total][, agg_weights]) ->
+    (params, opt_state, aux)``, the reference's signature: ``residual``
+    when the codec or the aggregator is stateful
+    (``aggregator.init_round_state(codec, params)`` builds it),
+    ``batch_mask`` with ``masked`` (the rows' ``(rows, n_batches)`` bool
+    mask), ``live_row`` with ``live`` (the WHOLE ``(K,)`` f32 liveness
+    row), ``sched`` / ``total`` with ``expose_schedule_args`` (the
+    schedule's device pack for the round and the epoch budget; otherwise
+    the pack of ``round_index`` and ``T0 · max_rounds`` are baked in), and
+    ``agg_weights`` (the whole ``(K, K)`` matrix) for an aggregator that
+    uses weights. ``batches`` is the rows' ``(T_i, rows, n_batches, ...)``
+    batch dict; ``ge0`` the global epoch at round start. Params,
+    optimizer state and residual are updated in place. aux = {losses (T_i,
+    K) — every participant's, on the pod too —, lrs (T_i,), rel (0-d),
+    new_avg (the first live row: every rank receives it), residual}.
+
+    The round reads the shared model it starts from off the first live
+    row, as the reference does (on the pod only that rank copies it: it
+    measures Eq. 4 and broadcasts the new model). The epochs are captured
+    once on the card (``core/graphs.py``, replayed under the round's sync
+    guard; the scalars live in the step's static buffers and the batches,
+    mask and liveness entry are copied in) and the finalize runs eagerly:
+    a gloo collective goes through the host and cannot be recorded in a
+    CUDA graph. ``round_fn.graphs`` is the step's ``GraphSet`` and
+    ``round_fn.aggregate`` its aggregate (``.pod.stats`` on the pod); on
+    the card ``round_fn.events`` holds the last round's three CUDA events
+    (start, epochs done, finalize done)."""
+    from repro_torch.core import api, engine as eng
+    from repro_torch.core.graphs import GraphSet
+    from repro_torch.device import resolve_device
+
+    def loss_fn(params, batch):
+        return tr.loss_fn(params, cfg, batch, impl)
+
+    if compress is not None:
+        if codec is not None:
+            raise ValueError("pass codec= or the legacy compress=, not both")
+        if compress not in ("leafwise", "fused"):
+            raise ValueError(f"unknown compress {compress!r}")
+        codec = compress
+    codec = api.get_codec(codec, block=compress_block, bits=codec_bits,
+                          error_feedback=error_feedback)
+    aggregator = api.get_aggregator(aggregator)
+    stateful = (getattr(codec, "stateful", False)
+                or getattr(aggregator, "stateful", False))
+    schedule = api.get_schedule(schedule, ccfg)
+    agg = aggregator.make_aggregate_fn(codec, mesh=mesh,
+                                       param_specs=param_specs, dynamic=live)
+    pod = getattr(agg, "pod", None)
+    dev = (torch.device(mesh.device_type) if mesh is not None
+           else resolve_device(device))
+    opt = get_optimizer(optimizer)
+    lr_fn = api.traced_body(schedule)
+    epochs = eng.make_fused_epochs(
+        loss_fn, opt, lr_fn=lr_fn, masked=masked, live=live,
+        spmd_axis_name=None if pod is None else pod.axis)
+    finalize = eng.make_fused_finalize(opt, aggregate_fn=agg, live=live,
+                                       stateful=stateful)
+    graphs = GraphSet(dev)
+    copied = tuple(range(2, 3 + int(masked) + int(live)))
+    run_epochs = graphs.capture(lambda *a: epochs(*a)[2:], "epochs",
+                                inputs=copied, own_inputs=True)
+
+    def scalar(dtype, shape=()):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+    j0, T, ge0_buf, total_buf = (scalar(torch.int32) for _ in range(4))
+    sched_buf = {"kind": scalar(torch.int32),
+                 "p": scalar(torch.float32, (api.N_SCHED_PARAMS,))}
+    baked = (None if expose_schedule_args else
+             (schedule.device_round_params(round_index, dev),
+              max(ccfg.T0 * ccfg.max_rounds, 1)))
+
+    def staged(x):
+        return x if isinstance(x, torch.Tensor) else eng.stage(x, np.int32,
+                                                               dev)
+
+    def round_fn(params, opt_state, *rest):
+        rest = list(rest)
+        residual = rest.pop(0) if stateful else None
+        batches = rest.pop(0)
+        mask = (rest.pop(0),) if masked else ()
+        live_row = rest.pop(0) if live else None
+        ge0 = staged(rest.pop(0))
+        if baked is None:
+            sched, total = rest.pop(0), staged(rest.pop(0))
+        else:
+            sched, total = baked[0], staged(baked[1])
+        agg_w = rest.pop(0) if rest else None
+        if rest:
+            raise TypeError(f"round_fn got {len(rest)} extra arguments")
+        T_i = staged(leaves(batches)[0].shape[0])
+        if pod is None:
+            old_avg = (eng.unstack_first_live(params, live_row) if live
+                       else tree_map(lambda t: t[0].clone(), params))
+            own = live_row
+        else:
+            first = pod.index == pod.first_live(live_row)
+            old_avg = tree_map(lambda t: t[0].clone() if first
+                               else torch.empty_like(t[0]), params)
+            own = pod.local(live_row)
+        events = ([torch.cuda.Event(enable_timing=True) for _ in range(3)]
+                  if dev.type == "cuda" else None)
+        if events:
+            events[0].record()
+        with graphs.no_sync():
+            for buf, x in ((ge0_buf, ge0), (total_buf, total), (T, T_i)):
+                buf.copy_(x)
+            sched_buf["kind"].copy_(sched["kind"])
+            sched_buf["p"].copy_(sched["p"])
+            losses, lrs = run_epochs(
+                params, opt_state, batches, *mask,
+                *((own,) if live else ()), j0, T, ge0_buf, sched_buf,
+                total_buf)
+            losses, lrs = losses.clone(), lrs.clone()
+            if events:
+                events[1].record()
+        if pod is not None:
+            losses = pod.gather_columns(losses)
+        out = finalize(params, opt_state, *((residual,) if stateful else ()),
+                       old_avg, *((live_row,) if live else ()), agg_w)
+        if events:
+            events[2].record()
+        round_fn.events = events
+        aux = {"losses": losses, "lrs": lrs, "rel": out[2],
+               "new_avg": out[3]}
+        if stateful:
+            aux["residual"] = out[4]
+        return out[0], out[1], aux
+
+    round_fn.graphs, round_fn.aggregate, round_fn.events = graphs, agg, None
+    return round_fn
 
 
 def make_prefill_step(cfg, impl="ref"):

@@ -417,16 +417,45 @@ def test_stack_epoch_batches_and_stage():
     assert tengine.stage(t, device="cpu") is t
 
 
-def test_unported_fused_variants_raise():
-    """Only the pod axis is left unported: every live, gated and masked
-    combination builds, and the live loss mean weighs the live rows."""
+@pytest.fixture
+def one_rank_mesh(tmp_path):
+    """A world of one over gloo and its (1,) ``pod`` mesh."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh
+    mesh.init_process_mesh(0, 1, f"file://{tmp_path}/rdv", "gloo", "cpu")
+    try:
+        yield mesh.make_sim_mesh((1,), ("pod",), "cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_unported_fused_variants_raise(one_rank_mesh):
+    """Every variant builds, the pod axis too: the pod round and epochs
+    build over an aggregate built against the mesh (and refuse one that is
+    not), the four pod fused means build and refuse a local stack of more
+    than one row; every live, gated and masked combination builds, and the
+    live loss mean weighs the live rows."""
     from repro_torch.optim.optimizers import get_optimizer
     opt = get_optimizer("sgd")
-    for make in (tengine.make_fused_round, tengine.make_fused_epochs):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            make(tiny_loss, opt, spmd_axis_name="pod")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tengine.make_fused_compressed_average(mesh=object())
+    agg = tapi.FullAverage().make_aggregate_fn(tapi.FlatFusedInt8(),
+                                               mesh=one_rank_mesh)
+    assert callable(tengine.make_fused_round(
+        tiny_loss, opt, spmd_axis_name="pod", aggregate_fn=agg))
+    assert callable(tengine.make_fused_epochs(tiny_loss, opt,
+                                              spmd_axis_name="pod"))
+    with pytest.raises(ValueError, match="mesh"):
+        tengine.make_fused_round(tiny_loss, opt, spmd_axis_name="pod")
+    with pytest.raises(ValueError, match="spmd_axis_name"):
+        tengine.make_fused_round(tiny_loss, opt, aggregate_fn=agg)
+    two_rows = {"w": torch.ones((2, 256))}
+    for weighted in (False, True):
+        for stateful in (False, True):
+            fn = tengine.make_fused_compressed_average(
+                mesh=one_rank_mesh, weighted=weighted, stateful=stateful)
+            args = ((torch.ones(1),) if weighted else ()) + (
+                (torch.zeros((2, 2048)),) if stateful else ())
+            with pytest.raises(ValueError, match="one participant row"):
+                fn(two_rows, *args)
     for kw in ({"live": True}, {"gated": True, "live": True},
                {"masked": True, "live": True}):
         assert callable(tengine.make_fused_round(tiny_loss, opt, **kw))

@@ -1325,3 +1325,171 @@ def test_gpu_captured_resnet_round_equals_python(cuda):
                for a, b in zip(py["acc"], fu["acc"]))
     for a, b in zip(leaves(py["final_params"]), leaves(fu["final_params"])):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+POD_WORKER = r"""
+import sys
+import torch
+rank, world, d = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+torch.set_num_threads(1)
+from repro_torch.configs import get_smoke_config
+from repro_torch.configs.base import CoLearnConfig
+from repro_torch.kernels import ops
+from repro_torch.launch import mesh as M
+from repro_torch.launch import steps
+from repro_torch.models import transformer as tr
+from repro_torch.tree import leaves_with_path, tree_map
+
+dev = M.init_process_mesh(rank, world, f"file://{d}/rdv", "gloo", "cuda")
+pmesh = M.make_sim_mesh((world,), ("pod",), "cuda")
+cfg = get_smoke_config("internlm2-1.8b")
+g = torch.Generator(device=dev).manual_seed(7)
+start = tree_map(lambda t: t[None] + 0.02 * torch.randn(
+    (world, *t.shape), generator=g, device=dev),
+    tr.init_params(0, cfg, torch.float32, device=dev))
+local = tree_map(lambda t: t[rank:rank + 1].clone(), start)
+gb = torch.Generator(device=dev).manual_seed(8)
+batch = {k: torch.randint(0, cfg.vocab_size, (1, world, 2, 2, 16),
+                          generator=gb, device=dev)
+         for k in ("tokens", "labels")}
+rf = steps.make_fused_round_step(
+    cfg, CoLearnConfig(n_participants=world, T0=1, max_rounds=1),
+    mesh=pmesh, codec="fused")
+from repro_torch.core import flatbuf
+codes, scales, _ = ops.quantize_blockwise(
+    flatbuf.flatten(local, flatbuf.make_layout(local)))
+ops.reset_launch_counts()
+local, _, aux = rf(local, (), {k: v[:, rank:rank + 1]
+                               for k, v in batch.items()}, 0)
+torch.cuda.synchronize()
+torch.save({"params": {p: t[0].cpu() for p, t in leaves_with_path(local)},
+            "losses": aux["losses"].cpu(), "rel": aux["rel"].cpu(),
+            "codes": codes.cpu(), "scales": scales.cpu(),
+            "launches": ops.launch_counts()}, f"{d}/rank{rank}.pt")
+torch.distributed.destroy_process_group()
+"""
+
+
+@pytest.mark.gpu
+def test_gpu_pod_round_two_ranks_share_the_card_over_gloo(cuda, tmp_path):
+    """Two ranks on cuda:0 over gloo (NCCL refuses two ranks on one card),
+    one ``make_fused_round_step(mesh=)`` round of fused int8: K1 and K2
+    once per rank, each rank's K1 codes and scales equal to its row of K1
+    over the stacked (2, N_pad) buffer, the ranks' averages equal bit for
+    bit, and both within 1e-5 of the simulation-path step on the card
+    from the same rows."""
+    import os
+    import subprocess
+    import sys
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import CoLearnConfig
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tr
+    from repro_torch.tree import leaves_with_path, tree_map
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    env = dict(os.environ, PYTHONPATH=src, GLOO_SOCKET_IFNAME="lo")
+    procs = [subprocess.Popen([sys.executable, "-c", POD_WORKER, str(k),
+                               "2", str(tmp_path)], env=env,
+                              stderr=subprocess.PIPE, text=True)
+             for k in range(2)]
+    errs = [p.communicate(timeout=300)[1] for p in procs]
+    assert all(p.returncode == 0 for p in procs), errs
+    ranks = [torch.load(tmp_path / f"rank{k}.pt") for k in range(2)]
+    for r in ranks:
+        assert r["launches"]["wire_quantize"] == 1
+        assert r["launches"]["wire_dequantize"] == 1
+        assert r["launches"]["wire_quant_avg_dequant"] == 0
+    assert all(torch.equal(ranks[0]["params"][p], ranks[1]["params"][p])
+               for p in ranks[0]["params"])
+    cfg = get_smoke_config("internlm2-1.8b")
+    g = torch.Generator(device=cuda).manual_seed(7)
+    start = tree_map(lambda t: t[None] + 0.02 * torch.randn(
+        (2, *t.shape), generator=g, device=cuda),
+        tr.init_params(0, cfg, torch.float32, device=cuda))
+    gb = torch.Generator(device=cuda).manual_seed(8)
+    batch = {k: torch.randint(0, cfg.vocab_size, (1, 2, 2, 2, 16),
+                              generator=gb, device=cuda)
+             for k in ("tokens", "labels")}
+    from repro_torch.core import flatbuf
+    codes, scales, _ = tops.quantize_blockwise(
+        flatbuf.flatten(start, flatbuf.make_layout(start)))
+    rows = codes.shape[0] // 2
+    for k, r in enumerate(ranks):
+        assert torch.equal(r["codes"], codes[k * rows:(k + 1) * rows].cpu())
+        assert torch.equal(r["scales"], scales[k * rows:(k + 1) * rows].cpu())
+    rf = steps.make_fused_round_step(
+        cfg, CoLearnConfig(n_participants=2, T0=1, max_rounds=1),
+        codec="fused", device=cuda)
+    start, _, aux = rf(start, (), batch, 0)
+    for p, t in leaves_with_path(start):
+        torch.testing.assert_close(ranks[0]["params"][p], t[0].cpu(),
+                                   rtol=0, atol=1e-5)
+    torch.testing.assert_close(ranks[0]["losses"], aux["losses"].cpu(),
+                               rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(ranks[0]["rel"], aux["rel"].cpu(),
+                               rtol=1e-5, atol=1e-6)
+
+
+RECAPTURE = r"""
+import torch
+from repro_torch.core.graphs import GraphSet
+dev = torch.device("cuda")
+gs = GraphSet(dev)
+w = torch.randn(4096, 4096, device=dev)
+step = gs.capture(lambda x: torch.tanh(x @ w) @ w, "step")
+for _ in range(3):
+    x = torch.randn(4096, 4096, device=dev)  # new storage: a new graph
+    torch.testing.assert_close(step(x), torch.tanh(x @ w) @ w)
+print(step.captures, step.replays)
+"""
+
+
+@pytest.mark.gpu
+def test_gpu_graph_set_recaptures_when_its_only_graph_is_dropped(cuda):
+    """A ``GraphSet`` whose one graph is replaced (its argument moved to
+    other storage) captures the new one into a fresh pool: the caching
+    allocator asserts on a capture into a pool that no graph uses any
+    more but that still holds cached blocks (``make_fused_round_step``'s
+    epochs are the only graph of their set, and a caller may pass new
+    params each round). Run in its own process under the allocator
+    setting ``chip_smoke.py`` uses."""
+    import os
+    import subprocess
+    import sys
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    env = dict(os.environ, PYTHONPATH=src,
+               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    r = subprocess.run([sys.executable, "-c", RECAPTURE], env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.split() == ["3", "2"]
+
+
+NCCL_SHARED = r"""
+import sys
+from repro_torch.launch import mesh as M
+rank, d = int(sys.argv[1]), sys.argv[2]
+try:
+    M.init_process_mesh(rank, 2, f"file://{d}/rdv", "nccl", "cuda:0")
+except ValueError as e:
+    print("REFUSED" if "gloo" in str(e) else "OTHER", flush=True)
+"""
+
+
+@pytest.mark.gpu
+def test_gpu_nccl_ranks_sharing_a_card_are_refused(cuda, tmp_path):
+    """Two NCCL ranks on one card (NCCL's "Duplicate GPU detected") are
+    refused when they join, with the fix named; nothing switches the
+    backend."""
+    import os
+    import subprocess
+    import sys
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    env = dict(os.environ, PYTHONPATH=src, GLOO_SOCKET_IFNAME="lo")
+    procs = [subprocess.Popen([sys.executable, "-c", NCCL_SHARED, str(k),
+                               str(tmp_path)], env=env,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for k in range(2)]
+    outs = [p.communicate(timeout=300) for p in procs]
+    assert [o.strip() for o, _ in outs] == ["REFUSED", "REFUSED"], outs

@@ -42,9 +42,13 @@ def test_port_imports_no_jax_and_no_reference_package():
     files = _port_files()
     assert (ROOT / "chip_smoke.py").exists()
     assert len(files) > 20
-    # the port's own copies of the reference's numpy-only modules
-    for name in ("membership", "topology"):
+    # the port's own copies of the reference's numpy-only modules, and
+    # the pod path's modules
+    for name in ("membership", "topology", "collectives"):
         assert ROOT / "src" / "repro_torch" / "core" / f"{name}.py" in files
+    for rel in (("launch", "mesh.py"), ("launch", "steps.py"),
+                ("sharding", "specs.py")):
+        assert ROOT.joinpath("src", "repro_torch", *rel) in files
     assert ROOT / "src" / "repro_torch" / "data" / "stream.py" in files
     assert {f.name for f in files if f.parent.name == "examples"} == {
         f"torch_{n}.py" for n in ("quickstart", "compressed_wan",
@@ -106,9 +110,22 @@ def test_entry_points_raise_without_a_card(no_cuda):
     assert p["embed"]["table"].device.type == "cpu"
 
 
-def test_unported_paths_raise_not_implemented():
+@pytest.fixture
+def one_rank_mesh(tmp_path):
+    """A world of one over gloo and its (1,) ``pod`` mesh."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh
+    mesh.init_process_mesh(0, 1, f"file://{tmp_path}/rdv", "gloo", "cpu")
+    try:
+        yield mesh.make_sim_mesh((1,), ("pod",), "cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_unported_paths_raise_not_implemented(one_rank_mesh):
     from repro_torch.configs import get_smoke_config
     from repro_torch.core import api, engine, schedule
+    from repro_torch.launch import mesh
     from repro_torch.models import transformer as tr
     from repro_torch.optim.optimizers import get_optimizer
 
@@ -120,15 +137,26 @@ def test_unported_paths_raise_not_implemented():
     with pytest.raises(KeyError, match="unknown arch"):
         get_smoke_config("deepseek-v4")
     assert get_smoke_config("deepseek-v3-671b").mtp_depth == 1
-    # the pod mesh: the gossip permutes, the psums and the pinned vmap
+    # the pod axis is ported: every aggregator's mesh branch builds over a
+    # one-rank gloo mesh (the gossip permutes, the psums, the fused mean),
+    # and so does the live pod round; only the intra-pod axes and the
+    # TPU's production mesh are left, and they raise
     for spec in ("full", "partial", "ring", "graph", "d2"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            api.get_aggregator(spec).make_aggregate_fn(api.ExactF32(),
-                                                       mesh=object())
+        fn = api.get_aggregator(spec).make_aggregate_fn(
+            api.ExactF32(), mesh=one_rank_mesh)
+        assert fn.pod.size == 1 and fn.pod.index == 0
     opt = get_optimizer("sgd")
+    agg = api.FullAverage().make_aggregate_fn(
+        api.FlatFusedInt8(), mesh=one_rank_mesh, dynamic=True)
+    assert callable(engine.make_fused_round(lambda p, b: None, opt,
+                                            live=True, aggregate_fn=agg,
+                                            spmd_axis_name="pod"))
+    host = mesh.make_host_mesh("cpu")
+    assert host.mesh_dim_names == ("data", "model") and host.size() == 1
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        engine.make_fused_round(lambda p, b: None, opt, live=True,
-                                spmd_axis_name="pod")
+        mesh.make_sim_mesh((1, 2, 1), device="cpu")
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        mesh.make_production_mesh(multi_pod=True)
     # (the live divergence no longer raises: one live row, drift 1)
     assert schedule.divergence({"w": torch.zeros((2, 256))},
                                {"w": torch.ones(256)}, [True, False]) == 1.0
