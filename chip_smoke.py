@@ -129,7 +129,7 @@ Phases:
      weighted mean of the sampled rows' roundtrip by the plain quantize
      and dequantize, the bill ``ceil(m·up/K) + raw``. The counters are
      zeroed just before each fused run and read after;
- 10. churn and gossip at internlm2-1.8b's full width, depth 12 of 24
+ 10. churn and gossip at internlm2-1.8b's full width, depth 6 of 24
      (``LAYERS10``), K = 5, leafwise int8, T fixed at 1: (a) slot 3
      crashes at round 1 and rejoins at round 3, FullAverage
      renormalised over the live set, 4 rounds fused, then the same under
@@ -172,7 +172,7 @@ Phases:
      convnet / GRU / CRNN testbeds' logits, loss and every gradient on a
      batch of 32, card against CPU from the same params at 1e-5, with
      cuDNN's TF32 switched on globally (the port keeps its convolutions
-     in f32 itself); (b) Table 2, ``cifar_like.run()`` at 3 rounds of its
+     in f32 itself); (b) Table 2, ``cifar_like.run()`` at 2 rounds of its
      6 (``ROUNDS12B``; three image models, n = 4,000, K = 5, 5 rounds for
      co-learning):
      each row and each run's seconds, then resnet_tiny's co-learning run
@@ -180,7 +180,7 @@ Phases:
      replayed rounds' seconds an epoch beside the python engine's, peak
      memory); (c) Tables 4-6, ``tasks.run()`` at 1 round of its 5
      (``ROUNDS12C``), and the heterogeneity sweep,
-     ``ablation.heterogeneity()``, at 2 rounds of its 5 (``SWEEP12C``;
+     ``ablation.heterogeneity()``, at 1 round of its 5 (``SWEEP12C``;
      the partition, and so the shards, unchanged): the sweep's
      shard sizes and coverage equal ``benchmarks/BENCH_heterogeneity.json``
      row for row, its accuracies printed beside the committed JAX rows
@@ -220,9 +220,10 @@ Phases:
      sLSTM and selective-scan recurrences through ``layers.
      chunked_scan``: 256-step chunks recomputed in the backward pass),
      f32: (a) xlstm-1.3b at full width (d 2048, 4 heads of 1024, vocab
-     50,304), depth 48 -> 8 (one xLSTM[7:1] period), B 2 x S 512 (two
+     50,304), depth 48 -> 4 (3 mLSTM + 1 sLSTM), B 2 x S 512 (two
      chunks a recurrence), K = 3, fused int8, T 1, one step an epoch:
-     the python engine for 2 rounds, then the fused engine for 3 (one
+     without per-layer recomputation (``REMAT14``; 16(b) has it on), the
+     python engine for 2 rounds, then the fused engine for 3 (one
      capture, two replays), the loss falling, the engines' first two
      rounds within 1e-4, K3 once a round, every window under the sync
      guard; per round the seconds, training tokens/s, the device split
@@ -240,7 +241,7 @@ Phases:
  15. the pod path: ``POD_RANKS`` = 3 ranks on the one card, started by
      spawn, over gloo (NCCL refuses two ranks on one device) with a
      ``file://`` rendezvous under ``build/``, each holding its ``(1, ...)``
-     row. (a) internlm2-1.8b at full width, depth 24 -> 8 (``LAYERS15``),
+     row. (a) internlm2-1.8b at full width, depth 24 -> 4 (``LAYERS15``),
      B 8 x 256, 2 steps an epoch, T 1, fused int8, ``FullAverage``, 2
      rounds through ``make_fused_round_step(mesh=...)`` (the epochs
      captured once, the finalize eager: K1 and K2 on the rank's row, one
@@ -266,7 +267,28 @@ Phases:
      and rel within rtol 1e-5, equal ``comm_bytes``; the error-feedback
      residual nonzero and on its rank, the dead row unchanged bit for bit.
      The ranks report their K1 / K2 launches, which join the kernels
-     line.
+     line;
+ 16. per-layer recomputation (``remat=True``, the reference's default and
+     the port's: each repeat of each segment under one non-reentrant
+     checkpoint) and the guards of ``repro_torch.analysis``: (a)
+     internlm2-1.8b at full width and phase 5's depth, K = 3, fused int8,
+     T 1, batch 8 x 256, 2 steps an epoch, the fused engine: one capture
+     round and two replays with ``remat`` on, then the same with it off,
+     from the same params and batches: per run the replayed round s, the
+     capture round s, the capture's recording / instantiation s and node
+     count (``graph_stats``), peak allocated and reserved GB, each round's
+     model TFLOP/s from ``launch/analytic.model_flops``; the shared model
+     after each round equal at 1e-5 between the two runs, K3 once a round
+     in both; beside it one eager step of one participant both ways (its
+     peak over the params); (b) xlstm-1.3b at phase 14's depth, B 2 x S
+     512: one eager step of one participant both ways (the recurrences'
+     256-step checkpoints nested in the layers'), s and peak GB, every
+     gradient within 2e-4 (K7's f32 limit); (c) (a)'s replays under
+     ``guards.no_transfer(dev)`` and ``guards.no_retrace(limit=1)``, and
+     two negative controls that must raise: a ``.item()`` inside
+     ``no_transfer``, and the round graph given a second argument layout
+     (raised before capturing). Phase 14(a) trains with ``remat`` off
+     (``REMAT14``, its record says why).
 Before the last line come the ``kernels`` JSON and the card's name and
 power limit as ``nvidia-smi`` gives them; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
@@ -1080,13 +1102,13 @@ def phase_kernels_full(torch, dev, errs, bw):
 
 # ---------------------------------------------------------------------------
 def _learner(torch, cfg, codec, K, dev, engine="fused", eta0=0.05,
-             rounds=2, rule="ile", **kw):
+             rounds=2, rule="ile", remat=True, **kw):
     from repro_torch.configs.base import CoLearnConfig
     from repro_torch.core.colearn import CoLearner
     from repro_torch.launch.train import make_loss_fn
     ccfg = CoLearnConfig(n_participants=K, T0=1, eta0=eta0, epsilon=0.05,
                          epochs_rule=rule, max_rounds=rounds)
-    return CoLearner(ccfg, make_loss_fn(cfg), codec=codec,
+    return CoLearner(ccfg, make_loss_fn(cfg, remat=remat), codec=codec,
                      round_engine=engine, device=dev, **kw)
 
 
@@ -1649,7 +1671,7 @@ def phase_small_membership(torch, dev):
     gc.collect()
 
 
-def _round_events(torch, learner):
+def _round_events(torch, learner, wrap=None):
     """CUDA events per round without a host sync: at the start of the
     round's device work, before the aggregation and at the end. On the
     fused engine the middle one is recorded inside the captured round
@@ -1657,7 +1679,9 @@ def _round_events(torch, learner):
     the python engine all three are recorded between its eager calls.
     Returns ``read()`` -> (epochs ms, aggregation ms) of the last round:
     the fused engine's second part is its whole finalize (aggregation,
-    Eq. 4, optimizer reset), the python engine's the aggregation alone."""
+    Eq. 4, optimizer reset), the python engine's the aggregation alone.
+    ``wrap`` (fused engine) wraps the captured round graph the timer
+    calls."""
     ev = [torch.cuda.Event(enable_timing=True, external=True)
           for _ in range(3)]
     python = learner.round_engine.name == "python"
@@ -1683,6 +1707,8 @@ def _round_events(torch, learner):
         learner._epoch = timed
     else:
         graph = learner._runner._round
+        if wrap is not None:
+            graph = wrap(graph)
 
         def timed(*a):
             ev[0].record()
@@ -2115,7 +2141,9 @@ def phase_partial_ragged(torch, dev, launches_out):
 # mix's temporaries (about three copies of the largest stacked leaf): at
 # 8 layers its peak was 51.57 GB (NVIDIA H100 80GB HBM3, 700 W); scaled
 # to 12 ≈ 63.4 GB, to 14 ≈ 71 GB (under 8 GB free), to 16 ≈ 78.5 GB.
-LAYERS10 = 12
+# Depth 6, for the script's clock: phase 10 took 98.0 s at depth 12 on a
+# host where the whole script took 1,435 s (with phase 16).
+LAYERS10 = 6
 # slot 3 of the paper's five data centers crashes at round 1 and rejoins
 # at round 3
 CHURN10 = (("crash", 1, 3), ("rejoin", 3, 3))
@@ -2241,9 +2269,10 @@ def _run10(torch, dev, label, make, K, rounds, engine, launches_out,
         del bufs
     say("churn-gossip", run=label, engine=engine, K=K,
         codec=learner.codec.name, aggregator=learner.aggregator.name,
-        reduced=f"n_layers 24 -> {LAYERS10} (the D² run's K params, K "
-                "correction copies and the mix's temporaries must leave "
-                ">= 8 GB of 80 free)",
+        reduced=f"n_layers 24 -> {LAYERS10} (the script's clock; 12 is "
+                "the most that leaves >= 8 GB of 80 free beside the D² "
+                "run's K params, K correction copies and the mix's "
+                "temporaries)",
         params_per_participant=tr.count_params(state["params"]) // K,
         batch=B, seq_len=S, steps_per_epoch=steps, rounds=per_round,
         launches=counts, quantized_leaves=n_leaves, graphs=graphs,
@@ -2374,6 +2403,7 @@ def phase_continuous(torch, dev, launches_out):
     the version it served equals its snapshot bit for bit after the next
     round; after the last swap its tokens equal an eager decode loop over
     the bank's params; every round's window runs under the sync guard."""
+    from repro_torch.analysis import guards
     from repro_torch.configs.base import CoLearnConfig
     from repro_torch.core import api
     from repro_torch.core.colearn import CoLearner
@@ -2443,11 +2473,8 @@ def phase_continuous(torch, dev, launches_out):
         equal = (_params_equal(torch, loop.params, shared)
                  and _params_equal(torch, loop.params, served.params))
         del shared
-        torch.cuda.set_sync_debug_mode("error")
-        try:
+        with guards.no_transfer(dev):
             gen, st = loop.generate(prompts, new)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
         per_round.append({
             "round": log.round, "T": log.T, "synced": log.synced,
             "round_s": round_s, "swap_ms": swap_ms, "swapped": swapped,
@@ -2666,11 +2693,13 @@ def phase_examples(torch, examples=EXAMPLES11, tag="11d"):
 # families, ~300 s, host-bound) took their time back: Table 2 runs 3
 # rounds of its 6 (``ROUNDS12B``; it took 57 s at 6), Tables 4-6 1 round
 # of their 5 (T 1; 57 s at 2 rounds, 106.3 s at 3) and the sweep 2 of its
-# 5 (28 s at 5); n stays 4,000 in all.
+# 5 (28 s at 5); n stays 4,000 in all. Phase 16 took more back: Table 2
+# runs 2 rounds (62.3 s at 3) and the sweep 1 (on a host where the whole
+# script took 1,435 s).
 BATCH12 = 32
-ROUNDS12B = 3
+ROUNDS12B = 2
 ROUNDS12C = 1
-SWEEP12C = 2
+SWEEP12C = 1
 TOL12 = {"rtol": 1e-5, "atol": 1e-5}
 CODECS12 = {"fused": ("wire_quant_avg_dequant",),
             "leafwise": ("wire_quantize", "wire_dequantize")}
@@ -3079,6 +3108,7 @@ def _loop_swap(torch, dev, cfg, params, g, tol, tag, bound_ms,
     least drop-free MoE capacity factor, ``ceil(n_experts / top_k)``, where
     the model has experts: which tokens a capacity drops depends on how
     many tokens a call sees. Returns the record."""
+    from repro_torch.analysis import guards
     from repro_torch.models import transformer as tr
     from repro_torch.serving import ModelBank, ServeLoop
     B, P, new, max_seq = batch, 128, 64, 256
@@ -3095,11 +3125,8 @@ def _loop_swap(torch, dev, cfg, params, g, tol, tag, bound_ms,
 
     def served(prompts, new):
         before = loop.replay_count()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
+        with guards.no_transfer(dev):
             gen, st = loop.generate(prompts, new)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
         replays.append(loop.replay_count() - before)
         check(replays[-1] == prompts.shape[1] + new,
               f"{tag}b: {replays[-1]} replays in a generate of "
@@ -3774,27 +3801,38 @@ def phase_new_archs(torch, dev, launches_out, bw, mark):
 
 # ---------------------------------------------------------------------------
 # phase 14: training the recurrent families. (a) xlstm-1.3b at full width,
-# depth 48 -> 8 (one xLSTM[7:1] period: 7 mLSTM + 1 sLSTM), B 2 x S 512 so
+# depth 48 -> LAYERS14 (3 mLSTM + 1 sLSTM), B 2 x S 512 so
 # that every recurrence runs two 256-step chunks (``layers.chunked_scan``:
 # the backward pass keeps the carries at the chunk boundaries and
 # recomputes each chunk), K 3, fused int8, T 1, one step an epoch; (b) one
 # jamba-v0.1-52b ``mamba:dense`` layer at full width, B 4 x S 2048; (c)
 # the smoke configs card vs CPU at S 512; (d) the train CLI.
-LAYERS14 = 8
+# depth 4 (3 mLSTM + 1 sLSTM) of the 8-layer xLSTM[7:1] period: 14(a)'s
+# eager rounds and capture are host-bound, ~60 us a graph node, and took
+# 374.0 s at depth 8 on a host where the whole script took 1,435 s
+# (NVIDIA H100 80GB HBM3, 700 W); phase 16 took that time
+LAYERS14 = 4
 K14, B14, S14, STEPS14 = 3, 2, 512, 1
 PY_ROUNDS14, FUSED_ROUNDS14 = 2, 3
 B14B, S14B = 4, 2048
 S14C, K14C = 512, 2
 TOL14 = {"rtol": 1e-4, "atol": 1e-4}
 REMAT_TOL14 = 1e-6
+# 14(a) trains without per-layer recomputation (the CLI's default is on):
+# with it each round records about a fifth more graph nodes and runs its
+# eager rounds a forward longer, host-bound at ~60 us a node, which the
+# script's clock does not hold; 16(b) measures xlstm's step with it on
+REMAT14 = False
 
 
 def xlstm14_cfg():
-    """xlstm-1.3b at full width: one 8-layer period of the 48."""
+    """xlstm-1.3b at full width, ``LAYERS14`` of its 48 layers: the
+    xLSTM[7:1] period's mLSTM layers cut to ``LAYERS14 - 1``, then its
+    sLSTM layer."""
     from repro_torch.configs import get_config
     return get_config("xlstm-1.3b").with_(
         n_layers=LAYERS14,
-        segments=((("mlstm:-",) * 7 + ("slstm:-",), 1),))
+        segments=((("mlstm:-",) * (LAYERS14 - 1) + ("slstm:-",), 1),))
 
 
 def jamba14_cfg():
@@ -3862,8 +3900,8 @@ def remat_off():
 
 
 def _train14(torch, dev, cfg, engine, rounds, launches_out):
-    """14(a): one run at full width. Returns (per-round records, the
-    run's record)."""
+    """14(a): one run at full width, without per-layer recomputation
+    (``REMAT14``). Returns (per-round records, the run's record)."""
     from repro_torch.core import api
     from repro_torch.data.synthetic import lm_examples
     from repro_torch.kernels import ops
@@ -3873,7 +3911,8 @@ def _train14(torch, dev, cfg, engine, rounds, launches_out):
     data = build_data(cfg, K14, B14, S14, K14 * B14 * STEPS14, seed=0)
     ex, ey = lm_examples(99, 4, S14, cfg.vocab_size)
     learner = _learner(torch, cfg, api.get_codec("fused"), K14, dev,
-                       engine=engine, rounds=rounds, rule="fle")
+                       engine=engine, rounds=rounds, rule="fle",
+                       remat=REMAT14)
     split = _round_events(torch, learner)
     guard, stats = [], []
     if engine == "fused":
@@ -3974,7 +4013,7 @@ def _remat14(torch, tag, fn, params, x):
 
 
 def _phase14_xlstm(torch, dev, launches_out):
-    """14(a): xlstm-1.3b at full width, depth 8: the python engine for
+    """14(a): xlstm-1.3b at full width, depth LAYERS14: the python engine for
     PY_ROUNDS14 rounds, then the fused engine for FUSED_ROUNDS14 (one
     capture, then replays); then one mLSTM layer of that width with the
     recomputation and without."""
@@ -4012,12 +4051,17 @@ def _phase14_xlstm(torch, dev, launches_out):
                      p, x)
     del p, x, w
     say("recurrent-training", part="a", arch=cfg.name,
-        reduced=f"n_layers 48 -> {LAYERS14} (one xLSTM[7:1] period: 7 "
-                "mLSTM + 1 sLSTM)",
+        reduced=f"n_layers 48 -> {LAYERS14} ({LAYERS14 - 1} mLSTM + 1 "
+                "sLSTM: the xLSTM[7:1] period cut from 8 layers for the "
+                "script's clock)",
         d_model=cfg.d_model, heads=cfg.n_heads,
         head_dim=int(cfg.xlstm_proj_factor * cfg.d_model) // cfg.n_heads,
         vocab=cfg.vocab_size, K=K14, batch=B14, seq_len=S14,
-        steps_per_epoch=STEPS14, codec="fused int8", python=py, fused=fu,
+        steps_per_epoch=STEPS14, codec="fused int8", remat=REMAT14,
+        remat_why="per-layer recomputation off: the capture's recording "
+                  "and the eager rounds are host-bound and would grow by "
+                  "about a forward; 16(b) takes xlstm's step with it on",
+        python=py, fused=fu,
         engines_max_rel_diff=worst, mlstm_layer=layer)
 
 
@@ -4157,7 +4201,9 @@ def phase_recurrent_training(torch, dev, launches_out, mark):
 # and old_avg, about 5P f32 with P = 882,411,520 at depth 8 (17.6 GB and
 # activations a rank; depth 12 would need about 80 GB for three).
 POD_RANKS = 3
-LAYERS15 = 8
+# depth 4, for the script's clock (8 took 103 s of phase 15 on a host
+# where the whole script took 1,435 s; a round is wire-bound)
+LAYERS15 = 4
 B15, S15, STEPS15 = 8, 256, 2
 POD15_TIMEOUT = 600
 TOL15 = 1e-5          # pod vs simulation: only the K-term sum's order
@@ -4544,9 +4590,10 @@ def phase_pod(torch, dev, launches_out, mark):
             for n, c in r["launches"].items():
                 launches_out[n] = launches_out.get(n, 0) + c
     say("pod", part="a", arch=cfg.name, ranks=POD_RANKS, backend="gloo",
-        reduced=f"n_layers 24 -> {LAYERS15} (each rank holds about five "
-                "f32 model copies: params, grads, the flat buffer, the "
-                "dequantized payload, old_avg)",
+        reduced=f"n_layers 24 -> {LAYERS15} (the script's clock; each "
+                "rank holds about five f32 model copies: params, grads, "
+                "the flat buffer, the dequantized payload, old_avg, so 8 "
+                "is the most three ranks fit)",
         params_per_rank=a[0]["params"], d_model=cfg.d_model,
         heads=[cfg.n_heads, cfg.n_kv_heads], d_ff=cfg.d_ff,
         vocab=cfg.vocab_size, batch=B15, seq_len=S15,
@@ -4597,6 +4644,286 @@ def phase_pod(torch, dev, launches_out, mark):
              for r in b[k][name]["rounds"]] for k in range(1, POD_RANKS)]}
             for name in b[0]})
     mark("15b")
+
+
+# ---------------------------------------------------------------------------
+# phase 16: per-layer recomputation (``remat``, the reference's default) on
+# the training path, and the guards of ``repro_torch.analysis`` on the card.
+# (a) internlm2-1.8b at full width and phase 5's depth (LAYERS), K16
+# participants, fused int8, T 1, batch 8 x 256, 2 steps an epoch: one
+# capture round and ROUNDS16 - 1 replays with remat on, then with it off,
+# from the same params and batches; (b) xlstm-1.3b at phase 14's depth,
+# batch and length, one eager step of one participant both ways; (c) the
+# replays of (a) under guards.no_transfer and guards.no_retrace(limit=1),
+# with two negative controls.
+K16, ROUNDS16 = 3, 3
+B16, S16, STEPS16 = 8, 256, 2
+REMAT_TOL16 = 1e-5    # the engine's: the card does not promise bit-equality
+GRAD_TOL16 = 2e-4     # K7's f32 mLSTM limit (ROADMAP queue 3)
+
+
+def _step_peak16(torch, cfg, params, batch, remat):
+    """One eager step of one participant (loss and every gradient):
+    seconds (host clock, synchronised), peak GB over the live bytes
+    before, and the gradients."""
+    from repro_torch.models import transformer as tr
+    from repro_torch.tree import leaves, unflatten_like
+    ps = [t.detach().requires_grad_(True) for t in leaves(params)]
+    p = unflatten_like(params, ps)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    loss, _ = tr.loss_fn(p, cfg, batch, remat=remat)
+    grads = torch.autograd.grad(loss, ps)
+    torch.cuda.synchronize()
+    return {"seconds": time.perf_counter() - t0,
+            "peak_GB": (torch.cuda.max_memory_allocated() - base) / 1e9,
+            "loss": float(loss.detach())}, grads
+
+
+def _run16(torch, dev, cfg, remat, data, launches_out, models, compare):
+    """16(a): ROUNDS16 rounds (one capture, then replays) of the fused
+    engine with ``remat``; each replay under ``guards.no_transfer`` and
+    ``guards.no_retrace(limit=1)``. After each round the shared model is
+    copied into ``models`` (one model a round, allocated before either
+    run) or, with ``compare``, held against it. Returns the run's record,
+    the largest distance from ``models`` after each round (``compare``)
+    and the guarded round graph with the last replay's arguments."""
+    from repro_torch.analysis import guards
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core import api
+    from repro_torch.kernels import ops
+    from repro_torch.launch import analytic
+    from repro_torch.launch.train import epoch_batches_fn
+    from repro_torch.models import transformer as tr
+    from repro_torch.tree import leaves
+    learner = _learner(torch, cfg, api.get_codec("fused"), K16, dev,
+                       rounds=ROUNDS16, rule="fle", remat=remat)
+    held = {}
+
+    def guarded(graph):
+        held["guard"] = guards.no_retrace(graph, limit=1,
+                                          what="16a round graph")
+
+        def call(*a):
+            held["args"], held["graph"] = a, graph
+            with guards.no_transfer(dev):
+                held.setdefault("modes", []).append(
+                    torch.cuda.get_sync_debug_mode())
+                return held["guard"](*a)
+        return call
+    split = _round_events(torch, learner, wrap=guarded)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # live before the run: ``models``
+    base = torch.cuda.memory_allocated()
+    state = learner.init(tr.init_params(0, cfg, torch.float32, device=dev))
+    batches = epoch_batches_fn(data, dev, STEPS16)
+    torch.cuda.synchronize()
+    flops = analytic.model_flops(
+        cfg, InputShape("16a", S16, K16 * STEPS16 * B16, "train"), "train")
+    ops.reset_launch_counts()
+    per_round, diffs, stats = [], [], []
+    with graph_stats(torch, stats):
+        for _ in range(ROUNDS16):
+            t0 = time.perf_counter()
+            state = learner.run_round(state, batches)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            epochs_ms, fin_ms = split()
+            log = state["log"][-1]
+            per_round.append({
+                "round": log.round, "T": log.T, "seconds": sec,
+                "model_TFLOP_per_s": flops * log.T / sec / 1e12,
+                "device_ms": {"epochs": epochs_ms, "finalize": fin_ms},
+                "local_loss": float(sum(log.local_losses)
+                                    / len(log.local_losses)),
+                "rel_change": log.rel_change,
+                "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9,
+                "reserved_GB": torch.cuda.memory_reserved() / 1e9})
+            row = models[len(per_round) - 1]
+            if compare:
+                diffs.append(max(float((t[0] - a).abs().max()) for t, a in
+                                 zip(leaves(state["params"]), row)))
+            else:
+                for t, a in zip(leaves(state["params"]), row):
+                    a.copy_(t[0])
+    counts = ops.launch_counts()
+    rnd = held["graph"]
+    run = {"remat": remat, "rounds": per_round,
+           "capture_round_s": per_round[0]["seconds"],
+           "replayed_round_s": [r["seconds"] for r in per_round[1:]],
+           "capture": stats, "nodes": [x["nodes"] for x in stats],
+           "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9,
+           "peak_reserved_GB": torch.cuda.max_memory_reserved() / 1e9,
+           "live_before_GB": base / 1e9,
+           "peak_over_live_before_GB":
+               (torch.cuda.max_memory_allocated() - base) / 1e9,
+           "model_flops_per_round": flops,
+           "graphs": {f.name: {"captures": f.captures, "replays": f.replays}
+                      for f in learner._runner.graphs.functions},
+           "window_sync_debug_modes": held["modes"],
+           "launches": {k: v for k, v in counts.items() if v}}
+    check(all(math.isfinite(r["local_loss"]) for r in per_round),
+          f"16a remat={remat}: non-finite loss")
+    check(counts["wire_quant_avg_dequant"] == ROUNDS16,
+          f"16a remat={remat}: K3 launched "
+          f"{counts['wire_quant_avg_dequant']} times in {ROUNDS16} rounds")
+    check((rnd.captures, rnd.replays) == (1, ROUNDS16 - 1)
+          and guards.compile_count(rnd) == 1,
+          f"16a remat={remat}: round graph captured / replayed "
+          f"{rnd.captures} / {rnd.replays}")
+    check(held["modes"] == [2] * ROUNDS16,
+          f"16a remat={remat}: replays at sync modes {held['modes']}")
+    if remat:
+        for name, n in counts.items():
+            launches_out[name] = launches_out.get(name, 0) + n
+    step = None
+    if remat:
+        step = {"guard": held["guard"], "args": held["args"]}
+    del state, learner, split, held, rnd
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run, diffs, step
+
+
+def _negative16(torch, dev, step):
+    """16(c)'s negative controls: a ``.item()`` inside ``no_transfer``
+    raises (and the mode comes back), and the guarded round graph given
+    a second argument layout raises before capturing."""
+    from repro_torch.analysis import guards
+    out = {}
+    x = torch.ones(4, device=dev)
+    before = torch.cuda.get_sync_debug_mode()
+    try:
+        with guards.no_transfer(dev):
+            x.sum().item()
+        out["item"] = None
+    except RuntimeError as e:
+        out["item"] = str(e).splitlines()[0]
+    check(out["item"] is not None, "16c: .item() inside no_transfer did "
+                                   "not raise")
+    check(torch.cuda.get_sync_debug_mode() == before,
+          "16c: no_transfer did not restore the sync debug mode")
+    args = list(step["args"])
+    # the same round on the first of its batches: the staged (T, K,
+    # n_batches, B, S) tokens and labels in another layout
+    i = next(j for j, a in enumerate(args)
+             if isinstance(a, (list, tuple)) and a
+             and all(isinstance(t, torch.Tensor) and t.ndim == 5 for t in a))
+    args[i] = type(args[i])(t[:, :, :1] for t in args[i])
+    guard = step["guard"]
+    n = guard.compile_count()
+    try:
+        guard(*args)
+        out["layout"] = None
+    except guards.RetraceError as e:
+        out["layout"] = str(e)
+    check(out["layout"] is not None and guard.compile_count() == n == 1,
+          f"16c: a second layout past the limit did not raise before "
+          f"capturing ({out['layout']}, {guard.compile_count()} captures)")
+    return out
+
+
+def _phase16_xlstm(torch, dev):
+    """16(b): xlstm-1.3b at phase 14's depth (LAYERS14), batch and length:
+    one eager step of one participant with per-layer recomputation and
+    without (the recurrences' ``chunked_scan`` checkpoints nested inside
+    the layers' with it)."""
+    from repro_torch.models import transformer as tr
+    cfg = xlstm14_cfg()
+    params = tr.init_params(0, cfg, torch.float32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(16)
+    batch = {k: torch.randint(0, cfg.vocab_size, (B14, S14), generator=g,
+                              device=dev) for k in ("tokens", "labels")}
+    runs, grads = {}, {}
+    # warm-up (cuBLAS, the autograd engine) on a 16-step slice: the
+    # recurrences then run plain loops
+    _step_peak16(torch, cfg, params, {k: v[:, :16] for k, v in
+                                      batch.items()}, False)
+    for remat in (True, False):
+        runs[remat], grads[remat] = _step_peak16(torch, cfg, params, batch,
+                                                 remat)
+    err = max(float((a - b).abs().max())
+              for a, b in zip(grads[True], grads[False]))
+    scale = max(float(b.abs().max()) for b in grads[False])
+    check(err <= GRAD_TOL16, f"16b: remat on / off gradients differ by "
+                             f"{err} > {GRAD_TOL16}")
+    del params, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name,
+            "reduced": f"n_layers 48 -> {LAYERS14} (phase 14's depth)",
+            "batch": B14, "seq_len": S14, "remat": runs[True],
+            "no_remat": runs[False], "grad_max_abs_diff": err,
+            "grad_scale": scale, "tol": GRAD_TOL16,
+            "peak_ratio": runs[False]["peak_GB"]
+            / max(runs[True]["peak_GB"], 1e-9),
+            "seconds_ratio": runs[True]["seconds"]
+            / max(runs[False]["seconds"], 1e-9)}
+
+
+def phase_remat(torch, dev, launches_out, smi, mark):
+    """Phase 16: per-layer recomputation and the guards (see the
+    docstring)."""
+    from repro_torch.launch.train import build_data
+    from repro_torch.models import transformer as tr
+    from repro_torch.tree import leaves
+    cfg = full_cfg()
+    data = build_data(cfg, K16, B16, S16, K16 * B16 * STEPS16, seed=0)
+    g = torch.Generator(device=dev).manual_seed(17)
+    one = {k: torch.randint(0, cfg.vocab_size, (B16, S16), generator=g,
+                            device=dev) for k in ("tokens", "labels")}
+    params = tr.init_params(0, cfg, torch.float32, device=dev)
+    steps = {}
+    _step_peak16(torch, cfg, params, one, False)              # warm-up
+    for remat in (True, False):
+        steps[remat], grads = _step_peak16(torch, cfg, params, one, remat)
+        del grads
+    # the first run's shared model after each round stays on the card
+    # (ROUNDS16 x 5.54 GB, allocated here: both runs start beside it)
+    held = [[torch.empty_like(t) for t in leaves(params)]
+            for _ in range(ROUNDS16)]
+    del params
+    runs = {}
+    runs[True], _, step = _run16(torch, dev, cfg, True, data, launches_out,
+                                 held, False)
+    neg = _negative16(torch, dev, step)
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs[False], diffs, _ = _run16(torch, dev, cfg, False, data, {}, held,
+                                   True)
+    del held
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(all(d <= REMAT_TOL16 for d in diffs),
+          f"16a: remat on / off params differ by {diffs} after the rounds")
+    mark("16a, 16c")
+    xl = _phase16_xlstm(torch, dev)
+    mark("16b")
+    on, off = runs[True], runs[False]
+    say("remat", part="a", card=smi, arch=cfg.name,
+        reduced=f"n_layers 24 -> {LAYERS} (phase 5's depth)", K=K16,
+        batch=B16, seq_len=S16, steps_per_epoch=STEPS16, codec="fused int8",
+        remat=on, no_remat=off, params_max_abs_diff_per_round=diffs,
+        tol=REMAT_TOL16, one_step={"remat": steps[True],
+                                   "no_remat": steps[False]},
+        replayed_s_ratio=statistics.median(on["replayed_round_s"])
+        / statistics.median(off["replayed_round_s"]),
+        peak_GB_saved=(off["peak_over_live_before_GB"]
+                       - on["peak_over_live_before_GB"]),
+        step_peak_GB_saved=steps[False]["peak_GB"] - steps[True]["peak_GB"])
+    say("remat", part="b", card=smi, **xl)
+    say("remat", part="c", card=smi,
+        replays_under=["guards.no_transfer", "guards.no_retrace(limit=1)"],
+        window_sync_debug_modes={"remat": on["window_sync_debug_modes"],
+                                 "no_remat": off["window_sync_debug_modes"]},
+        negative_controls=neg)
 
 
 def main(argv=None):
@@ -4708,6 +5035,7 @@ def main(argv=None):
     phase_new_archs(torch, dev, launches, bw, mark)
     phase_recurrent_training(torch, dev, launches, mark)
     phase_pod(torch, dev, launches, mark)
+    phase_remat(torch, dev, launches, smi, mark)
 
     kernels = []
     for kname, (tag, replaces, source) in KERNEL_META.items():

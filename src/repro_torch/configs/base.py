@@ -108,7 +108,9 @@ class TrainConfig:
     weight_decay: float = 0.0
     grad_clip: float = 0.0
     param_dtype: str = "bfloat16"
-    remat: bool = True               # read by the JAX package only
+    # read by nothing in either package: the step builders and loss_fn
+    # take their own remat= (default True, per-layer recomputation)
+    remat: bool = True
     seed: int = 0
 
 

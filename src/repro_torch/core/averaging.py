@@ -39,6 +39,13 @@ def _write_rows(t, new, live):
         t.copy_(torch.where(alive, new, t))
 
 
+def average_mean(stacked):
+    """Eq. 2 returning the un-stacked average (f32 mean, the leaves'
+    dtypes)."""
+    return tree_map(lambda t: torch.mean(t.float(), dim=0).to(t.dtype),
+                    stacked)
+
+
 @torch.no_grad()
 def average_pjit(stacked, live=None):
     """Eq. 2: w̄ = (1/K) Σ_k w_k (f32), written back into all K slots IN

@@ -2,12 +2,14 @@
 ``repro/core/compression.py``.
 
 The paper does not compress uploads; the quantized wire is a separately
-reported optimization. ``quantize_roundtrip_ef`` is the leafwise path
-with error feedback: every STACKED ``(K, ...)`` leaf is
-quantize-roundtripped as one array (so, as in the JAX package, a block
-may straddle two participants mid-leaf), and leaves smaller than one
-block travel uncompressed. Without error feedback the same roundtrip is
-``LeafwiseIntN.encode``/``decode`` in ``core/api.py``. The flat-buffer
+reported optimization. ``quantize_roundtrip`` is the leafwise path and
+``quantize_roundtrip_ef`` its error-feedback form: every STACKED
+``(K, ...)`` leaf is quantize-roundtripped as one array (so, as in the
+JAX package, a block may straddle two participants mid-leaf), and leaves
+smaller than one block travel uncompressed. ``LeafwiseIntN.encode`` /
+``decode`` in ``core/api.py`` is the same roundtrip as a codec, which
+the runners use; ``make_compress_fn`` wraps ``quantize_roundtrip`` as a
+``compress_fn``, as in the reference. The flat-buffer
 path lives in ``core/flatbuf.py`` + ``kernels/comm.py``.
 
 On CUDA tensors the roundtrip launches K1 and K2 once per leaf.
@@ -22,6 +24,25 @@ from repro_torch.tree import leaves, unflatten_like
 
 def _bypass(t, block):
     return t.ndim == 0 or t.numel() < block
+
+
+def quantize_roundtrip(tree, block=256, bits=8):
+    """Quantize then dequantize every leaf (the compressed upload);
+    bypassed leaves are returned unchanged."""
+    return unflatten_like(tree, [
+        t if _bypass(t, block) else kops.dequantize_blockwise(
+            *kops.quantize_blockwise(t, block=block, bits=bits),
+            bits=bits).to(t.dtype)
+        for t in leaves(tree)])
+
+
+def make_compress_fn(block=256, bits=8):
+    """``compress_fn(stacked)``: ``quantize_roundtrip`` of the stacked
+    tree. The reference's ``impl`` has no counterpart: the kernels
+    dispatch on the tensors' device."""
+    def fn(stacked):
+        return quantize_roundtrip(stacked, block=block, bits=bits)
+    return fn
 
 
 def quantize_roundtrip_ef(tree, residual, block=256, bits=8):

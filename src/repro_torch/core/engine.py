@@ -531,6 +531,7 @@ def _make_gated_finalize(opt, aggregate_fn, gate_fn=None, live=False,
         agg_weights = (rest[len(live_in):] or (None,))[0]
         div, do_sync = gate(params, sync_ref, delta, *live_in)
         rel = div
+        # tracelint: disable=TL002 -- refuses capture above: uncaptured only
         if bool(do_sync):
             res_in = (residual,) if stateful else ()
             rel = finalize(params, opt_state, *res_in, sync_ref, *live_in,

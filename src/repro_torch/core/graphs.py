@@ -28,9 +28,10 @@ Arguments come in two kinds:
   never write into the caller's tensors.
 
 ``limit=`` caps a function's captures: a call that would capture beyond
-it raises :class:`RecaptureError` before capturing, and the graphs
-already held stay as they were. This is the port of the reference's
-``no_retrace(limit=...)`` guard.
+it raises :class:`RecaptureError` (an ``analysis.guards.RetraceError``)
+before capturing, and the graphs already held stay as they were;
+``analysis.guards.no_retrace`` wraps a ``Captured`` with the same budget
+from outside (``Captured.would_capture``).
 
 On the card the first call of a key captures. The set's first capture
 runs the function eagerly on the capture stream first — that run is the
@@ -54,8 +55,9 @@ capture takes the launches it recorded back out of the counters and keeps
 them with the graph; every replay adds them again, so
 ``ops.launch_counts()`` counts the launches made.
 
-``GraphSet.no_sync()`` is the round's guard: inside it, on the card, any
-host synchronisation raises (``torch.cuda.set_sync_debug_mode("error")``),
+``GraphSet.no_sync()`` is the round's guard, ``analysis.guards.
+no_transfer`` on the set's device: inside it, on the card, any host
+synchronisation raises (``torch.cuda.set_sync_debug_mode("error")``),
 except while a graph is being captured (a capture synchronises) and inside
 ``allow_sync()``.
 """
@@ -66,11 +68,12 @@ import gc
 
 import torch
 
+from repro_torch.analysis.guards import RetraceError, no_transfer
 from repro_torch.kernels import ops as kops
 from repro_torch.tree import leaves, leaves_with_path, tree_map
 
 
-class RecaptureError(RuntimeError):
+class RecaptureError(RetraceError):
     """A captured function would capture more graphs than its limit."""
 
 
@@ -135,17 +138,10 @@ class GraphSet:
     def captures(self):
         return sum(f.captures for f in self.functions)
 
-    @contextlib.contextmanager
     def no_sync(self):
-        if not self.on_cuda:
-            yield
-            return
-        prev = torch.cuda.get_sync_debug_mode()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            yield
-        finally:
-            torch.cuda.set_sync_debug_mode(prev)
+        """The round's sync guard: ``guards.no_transfer`` on the set's
+        device."""
+        return no_transfer(self.device)
 
 
 class Captured:
@@ -162,11 +158,20 @@ class Captured:
         self.replays = 0
         self._graphs = {}
 
-    def __call__(self, *args):
+    def _lookup(self, args):
         key = _layout(args)
-        ins = tuple(args[i] for i in self.inputs)
         ptrs = _ptrs(a for i, a in enumerate(args) if i not in self.inputs)
-        g = self._graphs.get(key)
+        return key, ptrs, self._graphs.get(key)
+
+    def would_capture(self, *args):
+        """Whether a call on ``args`` would capture (no graph holds their
+        layout on their storage)."""
+        _, ptrs, g = self._lookup(args)
+        return g is None or g.ptrs != ptrs
+
+    def __call__(self, *args):
+        key, ptrs, g = self._lookup(args)
+        ins = tuple(args[i] for i in self.inputs)
         if g is None or g.ptrs != ptrs:
             if self.limit is not None and self.captures >= self.limit:
                 raise RecaptureError(

@@ -35,6 +35,12 @@ def check_bits(bits):
         raise ValueError(f"bits must be 8, 4, or 1; got {bits}")
 
 
+def packed_width(block, bits):
+    """Payload columns of one packed block row."""
+    check_bits(bits)
+    return block * bits // 8
+
+
 def pack_codes(q, bits):
     """(nb, block) int8 codes -> (nb, block*bits//8) packed payload.
 

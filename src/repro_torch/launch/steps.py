@@ -1,4 +1,5 @@
-"""Step functions, ported from ``repro/launch/steps.py``.
+"""Step functions and shape helpers, ported from
+``repro/launch/steps.py``.
 
 The local training steps (``make_train_step``, its co-learning form
 ``make_colearn_train_step``), Eq. 2 as a step (``make_average_step``),
@@ -9,34 +10,106 @@ the flash attention, selective scan and mLSTM kernels:
 through K5, every Mamba layer through K6, every mLSTM layer through K7
 and every sLSTM layer through the captured recurrence) and the serve
 step, one token through ``transformer.decode_step`` (the step
-``ServeLoop`` captures).
+``ServeLoop`` captures). The training steps take the reference's
+``remat=True``: each repeat of each segment is recomputed in the backward
+pass (``transformer.forward``).
+
+The shape helpers (``config_for_shape``, ``params_shapes``,
+``cache_shapes``, ``input_specs``) build their trees on the ``meta``
+device, where the reference uses ``jax.eval_shape``: shapes and dtypes,
+nothing allocated. ``launch/analytic.py`` counts on them.
 
 The reference's ``lowering`` (a JAX scan lowering) and ``compress_impl``
 (the Pallas or plain wire: the port's kernels dispatch on the tensor's
-device) have no counterpart, nor ``remat`` (per-layer recomputation is
-not ported, ROADMAP.md; the step's numbers are the same without it).
+device) have no counterpart.
+
+``long_500k`` policy (the reference's): SSM and hybrid archs run
+natively, as does DeepSeek's MLA (its latent cache is the compression);
+pure full-attention dense, vlm and audio archs switch to the
+sliding-window variant (window 4096).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import InputShape
 from repro_torch.models import transformer as tr
 from repro_torch.optim.optimizers import apply_updates, get_optimizer
 from repro_torch.tree import leaves, tree_map, unflatten_like
 
+LONG_WINDOW = 4096
+# families whose long-context decode needs the SWA carve-in
+SWA_AT_500K = {"dense", "vlm", "audio"}
+META = torch.device("meta")
 
-def make_train_step(cfg, optimizer="sgd", lr=0.01, impl="ref",
+
+def config_for_shape(cfg, shape: InputShape):
+    """Apply per-shape config adjustments (the SWA carve-in)."""
+    if shape.name == "long_500k" and cfg.family in SWA_AT_500K:
+        return cfg.with_(window=LONG_WINDOW)
+    return cfg
+
+
+def params_shapes(cfg, dtype=torch.bfloat16):
+    """The params tree on ``meta``: every leaf's shape and dtype, nothing
+    drawn or allocated."""
+    return tr.init_params(0, cfg, dtype, device=META)
+
+
+def cache_shapes(cfg, batch, seq_len, dtype=torch.bfloat16):
+    """``transformer.init_cache`` on ``meta``."""
+    return tr.init_cache(cfg, batch, seq_len, dtype, device=META)
+
+
+def input_specs(cfg, shape: InputShape, participants: int = 0,
+                dtype=torch.bfloat16):
+    """Meta-tensor stand-ins for the step's data inputs.
+
+    train/prefill -> the batch dict (``tokens``, ``labels``, and
+    ``prefix`` for a ``tokens+prefix`` config); decode -> ``{"cache",
+    "token", "pos"}``. ``participants > 0`` stacks a leading K dim (the
+    co-learning variant) and splits the global batch over it."""
+    B, S = shape.global_batch, shape.seq_len
+    lead = (participants,) if participants else ()
+    if participants:
+        if B % participants:
+            raise ValueError(f"global batch {B} does not split over "
+                             f"{participants} participants")
+        B = B // participants
+
+    def spec(shape_, dtype_):
+        return torch.empty(shape_, dtype=dtype_, device=META)
+
+    if shape.kind in ("train", "prefill"):
+        prefix = cfg.prefix_len if cfg.input_mode == "tokens+prefix" else 0
+        batch = {"tokens": spec((*lead, B, S - prefix), torch.int32),
+                 "labels": spec((*lead, B, S), torch.int32)}
+        if cfg.input_mode == "tokens+prefix":
+            batch["prefix"] = spec((*lead, B, cfg.prefix_len, cfg.d_model),
+                                   dtype)
+        return batch
+
+    cache = cache_shapes(cfg, B, S, dtype)
+    if participants:
+        cache = tree_map(lambda v: spec((participants, *v.shape), v.dtype),
+                         cache)
+    return {"cache": cache, "token": spec((*lead, B, 1), torch.int32),
+            "pos": spec((), torch.int32)}
+
+
+def make_train_step(cfg, optimizer="sgd", lr=0.01, impl="ref", remat=True,
                     microbatch=1):
     """Paper-faithful local step: SGD on the LM loss, ``(params, batch) ->
-    (new params, loss)``. ``microbatch > 1`` accumulates the f32
+    (new params, loss)``. ``remat`` recomputes each repeat in the backward
+    pass (``transformer.forward``). ``microbatch > 1`` accumulates the f32
     gradients of that many slices of the batch and averages them (the
     same SGD step, a slice's activations at a time)."""
     opt = get_optimizer(optimizer)
 
     def grad_of(params, b):
         p = tree_map(lambda t: t.detach().requires_grad_(), params)
-        loss, _ = tr.loss_fn(p, cfg, b, impl)
+        loss, _ = tr.loss_fn(p, cfg, b, impl, remat)
         grads = torch.autograd.grad(loss, leaves(p))
         return loss.detach(), unflatten_like(p, grads)
 
@@ -83,8 +156,9 @@ def make_average_step():
 
 
 def make_fused_round_step(cfg, ccfg, *, optimizer="sgd", impl="ref",
-                          mesh=None, param_specs=None, codec=None,
-                          aggregator=None, schedule=None, round_index=0,
+                          remat=True, mesh=None, param_specs=None,
+                          codec=None, aggregator=None, schedule=None,
+                          round_index=0,
                           expose_schedule_args=False, masked=False,
                           live=False, compress=None, compress_block=256,
                           codec_bits=8, error_feedback=False, device=None):
@@ -94,6 +168,8 @@ def make_fused_round_step(cfg, ccfg, *, optimizer="sgd", impl="ref",
     per participant, every tree the rank's ``(1, ...)`` slice, on the
     mesh's device type).
 
+    ``remat`` recomputes each repeat of the model in the backward pass
+    (``transformer.forward``), captured with the epochs.
     ``codec`` / ``aggregator`` / ``schedule`` take ``core/api.py``
     strategy objects or registry names (``schedule=None`` resolves
     ``ccfg.schedule``); ``compress=None|"leafwise"|"fused"`` is the legacy
@@ -135,7 +211,7 @@ def make_fused_round_step(cfg, ccfg, *, optimizer="sgd", impl="ref",
     from repro_torch.device import resolve_device
 
     def loss_fn(params, batch):
-        return tr.loss_fn(params, cfg, batch, impl)
+        return tr.loss_fn(params, cfg, batch, impl, remat)
 
     if compress is not None:
         if codec is not None:

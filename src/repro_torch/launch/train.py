@@ -95,11 +95,14 @@ def require_token_inputs(ap, cfg):
                  "has no prefix generator")
 
 
-def make_loss_fn(cfg):
-    """``loss_fn(params, (tokens, labels))`` for one participant."""
+def make_loss_fn(cfg, remat=True):
+    """``loss_fn(params, (tokens, labels))`` for one participant; the CLI
+    takes ``transformer.loss_fn``'s default, per-layer recomputation on,
+    as the reference's CLI does."""
     def loss_fn(params, batch):
         x, y = batch
-        return tr.loss_fn(params, cfg, {"tokens": x, "labels": y})
+        return tr.loss_fn(params, cfg, {"tokens": x, "labels": y},
+                          remat=remat)
     return loss_fn
 
 

@@ -39,6 +39,16 @@ def dense_init(gen, d_in, d_out, dtype, stack=(), bias=False):
     return p
 
 
+def dense_apply(p, x):
+    """``x @ w`` (+ ``b``). The reference's ``prec`` (an XLA matmul
+    precision) has no counterpart: a matmul runs at torch's own precision
+    settings."""
+    y = x @ p["w"]
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
 # --------------------------------------------------------------------------
 # RMSNorm
 # --------------------------------------------------------------------------

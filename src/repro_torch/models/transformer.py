@@ -8,7 +8,9 @@ it. Every layer kind of the JAX package runs: the mixers ``gqa``,
 ``slstm``; the FFNs ``dense``, ``moe`` and Arctic's ``moe_dense`` (the
 MoE's output plus a dense FFN's beside it, on the same normed input).
 ``layer_apply`` returns the layer's MoE aux loss beside its output and
-``forward`` sums it over the layers. ``embed_inputs`` puts a
+``forward`` sums it over the layers; under autograd it recomputes each
+repeat of each segment in the backward pass (``remat=True``, the
+reference's default). ``embed_inputs`` puts a
 ``tokens+prefix`` config's precomputed prefix embeddings (InternVL2's
 patch embeddings) before the token embeddings. A config with
 ``mtp_depth`` has DeepSeek-V3's multi-token-prediction head: ``loss_fn``
@@ -30,8 +32,9 @@ initial values in place.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.device import resolve_device
+from repro_torch.device import MetaGenerator, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mam
 from repro_torch.models import mla as mla_mod
@@ -161,13 +164,16 @@ def init_params(seed, cfg, dtype=torch.bfloat16, device=None):
     ``seed`` is an int or a ``torch.Generator`` (whose device must then be
     ``device``). The numbers differ from ``jax.random``'s for the same
     seed; tests that compare the packages initialise in JAX and carry the
-    params across with ``checkpoint.io.params_from_numpy``."""
+    params across with ``checkpoint.io.params_from_numpy``. On ``meta``
+    the tree is shapes and dtypes only (``launch/steps.params_shapes``):
+    nothing is drawn or allocated."""
     dev = resolve_device(device)
     _check_supported(cfg)
     if isinstance(seed, torch.Generator):
         gen = seed
     else:
-        gen = torch.Generator(device=dev)
+        gen = (MetaGenerator() if dev.type == "meta"
+               else torch.Generator(device=dev))
         gen.manual_seed(int(seed))
     params = {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype),
               "final_norm": rmsnorm_init(cfg.d_model, dtype, (), dev),
@@ -203,26 +209,52 @@ def embed_inputs(params, cfg, batch):
     return x
 
 
-def forward(params, cfg, batch, impl="ref", return_hidden=False,
+def _repeat(seg_params, r, pattern, cfg, x, positions, impl):
+    """One repeat of a segment: its pattern's layers on repeat ``r``'s
+    slice of the stacked params -> (x, the summed aux loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for j, kind in enumerate(pattern):
+        p_r = tree_map(lambda t: t[r], seg_params[f"p{j}"])
+        x, a = layer_apply(p_r, kind, x, cfg, positions, impl)
+        aux = aux + a
+    return x, aux
+
+
+def forward(params, cfg, batch, impl="ref", remat=True, return_hidden=False,
             apply_head=True):
     """Returns (logits, aux_loss[, hidden]); ``logits`` is None when
     ``apply_head`` is False; ``aux_loss`` sums the MoE layers' Switch
-    losses (0 without MoE). Every layer's activations are kept for the
-    backward pass: the per-layer recomputation of the JAX package
-    (``remat``) is not ported yet (ROADMAP.md)."""
+    losses (0 without MoE).
+
+    ``remat`` (the reference's default, True) recomputes each repeat of
+    each segment in the backward pass, as the reference's
+    ``jax.checkpoint`` of its scan body does: the repeat runs under one
+    non-reentrant ``torch.utils.checkpoint`` (no RNG state: reading the
+    CUDA RNG raises inside a graph capture), whose inputs are the stacked
+    params (sliced inside), the residual stream and the positions, so
+    only a repeat's input is kept for the backward pass. It nests with
+    ``layers.chunked_scan``'s checkpoints of the recurrences. Without
+    autograd (prefill, decode, ``torch.no_grad``) it does nothing, as
+    ``jax.checkpoint`` does nothing outside differentiation. With
+    ``remat=False`` every layer's activations are kept."""
     _check_supported(cfg)
     x = embed_inputs(params, cfg, batch)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    recompute = remat and torch.is_grad_enabled()
     for seg_params, (pattern, repeats) in zip(params["segments"],
                                               cfg.segments):
         for r in range(repeats):
-            for j, kind in enumerate(pattern):
-                p_r = tree_map(lambda t, _r=r: t[_r], seg_params[f"p{j}"])
-                x, a = layer_apply(p_r, kind, x, cfg, positions, impl)
-                aux = aux + a
+            if recompute:
+                x, a = checkpoint(_repeat, seg_params, r, pattern, cfg, x,
+                                  positions, impl, use_reentrant=False,
+                                  preserve_rng_state=False)
+            else:
+                x, a = _repeat(seg_params, r, pattern, cfg, x, positions,
+                               impl)
+            aux = aux + a
     h = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     logits = None
     if apply_head:
@@ -233,11 +265,13 @@ def forward(params, cfg, batch, impl="ref", return_hidden=False,
     return logits, aux
 
 
-def loss_fn(params, cfg, batch, impl="ref"):
+def loss_fn(params, cfg, batch, impl="ref", remat=True):
     """Next-token LM loss (+aux, +MTP when configured). labels: -1 =
-    ignore. Returns (loss, metrics)."""
+    ignore. Returns (loss, metrics). ``remat`` as in ``forward``; the MTP
+    head is outside the segments and is not recomputed, as in the
+    reference."""
     need_h = bool(cfg.mtp_depth)
-    out = forward(params, cfg, batch, impl, return_hidden=need_h)
+    out = forward(params, cfg, batch, impl, remat, return_hidden=need_h)
     logits, aux = out[0], out[1]
     loss = softmax_xent(logits, batch["labels"])
     metrics = {"lm_loss": loss, "aux_loss": aux}
@@ -329,8 +363,8 @@ def prefill(params, cfg, batch, impl="ref"):
     """Full-sequence forward -> last-position logits (B, V). The LM head
     is applied to the last position only, as in the JAX package: the
     whole (B, S, V) logits would dominate a long prefill."""
-    _, _, h = forward(params, cfg, batch, impl, return_hidden=True,
-                      apply_head=False)
+    _, _, h = forward(params, cfg, batch, impl, remat=False,
+                      return_hidden=True, apply_head=False)
     logits = lm_head_apply(params["embed"], params.get("head"), h[:, -1:],
                            cfg.tie_embeddings)
     return logits[:, 0]

@@ -3,7 +3,8 @@
 Ported from ``repro/serving/loop.py``. One ``ServeLoop`` owns ONE decode
 step for a fixed config, batch and cache geometry. Where JAX jits the step
 behind ``no_retrace(limit=1)``, the port captures it as a CUDA graph
-(``core/graphs.py``) when the loop is built, on the loop's own buffers:
+(``core/graphs.py``, with ``limit=1``) when the loop is built, on the
+loop's own buffers:
 
 * the cache (``transformer.init_cache``: a KV cache for attention
   layers, the conv tail and SSM state for Mamba layers, the recurrent
@@ -20,9 +21,10 @@ behind ``no_retrace(limit=1)``, the port captures it as a CUDA graph
   version after a swap passes a clone.
 
 Every prompt token and every decode token replays that one graph.
-``compile_count()`` counts captures: 1 for the loop's life. A call that
-would capture again (the params, cache or buffers moved) raises
-``graphs.RecaptureError``, the port of the reference's ``RetraceError``.
+``compile_count()`` counts captures through ``analysis.guards.
+compile_count``, as the reference counts compiles: 1 for the loop's life.
+A call that would capture again (the params, cache or buffers moved)
+raises ``graphs.RecaptureError``, an ``analysis.guards.RetraceError``.
 The graph's logits are overwritten by its next replay: ``prefill``
 returns a clone, and ``generate`` takes the argmax before the next
 replay. On the CPU (only when asked for) the same step runs uncaptured
@@ -35,6 +37,7 @@ import time
 
 import torch
 
+from repro_torch.analysis import guards
 from repro_torch.core.graphs import GraphSet
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tr
@@ -107,7 +110,7 @@ class ServeLoop:
     def compile_count(self) -> int:
         """Captures of the decode step (1 for the loop's life: params are
         read by address, and a swap copies into them)."""
-        return self._step.captures
+        return guards.compile_count(self._step)
 
     def replay_count(self) -> int:
         """Replays of the captured decode step (one per prompt token and

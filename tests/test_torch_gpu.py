@@ -1493,3 +1493,111 @@ def test_gpu_nccl_ranks_sharing_a_card_are_refused(cuda, tmp_path):
              for k in range(2)]
     outs = [p.communicate(timeout=300) for p in procs]
     assert [o.strip() for o, _ in outs] == ["REFUSED", "REFUSED"], outs
+
+
+# ---------------------------------------------------------------------------
+# Per-layer recomputation and the guards on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.gpu
+def test_gpu_no_transfer_raises_on_a_sync_and_restores_the_mode(cuda):
+    """``guards.no_transfer`` on the card: a ``.item()`` (a host sync)
+    raises inside it, the previous sync debug mode comes back after it,
+    and a pinned non-blocking staging copy does not raise."""
+    from repro_torch.analysis import guards
+    from repro_torch.core import engine
+    x = torch.ones(4, device=cuda)
+    torch.cuda.set_sync_debug_mode(0)
+    with guards.no_transfer(cuda):
+        assert torch.cuda.get_sync_debug_mode() == 2
+        staged = engine.stage(np.arange(3), np.int32, cuda)
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            x.sum().item()
+    assert torch.cuda.get_sync_debug_mode() == 0
+    assert staged.device.type == "cuda"
+
+
+@pytest.mark.gpu
+def test_gpu_no_retrace_raises_before_a_second_capture(cuda):
+    """``guards.no_retrace(limit=1)`` over a captured function on the
+    card: replays of one layout pass, a second layout raises before it is
+    captured, and the graph held still replays."""
+    from repro_torch.analysis import guards
+    from repro_torch.core.graphs import GraphSet
+    fn = GraphSet(cuda).capture(lambda x: x * 2, "doubler", inputs=(0,))
+    step = guards.no_retrace(fn, limit=1, what="doubler")
+    for v in (1.0, 3.0):
+        out = step(torch.full((8,), v, device=cuda))
+        assert torch.equal(out, torch.full((8,), 2 * v, device=cuda))
+    assert (fn.captures, fn.replays) == (1, 1)
+    with pytest.raises(guards.RetraceError, match="limit of 1"):
+        step(torch.ones(9, device=cuda))
+    assert fn.captures == 1
+    assert torch.equal(step(torch.ones(8, device=cuda)),
+                       torch.full((8,), 2.0, device=cuda))
+
+
+def _remat_round(cuda, remat):
+    """Two captured rounds of ``make_fused_round_step`` (fused int8, K 2)
+    on the internlm2 smoke config, from fixed params and batches."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import CoLearnConfig
+    from repro_torch.core import averaging
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tr
+    from repro_torch.tree import leaves
+    cfg = get_smoke_config("internlm2-1.8b")
+    params = averaging.stack_participants(
+        tr.init_params(0, cfg, torch.float32, device=cuda), 2)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    batches = {k: torch.randint(0, cfg.vocab_size, (1, 2, 2, 2, 16),
+                                generator=g, device=cuda)
+               for k in ("tokens", "labels")}
+    rf = steps.make_fused_round_step(
+        cfg, CoLearnConfig(n_participants=2, T0=1, max_rounds=2),
+        codec="fused", remat=remat, device=cuda)
+    out = []
+    for i in range(2):
+        params, _, aux = rf(params, (), batches, i)
+        out.append(([t.clone() for t in leaves(params)],
+                    aux["losses"].clone()))
+    return out, rf.graphs.captures
+
+
+@pytest.mark.gpu
+def test_gpu_remat_round_is_captured_and_equals_no_remat(cuda):
+    """The fused round step with per-layer recomputation (the default)
+    captures its epochs once and equals ``remat=False`` after each round
+    at 1e-5 (the embedding's backward adds with atomics)."""
+    on, cap_on = _remat_round(cuda, True)
+    off, cap_off = _remat_round(cuda, False)
+    assert cap_on == cap_off == 1
+    for (pa, la), (pb, lb) in zip(on, off):
+        torch.testing.assert_close(la, lb, rtol=1e-5, atol=1e-5)
+        for a, b in zip(pa, pb):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_gpu_remat_nests_with_chunked_scan(cuda):
+    """xlstm's smoke config at S 512 (two 256-step chunks a recurrence,
+    each checkpointed inside the layer's checkpoint): the loss and every
+    gradient with and without per-layer recomputation at 1e-5."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as tr
+    from repro_torch.tree import leaves
+    cfg = get_smoke_config("xlstm-1.3b")
+    params = tr.init_params(0, cfg, torch.float32, device=cuda)
+    ps = leaves(params)
+    for t in ps:
+        t.requires_grad_()
+    g = torch.Generator(device=cuda).manual_seed(5)
+    batch = {k: torch.randint(0, cfg.vocab_size, (2, 512), generator=g,
+                              device=cuda) for k in ("tokens", "labels")}
+    res = {}
+    for remat in (True, False):
+        loss, _ = tr.loss_fn(params, cfg, batch, remat=remat)
+        res[remat] = (loss.detach(), torch.autograd.grad(loss, ps))
+    torch.testing.assert_close(res[True][0], res[False][0], rtol=1e-5,
+                               atol=1e-5)
+    for a, b in zip(res[True][1], res[False][1]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
