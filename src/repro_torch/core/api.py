@@ -30,7 +30,10 @@ it falls back to the dense mix, which under GSPMD gathers every pod's
 row; here that is one broadcast from each rank, O(K·model) traffic, and
 the built function says so (``aggregate.dense_fallback``). Every pod
 aggregate carries its ``PodAxis`` (``aggregate.pod``: its ``stats``
-count the wire). The mixing matrix and the liveness row stay whole.
+count the wire). The mixing matrix and the liveness row stay whole. On a
+mesh with intra-pod axes a row's leaves are DTensors over the pod's
+``data`` / ``model`` axes (``_intra_pod``): the exact codec aggregates
+the local shards, a quantising codec the pod's gathered row.
 
 Aggregation runs IN PLACE on the stacked params: the exact mean and the
 fused flat-buffer mean write into them, and a mixing matrix is applied
@@ -307,9 +310,10 @@ class FlatFusedIntN(WireCodec):
                         stateful=False):
         if stateful and not self.error_feedback:
             raise ValueError("stateful fused mean requires error_feedback")
-        return engine_mod.make_fused_compressed_average(
+        fused = engine_mod.make_fused_compressed_average(
             block=self.block, bits=self.bits, mesh=mesh, axis=axis,
             weighted=weighted, stateful=stateful)
+        return fused if mesh is None else _intra_pod(fused, self)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -428,12 +432,52 @@ def normalized_weights(weights, K: int) -> np.ndarray:
     return w / w.sum()
 
 
-def _pod(mesh, axis, param_specs=None):
-    """The rank's ``PodAxis`` of ``mesh`` (``param_specs``, when given,
-    must place only ``axis``: the intra-pod placements are not ported)."""
-    from repro_torch.sharding.specs import check_pod_specs
-    check_pod_specs(param_specs, mesh, axis)
-    return PodAxis(mesh, axis)
+def _own_slice(full, like):
+    """This rank's shard of the whole tensor ``full`` in ``like``'s
+    placements (a local chunk: nothing crosses the wire)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = like.device_mesh
+    whole = DTensor.from_local(full, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    return whole.redistribute(mesh, like.placements).to_local()
+
+
+def _intra_pod(fn, codec):
+    """A pod aggregate that also takes rows laid out inside their pod
+    (DTensor leaves over the pod's ``data`` / ``model`` axes, on a mesh
+    with intra-pod axes). The exact codec runs ``fn`` on the local shards:
+    the psums and permutes move each shard over its pod group, as the
+    reference's ``shard_map(in_specs=param_specs)`` does. A quantising
+    codec forms its blocks over the whole leaf (leaf-wise) or the pod's
+    whole flat row (flat), so ``fn`` runs on the rows gathered inside the
+    pod (``full_tensor``): K1/K2 and the pod all-reduce as on the
+    unsharded path, then each rank keeps its own slice. Plain tensors
+    pass through; a tree ``fn`` returns holds the DTensors it was given
+    (new tensors, a gathered path's new residual, stay plain)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.core.collectives import local
+    exact = isinstance(codec, ExactF32)
+
+    def wrapped(stacked, *rest, **kw):
+        pairs = []
+
+        def down(t):
+            if not isinstance(t, DTensor):
+                return t
+            x = local(t) if exact else t.full_tensor()
+            pairs.append((t, x))
+            return x
+        if not any(isinstance(t, DTensor) for t in leaves(stacked)):
+            return fn(stacked, *rest, **kw)
+        args = [tree_map(down, a) for a in (stacked, *rest)]
+        with torch.no_grad():
+            out = fn(*args, **kw)
+            if not exact:
+                for t, x in pairs:
+                    local(t).copy_(_own_slice(x, t))
+        back = {id(x): t for t, x in pairs}
+        return tree_map(lambda o: back.get(id(o), o), out)
+    return _carry(fn, wrapped)
 
 
 def _carry(src, fn):
@@ -519,7 +563,7 @@ def _make_weighted_psum_aggregate(aggregator, codec, mesh, param_specs,
     codec's roundtrip is the error-feedback one, and its residual stays on
     its rank: ``aggregate(stacked, weights, residual) -> (mixed,
     new_res)``."""
-    pod = _pod(mesh, axis, param_specs)
+    pod = PodAxis(mesh, axis)
     stateful = getattr(codec, "stateful", False)
 
     @torch.no_grad()
@@ -588,14 +632,20 @@ class Aggregator(abc.ABC):
 
         ``mesh`` (a ``DeviceMesh`` with an ``axis`` dim): the pod path,
         the specialisation hook ``_make_mesh_aggregate_fn``, else the
-        dense fallback (``_pod_mix_into``). ``param_specs`` are optional
-        (every rank's row is whole) and checked when given."""
+        dense fallback (``_pod_mix_into``). A row may be laid out inside
+        its pod (DTensor leaves, :func:`_intra_pod`). ``param_specs`` (the
+        reference's) are accepted and not needed."""
+        fn = self._build_aggregate_fn(codec, mesh, param_specs, axis,
+                                      dynamic)
+        return fn if mesh is None else _intra_pod(fn, codec)
+
+    def _build_aggregate_fn(self, codec, mesh, param_specs, axis, dynamic):
         if mesh is not None:
             fn = self._make_mesh_aggregate_fn(codec, mesh, param_specs, axis,
                                               dynamic=dynamic)
             if fn is not None:
                 return fn
-            pod = _pod(mesh, axis, param_specs)
+            pod = PodAxis(mesh, axis)
             return _on_pod(self._make_host_aggregate_fn(
                 codec, mix=functools.partial(_pod_mix_into, pod)), pod,
                 dense=True)
@@ -674,12 +724,8 @@ class FullAverage(Aggregator):
         w /= w.sum()
         return np.broadcast_to(w, (K, K)).astype(np.float32)
 
-    def make_aggregate_fn(self, codec, *, mesh=None, param_specs=None,
-                          axis="pod", dynamic=False):
+    def _build_aggregate_fn(self, codec, mesh, param_specs, axis, dynamic):
         stateful = getattr(codec, "stateful", False)
-        if mesh is not None:
-            from repro_torch.sharding.specs import check_pod_specs
-            check_pod_specs(param_specs, mesh, axis)
         if self.weights is not None or dynamic:
             # a per-round weight row: always the weighted paths
             fused = codec.make_fused_mean(mesh=mesh, axis=axis,
@@ -903,7 +949,7 @@ class GraphGossip(Aggregator):
         if setup is None:
             return None
         perms, srcs = setup
-        pod = _pod(mesh, axis, param_specs)
+        pod = PodAxis(mesh, axis)
 
         # one point-to-point exchange per permutation: each rank
         # roundtrips its own row (its send leg) and receives exactly degree
@@ -966,7 +1012,7 @@ class RingGossip(GraphGossip):
         # dense fallback
         if getattr(codec, "stateful", False) or dynamic:
             return None
-        pod = _pod(mesh, axis, param_specs)
+        pod = PodAxis(mesh, axis)
         K = pod.size
         perm = tuple((j, (j + 1) % K) for j in range(K))
 
@@ -1049,7 +1095,7 @@ class D2Gossip(GraphGossip):
         if setup is None:
             return None
         perms, srcs = setup
-        pod = _pod(mesh, axis, param_specs)
+        pod = PodAxis(mesh, axis)
 
         # the permutes of GraphGossip over v = y + c; the correction stays
         # on its rank

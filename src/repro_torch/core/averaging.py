@@ -3,9 +3,10 @@ ported from ``repro/core/averaging.py``.
 
 Simulation path: participants stacked along a leading K dim on one
 device (``average_pjit``). Pod path: one process per participant, each
-holding its ``(1, ...)`` slice; ``make_average_shard_map`` is the
-reference's ``shard_map`` psum as one f32 ``all_reduce`` per leaf over
-the mesh's ``pod`` group (``core/collectives.py``), then ``/ K``.
+holding its ``(1, ...)`` slice (DTensors over the pod's other axes on
+an intra-pod mesh); ``make_average_shard_map`` is the reference's
+``shard_map`` psum as one f32 ``all_reduce`` per leaf (per local shard)
+over the mesh's ``pod`` group (``core/collectives.py``), then ``/ K``.
 ``participant_step`` runs a one-participant step over every row the
 process holds: all K in the simulation, the rank's own row on the pod.
 """
@@ -13,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.collectives import PodAxis
+from repro_torch.core.collectives import PodAxis, local
 from repro_torch.tree import leaves, tree_map
 
 
@@ -63,21 +64,22 @@ def make_average_shard_map(mesh, param_specs=None, axis="pod"):
     rank's ``(1, ...)`` leaves summed in f32 over the pods, divided by K
     and written back in place (``live``: the rank's entry of the whole
     ``(K,)`` liveness row gates the write). ``param_specs`` (the
-    reference's in/out specs) are checked to place only ``axis``."""
-    from repro_torch.sharding.specs import check_pod_specs
-    check_pod_specs(param_specs, mesh, axis)
+    reference's in/out specs) are not needed: on a mesh with intra-pod
+    axes a row's leaves are DTensors, and each rank sums its local shards
+    over its pod group (every pod places a leaf alike)."""
+    del param_specs
     pod = PodAxis(mesh, axis)
 
     @torch.no_grad()
-    def average(local, live=None):
-        ls = leaves(local)
+    def average(rows, live=None):
+        ls = [local(t) for t in leaves(rows)]
         sums = [t.float() for t in ls]
         sums = [s.clone() if s is t else s for s, t in zip(sums, ls)]
         pod.all_reduce_(sums)
         K = torch.full((), float(pod.size), device=ls[0].device)
         for t, s in zip(ls, sums):
             _write_rows(t, torch.div(s, K).to(t.dtype), pod.local(live))
-        return local
+        return rows
     average.pod = pod
     return average
 

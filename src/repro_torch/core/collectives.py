@@ -9,6 +9,14 @@ stacked trees, and :class:`PodAxis` is that process's view of the axis:
 its group, its size K, its own index k and the explicit collectives.
 There is no counterpart file in the JAX package.
 
+On a mesh with intra-pod axes (``("pod", "data", "model")``) the group
+is the rank's pod group, ``mesh.get_group("pod")``: the ranks at the same
+``(data, model)`` coordinate of every pod. A pod's row is then a DTensor
+over the pod's other axes, and every collective here acts on the rank's
+local shard (:func:`local`): the pods place a leaf alike, so the shards
+that meet in a pod group hold the same elements, as in the reference's
+``shard_map(in_specs=param_specs)``.
+
 Backends. NCCL takes device tensors directly, and needs one card per
 rank (``launch/mesh.init_process_mesh`` refuses two ranks on one
 device). Gloo reduces on the host: its CUDA ``all_reduce`` stages
@@ -55,16 +63,25 @@ def axis_sizes(mesh) -> dict:
     return {str(k): int(v) for k, v in dict(shape).items()}
 
 
-def check_pod_only(sizes: dict, axis: str = "pod"):
-    """Refuse an intra-pod axis (any axis but ``axis``) of size > 1: this
-    slice runs one participant per rank and no tensor or data parallelism
-    inside a pod."""
-    wide = {n: s for n, s in sizes.items() if n != axis and s > 1}
-    if wide:
-        raise NotImplementedError(
-            f"intra-pod mesh axes {wide} (tensor / data parallelism inside "
-            "a pod: DTensor placements from sharding/specs.py) not yet "
-            "ported, see ROADMAP.md")
+def local(t):
+    """The rank's own shard of a DTensor (its local tensor, which the
+    collectives write in place); a plain tensor passes through. A pending
+    (``Partial``) placement raises: its shard is not a value."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(t, DTensor):
+        return t
+    if any(p.is_partial() for p in t.placements):
+        raise ValueError(f"a DTensor with pending reductions "
+                         f"{t.placements} has no local value; redistribute "
+                         "it first")
+    return t._local_tensor
+
+
+def plain(t):
+    """A DTensor as its whole value on every rank (``full_tensor``: a
+    scalar, a loss); a plain tensor passes through."""
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
 
 
 def _nbytes(t):
@@ -84,7 +101,6 @@ class PodAxis:
         if axis not in sizes:
             raise ValueError(f"mesh has no {axis!r} axis; axes: "
                              f"{sorted(sizes)}")
-        check_pod_only(sizes, axis)
         self.axis = axis
         self.group = mesh.get_group(axis)
         self.size = sizes[axis]
@@ -156,6 +172,7 @@ class PodAxis:
         """``(C, 1)`` local values -> the ``(C, K)`` whole, every rank's in
         its column (an all-reduce of a zero-filled buffer: gloo has no CUDA
         all-gather)."""
+        x = plain(x)
         full = torch.zeros((x.shape[0], self.size), dtype=torch.float32,
                            device=x.device)
         full[:, self.index:self.index + 1].copy_(x)
@@ -163,16 +180,18 @@ class PodAxis:
         return full
 
     def all_reduce_scalar(self, x):
-        out = x.reshape(1).float().clone()
+        out = plain(x).reshape(1).float().clone()
         self.all_reduce_([out], op="scalar")
         return out[0]
 
     # --- the one staging helper ----------------------------------------------
     def _run(self, op, tensors, collective, out=None):
+        tensors = [local(t) for t in tensors]
+        out = None if out is None else [local(t) for t in out]
         st = self.stats
         st[f"{op}_calls"] += 1
         st[f"{op}_bytes"] += sum(_nbytes(t) for t in tensors)
-        if self.backend == "nccl":
+        if self.backend in ("nccl", "fake"):
             t0 = time.perf_counter()
             with allow_sync():
                 if out is None:
@@ -239,3 +258,154 @@ class PodAxis:
 
     def reset_stats(self):
         self.stats.clear()
+
+
+# ---------------------------------------------------------------------------
+# The staged backend: DTensor's collectives on device tensors over gloo
+# ---------------------------------------------------------------------------
+STAGED = "staged"
+
+
+def _host(t):
+    """A host copy of ``t`` (pinned for a card's tensor)."""
+    if t.device.type == "cpu":
+        return t.detach().clone()
+    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    h.copy_(t.detach())
+    return h
+
+
+def _done(result):
+    from torch._C._distributed_c10d import _create_work_from_future
+    fut = torch.futures.Future()
+    fut.set_result(result)
+    return _create_work_from_future(fut)
+
+
+class StagedGroup(dist.ProcessGroup):
+    """A process group backend of the port's own, for ranks that share a
+    card: every collective copies its tensors to the host, runs ONE gloo
+    collective there and copies the results back, as
+    :meth:`PodAxis._staged` does for the pod path. DTensor calls the
+    functional collectives (``_c10d_functional.*``), and gloo's own CUDA
+    path crashes the process on them (a segfault in ``wait_tensor`` of an
+    all-gather, torch 2.11 on an H100), while its host path is sound. The
+    caller names it: ``init_process_mesh(..., backend="staged")`` joins
+    ``"cpu:gloo,cuda:staged"``. Every call synchronises with the host, so
+    a step over it runs eagerly (no CUDA graph)."""
+
+    def __init__(self, store, rank, size, timeout):
+        super().__init__(rank, size)
+        self._gloo = dist.ProcessGroupGloo(dist.PrefixStore("staged/", store),
+                                           rank, size, timeout)
+        self._name = None
+
+    def getBackendName(self):
+        return STAGED
+
+    # c10d names a Python process group through these (it stands for the
+    # whole group, every device type)
+    def _set_group_name(self, name):
+        self._name = name
+
+    @property
+    def group_name(self):
+        return self._name
+
+    def _run(self, outputs, inputs, call):
+        """``call(host outputs, host inputs)`` runs the gloo collective on
+        host copies; the outputs are copied back in place."""
+        h_out = [_host(t) for t in outputs]
+        h_in = [_host(t) for t in inputs]
+        call(h_out, h_in).wait()
+        for t, h in zip(outputs, h_out):
+            t.copy_(h)
+        return _done(outputs)
+
+    def allreduce(self, tensors, opts=None):
+        return self._run(tensors, [], lambda o, _: self._gloo.allreduce(
+            o, opts or dist.AllreduceOptions()))
+
+    def allreduce_coalesced(self, tensors, opts=None):
+        return self.allreduce(tensors, opts)
+
+    def broadcast(self, tensors, opts=None):
+        return self._run(tensors, [], lambda o, _: self._gloo.broadcast(
+            o, opts or dist.BroadcastOptions()))
+
+    def barrier(self, opts=None):
+        return self.allreduce([torch.zeros(1)])
+
+    def allgather(self, outputs, inputs, opts=None):
+        flat = [t for ts in outputs for t in ts]
+        n = len(outputs[0])
+
+        def call(o, i):
+            return self._gloo.allgather([o[k * n:(k + 1) * n]
+                                         for k in range(len(outputs))],
+                                        i, opts or dist.AllgatherOptions())
+        return self._run(flat, inputs, call)
+
+    def _allgather_base(self, output, input, opts=None):
+        return self._run([output], [input], lambda o, i: self._gloo
+                         ._allgather_base(o[0], i[0],
+                                          opts or dist.AllgatherOptions()))
+
+    all_gather_single = _allgather_base
+
+    def allgather_into_tensor_coalesced(self, outputs, inputs, opts=None):
+        for o, i in zip(outputs, inputs):
+            self._allgather_base(o, i, opts)
+        return _done(outputs)
+
+    all_gather_single_coalesced = allgather_into_tensor_coalesced
+
+    def reduce_scatter(self, outputs, inputs, opts=None):
+        flat = [t for ts in inputs for t in ts]
+        n = len(inputs[0])
+
+        def call(o, i):
+            return self._gloo.reduce_scatter(
+                o, [i[k * n:(k + 1) * n] for k in range(len(inputs))],
+                opts or dist.ReduceScatterOptions())
+        return self._run(outputs, flat, call)
+
+    def _reduce_scatter_base(self, output, input, opts=None):
+        return self._run([output], [input], lambda o, i: self._gloo
+                         ._reduce_scatter_base(
+                             o[0], i[0], opts or dist.ReduceScatterOptions()))
+
+    reduce_scatter_single = _reduce_scatter_base
+
+    def reduce_scatter_tensor_coalesced(self, outputs, inputs, opts=None):
+        for o, i in zip(outputs, inputs):
+            self._reduce_scatter_base(o, i, opts)
+        return _done(outputs)
+
+    reduce_scatter_single_coalesced = reduce_scatter_tensor_coalesced
+
+    def alltoall_base(self, output, input, output_split_sizes,
+                      input_split_sizes, opts=None):
+        return self._run([output], [input], lambda o, i: self._gloo
+                         .alltoall_base(o[0], i[0], output_split_sizes,
+                                        input_split_sizes,
+                                        opts or dist.AllToAllOptions()))
+
+    all_to_all_single = alltoall_base
+
+    def send(self, tensors, dst, tag=0):
+        h = [_host(t) for t in tensors]
+        self._gloo.send(h, dst, tag).wait()
+        return _done(tensors)
+
+    def recv(self, tensors, src, tag=0):
+        return self._run(tensors, [], lambda o, _: self._gloo.recv(o, src,
+                                                                   tag))
+
+
+def register_staged():
+    """Register :class:`StagedGroup` as the ``"staged"`` backend (once)."""
+    if STAGED not in dist.Backend.backend_list:
+        dist.Backend.register_backend(
+            STAGED, lambda store, rank, size, timeout: StagedGroup(
+                store, rank, size, timeout), devices=["cpu", "cuda"])

@@ -67,7 +67,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import averaging, flatbuf
-from repro_torch.core.collectives import PodAxis
+from repro_torch.core.collectives import PodAxis, plain
 from repro_torch.core.schedule import (divergence_sums, divergence_tensor,
                                        relative_change_tensor, switch_lr)
 from repro_torch.kernels import ops as kops
@@ -433,7 +433,7 @@ def _pod_finish(pod, opt, params, opt_state, averaged, old_avg, live_row):
                       device=leaves(params)[0].device)
     if pod.index == j:
         row = tree_map(lambda t: t[0], params)
-        rel.copy_(relative_change_tensor(row, old_avg).reshape(1))
+        rel.copy_(plain(relative_change_tensor(row, old_avg)).reshape(1))
         _write_into(old_avg, row)
     pod.broadcast_(leaves(old_avg) + [rel], j, op="new_avg")
     fresh = init_stacked_opt(opt, params)

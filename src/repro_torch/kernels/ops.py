@@ -5,7 +5,9 @@ There is no ``impl`` knob: a tensor on the CPU goes to the plain version
 (``ref.py``), a CUDA tensor to the hand-written kernel's wrapper
 (``quantize.py`` / ``comm.py`` / ``flash_attention.py`` /
 ``selective_scan.py`` / ``mlstm.py``), which launches it or raises.
-Nothing falls back from the kernel to the plain version.
+Nothing falls back from the kernel to the plain version. A DTensor
+raises ``TypeError``: a kernel never runs on a local shard as if it were
+the whole tensor.
 
 ``KERNELS`` names each kernel's wrapper; ``launch_counts`` /
 ``reset_launch_counts`` read and zero the per-wrapper launch counters.
@@ -40,6 +42,12 @@ def reset_launch_counts():
 
 
 def _on_cuda(*tensors):
+    from torch.distributed.tensor import DTensor
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(
+            "a DTensor reached a kernel wrapper: a kernel would run on one "
+            "rank's local shard as if it were the whole tensor; a mesh step "
+            "takes impl='ref', and the codecs gather a pod's row first")
     kinds = {t.device.type for t in tensors}
     if kinds == {"cuda"}:
         return True

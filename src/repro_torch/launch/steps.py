@@ -34,8 +34,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import InputShape
+from repro_torch.core.collectives import PodAxis, axis_sizes, plain
 from repro_torch.models import transformer as tr
 from repro_torch.optim.optimizers import apply_updates, get_optimizer
+from repro_torch.sharding.constrain import batch_axes, constrain, mesh_scope
 from repro_torch.tree import leaves, tree_map, unflatten_like
 
 LONG_WINDOW = 4096
@@ -99,28 +101,53 @@ def input_specs(cfg, shape: InputShape, participants: int = 0,
 
 
 def make_train_step(cfg, optimizer="sgd", lr=0.01, impl="ref", remat=True,
-                    microbatch=1):
+                    microbatch=1, mesh=None):
     """Paper-faithful local step: SGD on the LM loss, ``(params, batch) ->
     (new params, loss)``. ``remat`` recomputes each repeat in the backward
     pass (``transformer.forward``). ``microbatch > 1`` accumulates the f32
     gradients of that many slices of the batch and averages them (the
-    same SGD step, a slice's activations at a time)."""
+    same SGD step, a slice's activations at a time).
+
+    On a mesh the params and the batch are DTensors placed by
+    ``sharding/specs.py`` (``param_specs`` / ``batch_specs``, through
+    ``specs.distribute``): the step runs as one DTensor program, each
+    gradient laid out as its param (the reduce-scatter or all-reduce of
+    the data-parallel step), and the loss comes back whole on every rank.
+    Take ``impl="ref"`` there: a DTensor that reaches a kernel raises.
+    ``mesh`` with a ``pod`` axis (the batch over ``("pod", "data")``, the
+    params replicated over the pods): each pod runs the step on its rows
+    and the gradients and the loss are averaged over the pods (one f32
+    all-reduce over the pod group, ``collectives.PodAxis``), the
+    data-parallel mean over pods of equal batches. Each pod's loss is the
+    mean over its own valid labels and an MoE's load-balance loss is each
+    pod's own, so pods whose valid-label counts differ weigh alike."""
     opt = get_optimizer(optimizer)
+    pod = (PodAxis(mesh, "pod") if mesh is not None
+           and axis_sizes(mesh).get("pod", 1) > 1 else None)
 
     def grad_of(params, b):
         p = tree_map(lambda t: t.detach().requires_grad_(), params)
         loss, _ = tr.loss_fn(p, cfg, b, impl, remat)
-        grads = torch.autograd.grad(loss, leaves(p))
+        grads = [_placed_like(g, t) for g, t in
+                 zip(torch.autograd.grad(loss, leaves(p)), leaves(p))]
         return loss.detach(), unflatten_like(p, grads)
 
     def train_step(params, batch):
+        with mesh_scope(params, batch):
+            new, loss = step(params, batch)
+        return new, plain(loss)
+
+    def step(params, batch):
         if microbatch > 1:
-            mb = tree_map(lambda t: t.reshape(microbatch,
-                                              t.shape[0] // microbatch,
-                                              *t.shape[1:]), batch)
-            grads = tree_map(lambda t: torch.zeros(t.shape,
-                                                   dtype=torch.float32,
-                                                   device=t.device), params)
+            # slice i is rows [i B/m, (i+1) B/m), each slice over the
+            # batch axes (on a mesh the batch is gathered once and each
+            # rank keeps its rows of every slice)
+            mb = tree_map(lambda t: constrain(
+                constrain(t, ("r",) + (None,) * (t.ndim - 1)).reshape(
+                    microbatch, t.shape[0] // microbatch, *t.shape[1:]),
+                (None, "dp") + (None,) * (t.ndim - 1)), batch)
+            grads = tree_map(lambda t: torch.zeros_like(
+                t, dtype=torch.float32), params)
             losses = []
             for i in range(microbatch):
                 loss, gi = grad_of(params, tree_map(lambda t, _i=i: t[_i],
@@ -134,6 +161,9 @@ def make_train_step(cfg, optimizer="sgd", lr=0.01, impl="ref", remat=True,
             loss = torch.stack(losses).mean()
         else:
             loss, grads = grad_of(params, batch)
+        if pod is not None:
+            g, loss = _pod_mean(pod, leaves(grads), loss)
+            grads = unflatten_like(grads, g)
         with torch.no_grad():
             upd, _ = opt.update(grads, opt.init(params), params, lr)
             return apply_updates(params, upd), loss
@@ -144,9 +174,36 @@ def make_train_step(cfg, optimizer="sgd", lr=0.01, impl="ref", remat=True,
 def make_colearn_train_step(cfg, **kw):
     """One local step for every participant row of a stacked tree: all K
     in the simulation, the rank's own ``(1, ...)`` row on the pod path
-    (``averaging.participant_step``); no reduction crosses rows."""
+    (``averaging.participant_step``); no reduction crosses rows. The rows
+    carry the pod axis, so the model's "dp" hints resolve to ``data``
+    only (``batch_axes``), as in the reference."""
     from repro_torch.core.averaging import participant_step
-    return participant_step(make_train_step(cfg, **kw))
+    step = participant_step(make_train_step(cfg, **kw))
+
+    def wrapped(params, batch):
+        with batch_axes(("data",)):
+            return step(params, batch)
+    return wrapped
+
+
+@torch.no_grad()
+def _pod_mean(pod, grads, loss):
+    """The gradients (f32) and the loss averaged over the pods."""
+    sums = [g.float() for g in grads]
+    sums = [s.clone() if s is g else s for s, g in zip(sums, grads)]
+    pod.all_reduce_(sums, op="grad_mean")
+    K = torch.full((), float(pod.size), device=plain(loss).device)
+    return ([torch.div(s, K).to(g.dtype) for s, g in zip(sums, grads)],
+            pod.all_reduce_scalar(loss) / K)
+
+
+def _placed_like(g, p):
+    """Gradient ``g`` laid out as its param ``p`` (a DTensor's gradient
+    may come back pending a sum over the data axis)."""
+    if g is None or not hasattr(p, "placements") or \
+            tuple(g.placements) == tuple(p.placements):
+        return g
+    return g.redistribute(p.device_mesh, p.placements)
 
 
 def make_average_step():
@@ -205,9 +262,22 @@ def make_fused_round_step(cfg, ccfg, *, optimizer="sgd", impl="ref",
     CUDA graph. ``round_fn.graphs`` is the step's ``GraphSet`` and
     ``round_fn.aggregate`` its aggregate (``.pod.stats`` on the pod); on
     the card ``round_fn.events`` holds the last round's three CUDA events
-    (start, epochs done, finalize done)."""
+    (start, epochs done, finalize done).
+
+    On a mesh with intra-pod axes (``("pod", "data", "model")`` with
+    ``data`` or ``model`` > 1) a rank's rows, batches and round state are
+    DTensors over its pod's other axes (``specs.distribute(stacked,
+    specs.param_specs(stacked, cfg, mesh, participant=True), mesh)``
+    keeps the pod's row); the model's "dp"
+    hints resolve to ``data`` (``batch_axes``, as in the reference). The
+    epochs are then NOT captured: DTensor's collectives inside a pod run
+    inside them, and over gloo they go through the host, which a CUDA
+    graph cannot record. They run eagerly, with the round's sync guard
+    lifted (``allow_sync``) for those host round trips; the aggregate
+    runs on the local shards (exact codec) or on the pod's gathered rows
+    (quantising codecs), see ``api._intra_pod``."""
     from repro_torch.core import api, engine as eng
-    from repro_torch.core.graphs import GraphSet
+    from repro_torch.core.graphs import GraphSet, allow_sync
     from repro_torch.device import resolve_device
 
     def loss_fn(params, batch):
@@ -239,8 +309,14 @@ def make_fused_round_step(cfg, ccfg, *, optimizer="sgd", impl="ref",
                                        stateful=stateful)
     graphs = GraphSet(dev)
     copied = tuple(range(2, 3 + int(masked) + int(live)))
-    run_epochs = graphs.capture(lambda *a: epochs(*a)[2:], "epochs",
-                                inputs=copied, own_inputs=True)
+    intra = mesh is not None and any(
+        s > 1 for n, s in axis_sizes(mesh).items() if n != pod.axis)
+    if intra:
+        def run_epochs(*a):
+            return epochs(*a)[2:]
+    else:
+        run_epochs = graphs.capture(lambda *a: epochs(*a)[2:], "epochs",
+                                    inputs=copied, own_inputs=True)
 
     def scalar(dtype, shape=()):
         return torch.zeros(shape, dtype=dtype, device=dev)
@@ -256,6 +332,10 @@ def make_fused_round_step(cfg, ccfg, *, optimizer="sgd", impl="ref",
                                                                dev)
 
     def round_fn(params, opt_state, *rest):
+        with batch_axes(("data",)), mesh_scope(params):
+            return one_round(params, opt_state, *rest)
+
+    def one_round(params, opt_state, *rest):
         rest = list(rest)
         residual = rest.pop(0) if stateful else None
         batches = rest.pop(0)
@@ -283,7 +363,7 @@ def make_fused_round_step(cfg, ccfg, *, optimizer="sgd", impl="ref",
                   if dev.type == "cuda" else None)
         if events:
             events[0].record()
-        with graphs.no_sync():
+        with (allow_sync() if intra else graphs.no_sync()):
             for buf, x in ((ge0_buf, ge0), (total_buf, total), (T, T_i)):
                 buf.copy_(x)
             sched_buf["kind"].copy_(sched["kind"])
@@ -313,16 +393,22 @@ def make_fused_round_step(cfg, ccfg, *, optimizer="sgd", impl="ref",
 
 
 def make_prefill_step(cfg, impl="ref"):
-    """``prefill_step(params, batch)`` -> last-position logits (B, V)."""
+    """``prefill_step(params, batch)`` -> last-position logits (B, V). On
+    a mesh (DTensor params and batch) the logits are a DTensor, the vocab
+    over ``model``."""
     def prefill_step(params, batch):
-        return tr.prefill(params, cfg, batch, impl)
+        with mesh_scope(params, batch):
+            return tr.prefill(params, cfg, batch, impl)
     return prefill_step
 
 
 def make_serve_step(cfg):
     """``serve_step(params, cache, token, pos)`` -> (logits (B, 1, V),
-    cache), the cache updated in place. The reference's ``lowering`` knob
-    picks a JAX scan lowering and has no counterpart here."""
+    cache), the cache updated in place. On a mesh the cache is placed by
+    ``specs.cache_specs`` and stays so (each slot write runs on the local
+    shard). The reference's ``lowering`` knob picks a JAX scan lowering
+    and has no counterpart here."""
     def serve_step(params, cache, token, pos):
-        return tr.decode_step(params, cfg, cache, token, pos)
+        with mesh_scope(params, cache, token):
+            return tr.decode_step(params, cfg, cache, token, pos)
     return serve_step

@@ -25,8 +25,11 @@ import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import apply_rope, trunc_normal
+from repro_torch.sharding.constrain import (axis_size, constrain, index_copy_,
+                                           local_call, on_mesh)
 
 NEG_INF = -1e30
+_HEADS = (None, None, "model", None)        # (B,S,H,hd): heads over model
 
 
 def attn_init(gen, cfg, dtype, stack=()):
@@ -45,7 +48,15 @@ def attn_init(gen, cfg, dtype, stack=()):
 
 
 def _proj(x, w):
-    """einsum('bsd,dhk->bshk') as one matmul over the flattened heads."""
+    """einsum('bsd,dhk->bshk') as one matmul over the flattened heads. On
+    DTensors it runs on each rank's rows and heads (``local_call``, the
+    weight gathered over ``data``: FSDP): DTensor may shard the flat
+    (h·k) dim over ``model`` where the heads do not split, and cannot then
+    view it as heads."""
+    if on_mesh(x, w):
+        return local_call(_proj, (x, w), (("dp", None, None),
+                                          (None, "model", None)),
+                          ("dp", None, "model", None))
     d, h, k = w.shape
     return (x @ w.reshape(d, h * k)).view(*x.shape[:-1], h, k)
 
@@ -68,6 +79,13 @@ def mask_bias(q_pos, k_pos, window):
     return torch.where(ok, zero, NEG_INF)
 
 
+def _repeat_heads(k, G):
+    """(B,S,KV,hd) -> (B,S,H,hd) by ``repeat_interleave``; H over
+    model."""
+    return k if G == 1 else constrain(k.repeat_interleave(G, dim=2),
+                                      _HEADS)
+
+
 def _chunk(S, target):
     """Largest divisor of S that is <= target."""
     c = min(target, S)
@@ -81,7 +99,19 @@ def chunked_attention(q, k, v, *, n_kv_heads, window=0, q_offset=0,
     """Online-softmax causal attention. q:(B,Sq,H,hd) k,v:(B,Sk,KV,hd)
     -> (B,Sq,H,hd_v) in q's dtype. The peak score tensor is
     (B,H,cq,ck) whatever the sequence length. KV == 1 takes the
-    shared-KV (MQA / MLA) path, which never repeats k and v."""
+    shared-KV (MQA / MLA) path, which never repeats k and v.
+
+    On DTensors the whole computation runs on each rank's rows and
+    heads (``constrain.local_call``), the placement the reference's hints
+    pin (heads over ``model``), the kv heads repeated first where they do
+    not split over ``model``: DTensor's rule search for a batched matmul
+    grows with the power of the mesh's rank, minutes a product on a
+    three-axis mesh."""
+    if on_mesh(q, k, v):
+        return _mesh_attention(q, k, v, n_kv_heads, window=window,
+                               q_offset=q_offset, chunk_q=chunk_q,
+                               chunk_kv=chunk_kv,
+                               softmax_scale=softmax_scale)
     B, Sq, H, hd = q.shape
     Sk = k.shape[1]
     hd_v = v.shape[-1]
@@ -93,9 +123,9 @@ def chunked_attention(q, k, v, *, n_kv_heads, window=0, q_offset=0,
         return _shared_kv_attention(q * scale, k[:, :, 0], v[:, :, 0],
                                     window, q_offset, cq, ck)
 
-    qh = (q * scale).transpose(1, 2)                        # (B,H,Sq,hd)
-    kh = k.repeat_interleave(G, dim=2).transpose(1, 2)      # (B,H,Sk,hd)
-    vh = v.repeat_interleave(G, dim=2).transpose(1, 2)      # (B,H,Sk,hd_v)
+    qh = constrain(q * scale, _HEADS).transpose(1, 2)       # (B,H,Sq,hd)
+    kh = _repeat_heads(k, G).transpose(1, 2)                # (B,H,Sk,hd)
+    vh = _repeat_heads(v, G).transpose(1, 2)                # (B,H,Sk,hd_v)
     outs = []
     for i0 in range(0, Sq, cq):
         qi = qh[:, :, i0:i0 + cq]
@@ -106,7 +136,8 @@ def chunked_attention(q, k, v, *, n_kv_heads, window=0, q_offset=0,
         for j0 in range(0, Sk, ck):
             kc, vc = kh[:, :, j0:j0 + ck], vh[:, :, j0:j0 + ck]
             k_pos = j0 + torch.arange(ck, device=dev)
-            s = (qi @ kc.transpose(-1, -2)).float()
+            s = constrain((qi @ kc.transpose(-1, -2)).float(),
+                          (None, "model", None, None))
             s = s + mask_bias(q_pos, k_pos, window)
             m_new = torch.maximum(m, s.amax(-1))
             p = torch.exp(s - m_new[..., None])
@@ -152,8 +183,37 @@ def _shared_kv_attention(q, k, v, window, q_offset, cq, ck):
     return torch.cat(outs, dim=1).to(q.dtype)               # (B,Sq,H,hd_v)
 
 
+_ROWS_HEADS = ("dp", None, "model", None)
+
+
+def _local_kv(q, k, v, n_kv_heads):
+    """k, v as ``local_call`` takes them beside q, and their spec: kv
+    heads over ``model`` where they split, repeated to q's heads where
+    they do not, whole for a shared kv head."""
+    H = q.shape[2]
+    if n_kv_heads == 1:
+        return k, v, ("dp", None, None, None)
+    if n_kv_heads % axis_size(q, "model"):
+        G = H // n_kv_heads
+        k, v = _repeat_heads(k, G), _repeat_heads(v, G)
+    return k, v, _ROWS_HEADS
+
+
+def _mesh_attention(q, k, v, n_kv_heads, **kw):
+    k, v, kv_spec = _local_kv(q, k, v, n_kv_heads)
+    return local_call(
+        lambda a, b, c: chunked_attention(a, b, c, n_kv_heads=b.shape[2],
+                                          **kw),
+        (q, k, v), (_ROWS_HEADS, kv_spec, kv_spec), _ROWS_HEADS)
+
+
 def _out_proj(out, wo):
-    """einsum('bshk,hkd->bsd') as one matmul, in the promoted dtype."""
+    """einsum('bshk,hkd->bsd') as one matmul, in the promoted dtype; on
+    DTensors each rank's rows and heads, a pending sum over ``model``."""
+    if on_mesh(out, wo):
+        return local_call(_out_proj, (out, wo),
+                          (_ROWS_HEADS, ("model", None, None)),
+                          ("dp", None, None), partial=True)
     H, hd, d = wo.shape
     dt = torch.promote_types(out.dtype, wo.dtype)
     return out.reshape(*out.shape[:2], H * hd).to(dt) @ \
@@ -190,8 +250,8 @@ def repeat_kv(k, n_heads):
     if KV == n_heads:
         return k
     G = n_heads // KV
-    return k[:, :, :, None, :].expand(B, S, KV, G, hd).reshape(
-        B, S, n_heads, hd)
+    return constrain(k[:, :, :, None, :].expand(B, S, KV, G, hd).reshape(
+        B, S, n_heads, hd), _HEADS)
 
 
 def attn_cache_init(cfg, batch, seq_len, dtype, device, stack=()):
@@ -213,7 +273,15 @@ def attn_cache_reset_(cache):
 
 def decode_attend(q, ck, cv, pos, *, window, softmax_scale):
     """q: (B,1,H,hd); ck/cv: (B,S,KV,hd); pos: 0-d tensor. Single-token
-    attention -> (B,1,H,hd_v)."""
+    attention -> (B,1,H,hd_v). On DTensors each rank's rows and heads
+    (``local_call``: DTensor's einsum cannot flatten a head-sharded cache
+    under torch 2.11), the cache's heads laid out as q's."""
+    if on_mesh(q, ck, cv):
+        k, v, kv_spec = _local_kv(q, ck, cv, ck.shape[2])
+        return local_call(
+            lambda a, b, c: decode_attend(a, b, c, pos, window=window,
+                                          softmax_scale=softmax_scale),
+            (q, k, v), (_ROWS_HEADS, kv_spec, kv_spec), _ROWS_HEADS)
     H = q.shape[2]
     S = ck.shape[1]
     qh = q[:, 0] * softmax_scale                           # (B,H,hd)
@@ -238,8 +306,8 @@ def attn_decode(p, x, cfg, cache, pos):
     q, k, v = _qkv(p, x, cfg, positions)                   # k,v: (B,1,KV,hd)
     slot = torch.remainder(pos, S) if cfg.window else pos
     idx = slot.reshape(1).long()
-    cache["k"].index_copy_(1, idx, k.to(cache["k"].dtype))
-    cache["v"].index_copy_(1, idx, v.to(cache["v"].dtype))
+    index_copy_(cache["k"], 1, idx, k.to(cache["k"].dtype))
+    index_copy_(cache["v"], 1, idx, v.to(cache["v"].dtype))
     out = decode_attend(q, cache["k"], cache["v"], pos, window=cfg.window,
                         softmax_scale=cfg.head_dim ** -0.5)
     return _out_proj(out, p["wo"]), cache

@@ -15,6 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.sharding.constrain import constrain, local_call, on_mesh
+
 _SQRT2 = math.sqrt(2.0)
 
 
@@ -93,10 +95,38 @@ def embed_init(gen, vocab, d, dtype):
 
 
 def embed_apply(p, tokens):
+    """``table[tokens]``. On DTensors each rank looks its rows' tokens up
+    in its slice of the vocab (zeros elsewhere) and the rows come back
+    pending a sum over ``model`` (``local_call``, the table gathered over
+    ``data``): the lookup and its gradient stay on the rank's slice, as
+    the vocab-sliced loss's do."""
+    if on_mesh(tokens, p["table"]):
+        table = p["table"]
+        rows = ("dp",) + (None,) * (tokens.ndim - 1)
+
+        def lookup(tab, tok):
+            if tab.shape[0] == table.shape[0]:            # the vocab is whole
+                return tab[tok]
+            local = tok - table.device_mesh.get_local_rank("model") \
+                * tab.shape[0]
+            hit = (local >= 0) & (local < tab.shape[0])
+            return tab[local.clamp(0, tab.shape[0] - 1)] * \
+                hit[..., None].to(tab.dtype)
+        return local_call(lookup, (table, tokens), (("model", None), rows),
+                          rows + (None,), partial=True)
     return p["table"][tokens]
 
 
 def lm_head_apply(p_embed, p_head, x, tie):
+    """The logits; on DTensors each rank's rows and vocab slice
+    (``local_call``, the weight gathered over ``data``)."""
+    if on_mesh(x):
+        rows = ("dp",) + (None,) * (x.ndim - 1)
+        out = ("dp",) + (None,) * (x.ndim - 2) + ("model",)
+        w, spec = ((p_embed["table"], ("model", None)) if tie
+                   else (p_head["w"], (None, "model")))
+        return local_call(lambda a, b: lm_head_apply(
+            {"table": b}, {"w": b}, a, tie), (x, w), (rows, spec), out)
     if tie:
         return torch.einsum("...d,vd->...v", x, p_embed["table"])
     return x @ p_head["w"]
@@ -114,10 +144,25 @@ def ffn_init(gen, d, d_ff, dtype, stack=()):
 
 
 def ffn_apply(p, x):
-    h = x @ p["wi"]
-    g = x @ p["wg"]
-    h = F.silu(g.float()).to(x.dtype) * h
-    return h @ p["wo"]
+    """SwiGLU. On DTensors (rows over the batch axes) it runs on each
+    rank's rows and hidden units: the weights gathered over ``data``
+    (FSDP), d_ff over ``model``, the down product a pending sum over
+    ``model`` (``local_call``; DTensor's own rule search gathered whole
+    weights onto every rank at the production mesh)."""
+    if on_mesh(x):
+        rows = ("dp",) + (None,) * (x.ndim - 1)
+        hid = ("dp",) + (None,) * (x.ndim - 2) + ("model",)
+        h = local_call(_ffn_up, (x, p["wi"], p["wg"]),
+                       (rows, (None, "model"), (None, "model")), hid)
+        return local_call(torch.matmul, (h, p["wo"]),
+                          (hid, ("model", None)), rows, partial=True)
+    return _ffn_up(x, p["wi"], p["wg"]) @ p["wo"]
+
+
+def _ffn_up(x, wi, wg):
+    h = constrain(x @ wi, (None,) * (x.ndim - 1) + ("model",))
+    g = constrain(x @ wg, (None,) * (x.ndim - 1) + ("model",))
+    return F.silu(g.float()).to(x.dtype) * h
 
 
 # --------------------------------------------------------------------------
@@ -176,9 +221,66 @@ def chunked_scan(step, carry, xs, chunk=256, remat=True):
 # --------------------------------------------------------------------------
 # Losses
 # --------------------------------------------------------------------------
+class _VocabSliceXent(torch.autograd.Function):
+    """``logsumexp - logit[label]`` per position from this rank's slice of
+    the vocab: the max, the sum of exponentials and the label's logit are
+    reduced over ``group`` (the ``model`` ranks), as Megatron's
+    vocab-parallel cross-entropy; the gradient is the slice's own
+    ``softmax - onehot``, with no traffic."""
+
+    @staticmethod
+    def forward(ctx, lf, idx, hit, group):
+        import torch.distributed as dist
+        m = lf.amax(-1)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        e = torch.exp(lf - m[..., None])
+        s = e.sum(-1)
+        dist.all_reduce(s, group=group)
+        ll = torch.gather(lf, -1, idx[..., None])[..., 0] * hit
+        dist.all_reduce(ll, group=group)
+        ctx.save_for_backward(e, s, idx, hit)
+        return m + torch.log(s) - ll
+
+    @staticmethod
+    def backward(ctx, g):
+        e, s, idx, hit = ctx.saved_tensors
+        grad = e / s[..., None]
+        grad.scatter_add_(-1, idx[..., None], -hit.to(grad.dtype)[..., None])
+        return grad * g[..., None], None, None, None
+
+
+def _mesh_nll(logits, labels, ignore_index):
+    """Per-position ``lse - logit[label]`` of DTensor logits (rows over
+    the batch axes, the vocab over ``model``) without gathering the
+    vocab: DTensor's gather over a sharded vocab materialises the whole
+    logits' gradient on every rank."""
+    mesh, V = logits.device_mesh, logits.shape[-1]
+
+    def nll(lg, lab):
+        lf = lg.float()
+        valid = lab != ignore_index
+        if lf.shape[-1] == V:                      # the vocab is whole
+            lse = torch.logsumexp(lf, dim=-1)
+            idx = torch.where(valid, lab, 0)[..., None]
+            return lse - torch.gather(lf, -1, idx)[..., 0]
+        v0 = mesh.get_local_rank("model") * lf.shape[-1]
+        local = torch.where(valid, lab, 0) - v0
+        hit = (local >= 0) & (local < lf.shape[-1])
+        return _VocabSliceXent.apply(lf, local.clamp(0, lf.shape[-1] - 1),
+                                     hit.to(lf.dtype),
+                                     mesh.get_group("model"))
+    rows = ("dp",) + (None,) * (labels.ndim - 1)
+    return local_call(nll, (logits, labels), (rows + ("model",), rows),
+                      rows)
+
+
 def softmax_xent(logits, labels, ignore_index=-1):
     """Mean next-token cross-entropy over valid positions (f32):
     ``logsumexp - logit[label]`` where ``label != ignore_index``."""
+    if on_mesh(logits):
+        validf = (labels != ignore_index).float()
+        nll = _mesh_nll(logits, labels, ignore_index) * validf
+        return nll.sum() / torch.clamp(validf.sum(), min=1.0)
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     valid = labels != ignore_index

@@ -16,8 +16,12 @@ Decode keeps O(1) state per layer: ``{"conv": (B, K-1, di)}``, the last
 K-1 inputs of the causal conv in the cache's dtype, and ``{"ssm": (B, di,
 st)}`` f32. Where JAX returns a new state, ``mamba_decode`` updates the
 given one IN PLACE; it runs the plain one-step scan, as the reference
-does. ``pos`` is unused, as in the reference, and the sharding hint
-(``constrain``) has no counterpart here.
+does. ``pos`` is unused, as in the reference.
+
+On DTensors ``d_inner`` stays over ``model`` (the reference's hint) and
+the scan runs on each rank's channels and batch rows
+(``constrain.local_call``: DTensor has no rule for the loop's in-place
+steps); a decode's SSM state is written back in its own placement.
 """
 from __future__ import annotations
 
@@ -27,9 +31,14 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import (chunked_scan, needs_grad,
                                        trunc_normal)
+from repro_torch.sharding.constrain import constrain, local_call
 
 IMPLS = ("ref", "kernel")
 _F32 = torch.float32
+# local_call specs of the scan: channels over model, rows over the batch
+_CH, _ROW = ("dp", None, "model"), ("dp", None, None)
+_SCAN_IN = (_CH, _CH, _ROW, _ROW, ("model", None), ("model",))
+_STATE = ("dp", "model", None)
 
 
 def mamba_init(gen, cfg, dtype, stack=()):
@@ -133,13 +142,15 @@ def mamba_apply(p, x, cfg, impl="ref"):
     di = cfg.d_inner_ssm
     xz = x @ p["in_proj"]
     xi, z = xz[..., :di], xz[..., di:]
+    xi = constrain(xi, (None, None, "model"))   # d_inner stays TP-sharded
     xc, _ = _causal_conv(p, xi)
     xc = F.silu(xc.float()).to(x.dtype)
     dt, Bm, Cm, A = _ssm_inputs(p, xc, cfg)
     if impl == "kernel":
         y, _ = kops.selective_scan(xc, dt, Bm, Cm, A, p["D"])
     else:
-        y, _ = selective_scan_ref(xc, dt, Bm, Cm, A, p["D"])
+        y, _ = local_call(selective_scan_ref, (xc, dt, Bm, Cm, A, p["D"]),
+                          _SCAN_IN, (_CH, _STATE))
     y = y * F.silu(z.float())
     return y.to(x.dtype) @ p["out_proj"]
 
@@ -172,6 +183,8 @@ def mamba_decode(p, x, cfg, state, pos):
     state["conv"].copy_(conv_tail)
     xc = F.silu(xc.float()).to(x.dtype)
     dt, Bm, Cm, A = _ssm_inputs(p, xc, cfg)
-    y, _ = selective_scan_ref(xc, dt, Bm, Cm, A, p["D"], h0=state["ssm"])
+    y, _ = local_call(selective_scan_ref,
+                      (xc, dt, Bm, Cm, A, p["D"], state["ssm"]),
+                      _SCAN_IN + (_STATE,), (_CH, _STATE), inplace=(6,))
     y = y * F.silu(z.float())
     return y.to(x.dtype) @ p["out_proj"], state

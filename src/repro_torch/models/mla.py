@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.models.attention import NEG_INF, chunked_attention
 from repro_torch.models.layers import apply_rope, rmsnorm_apply, trunc_normal
+from repro_torch.sharding.constrain import constrain, index_copy_
 
 
 def mla_init(gen, cfg, dtype, stack=()):
@@ -117,9 +118,11 @@ def mla_decode(p, x, cfg, cache, pos):
     q_all, c_kv, k_rope = _latents(p, x, cfg, positions)
     slot = torch.remainder(pos, S) if cfg.window else pos
     idx = slot.reshape(1).long()
-    cc.index_copy_(1, idx, c_kv.to(cc.dtype))
-    cr.index_copy_(1, idx, k_rope.to(cr.dtype))
-    kv = torch.cat([cc, cr], -1)                           # (B,S,kl+r)
+    index_copy_(cc, 1, idx, c_kv.to(cc.dtype))
+    index_copy_(cr, 1, idx, k_rope.to(cr.dtype))
+    # the cache's latent dims may lie over model: whole before the concat
+    kv = torch.cat([constrain(cc, (None, None, "r")),
+                    constrain(cr, (None, None, "r"))], -1)  # (B,S,kl+r)
     qh = (q_all * _scale(cfg))[:, 0]                       # (B,H,kl+r)
     dt = torch.promote_types(qh.dtype, kv.dtype)
     s = torch.einsum("bhd,bsd->bhs", qh.to(dt), kv.to(dt)).float()

@@ -44,7 +44,8 @@ from repro_torch.models.layers import (dense_init, embed_apply, embed_init,
                                        ffn_apply, ffn_init, lm_head_apply,
                                        rmsnorm_apply, rmsnorm_init,
                                        softmax_xent)
-from repro_torch.tree import leaves, tree_map
+from repro_torch.sharding.constrain import constrain
+from repro_torch.tree import leaves, tree_map, unflatten_like
 
 PORTED_KINDS = ("gqa:dense", "gqa:moe_dense", "mla:dense", "mla:moe",
                 "mamba:dense", "mamba:moe", "mlstm:-", "slstm:-")
@@ -128,7 +129,7 @@ def layer_apply(p, kind, x, cfg, positions, impl="ref"):
     x, aux = _ffn_residual(p, kind, x + y, cfg)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x, aux
+    return constrain(x, ("dp", "r", "r")), aux
 
 
 def layer_cache_init(kind, cfg, batch, seq_len, dtype, device, stack=()):
@@ -206,16 +207,31 @@ def embed_inputs(params, cfg, batch):
     x = embed_apply(params["embed"], batch["tokens"])
     if cfg.input_mode == "tokens+prefix":
         x = torch.cat([batch["prefix"].to(x.dtype), x], dim=1)
-    return x
+    # activations batch-sharded only: the table's FSDP dim must not leak
+    # a data-sharded d_model into the residual stream
+    return constrain(x, ("dp", "r", "r"))
 
 
-def _repeat(seg_params, r, pattern, cfg, x, positions, impl):
-    """One repeat of a segment: its pattern's layers on repeat ``r``'s
-    slice of the stacked params -> (x, the summed aux loss)."""
+def _repeats(seg_params, repeats):
+    """Each repeat's slice of a segment's stacked params, from ONE unbind
+    per leaf: its backward is one stack, where indexing each repeat would
+    zero a whole stacked gradient and add it, a repeat (O(R²) bytes and a
+    stacked leaf's worth of temporaries). A DTensor leaf whose repeats
+    dim is sharded (the reference's templates put ``model`` there for a
+    stacked dense FFN leaf, see ``sharding/specs.py``) is made whole
+    along it first."""
+    unbound = [constrain(t, ("r",) + (None,) * (t.ndim - 1)).unbind(0)
+               for t in leaves(seg_params)]
+    return [unflatten_like(seg_params, [u[r] for u in unbound])
+            for r in range(repeats)]
+
+
+def _repeat(p_r, pattern, cfg, x, positions, impl):
+    """One repeat of a segment: its pattern's layers on the repeat's
+    params ``p_r`` -> (x, the summed aux loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for j, kind in enumerate(pattern):
-        p_r = tree_map(lambda t: t[r], seg_params[f"p{j}"])
-        x, a = layer_apply(p_r, kind, x, cfg, positions, impl)
+        x, a = layer_apply(p_r[f"p{j}"], kind, x, cfg, positions, impl)
         aux = aux + a
     return x, aux
 
@@ -230,8 +246,9 @@ def forward(params, cfg, batch, impl="ref", remat=True, return_hidden=False,
     each segment in the backward pass, as the reference's
     ``jax.checkpoint`` of its scan body does: the repeat runs under one
     non-reentrant ``torch.utils.checkpoint`` (no RNG state: reading the
-    CUDA RNG raises inside a graph capture), whose inputs are the stacked
-    params (sliced inside), the residual stream and the positions, so
+    CUDA RNG raises inside a graph capture), whose inputs are the
+    repeat's slices of the stacked params (one unbind per leaf a
+    forward, ``_repeats``), the residual stream and the positions, so
     only a repeat's input is kept for the backward pass. It nests with
     ``layers.chunked_scan``'s checkpoints of the recurrences. Without
     autograd (prefill, decode, ``torch.no_grad``) it does nothing, as
@@ -246,20 +263,20 @@ def forward(params, cfg, batch, impl="ref", remat=True, return_hidden=False,
     recompute = remat and torch.is_grad_enabled()
     for seg_params, (pattern, repeats) in zip(params["segments"],
                                               cfg.segments):
-        for r in range(repeats):
+        for p_r in _repeats(seg_params, repeats):
             if recompute:
-                x, a = checkpoint(_repeat, seg_params, r, pattern, cfg, x,
-                                  positions, impl, use_reentrant=False,
+                x, a = checkpoint(_repeat, p_r, pattern, cfg, x, positions,
+                                  impl, use_reentrant=False,
                                   preserve_rng_state=False)
             else:
-                x, a = _repeat(seg_params, r, pattern, cfg, x, positions,
-                               impl)
+                x, a = _repeat(p_r, pattern, cfg, x, positions, impl)
             aux = aux + a
     h = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     logits = None
     if apply_head:
         logits = lm_head_apply(params["embed"], params.get("head"), h,
                                cfg.tie_embeddings)
+        logits = constrain(logits, ("dp", "r", "model"))  # vocab sharded
     if return_hidden:
         return logits, aux, h
     return logits, aux
@@ -367,7 +384,7 @@ def prefill(params, cfg, batch, impl="ref"):
                       return_hidden=True, apply_head=False)
     logits = lm_head_apply(params["embed"], params.get("head"), h[:, -1:],
                            cfg.tie_embeddings)
-    return logits[:, 0]
+    return constrain(logits, ("dp", "r", "model"))[:, 0]
 
 
 def count_params(params):

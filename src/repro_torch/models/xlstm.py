@@ -24,8 +24,13 @@ layer ``{"c", "h", "m", "n"}``, all f32. Where JAX returns a new state,
 ``mlstm_decode`` / ``slstm_decode`` update the given one IN PLACE: the
 gates are computed from the old ``m`` before anything is overwritten, then
 C and n (c, n, h) are updated, and ``m`` last. ``pos`` is unused, as in
-the reference. The sharding hint of the reference (``constrain``) has no
-counterpart here.
+the reference.
+
+On DTensors the mLSTM's ``d_inner`` stays over ``model`` (the
+reference's hint) and both recurrences run on each rank's heads and
+batch rows (``constrain.local_call``: DTensor has no rule for their
+in-place steps or ``log_sigmoid``'s backward); a decode's state is
+written back in its own placement.
 """
 from __future__ import annotations
 
@@ -36,8 +41,10 @@ import torch.nn.functional as F
 
 from repro_torch.core.graphs import GraphSet
 from repro_torch.kernels import ops as kops
+from repro_torch.models.attention import _proj
 from repro_torch.models.layers import (chunked_scan, needs_grad,
                                        trunc_normal)
+from repro_torch.sharding.constrain import constrain, local_call, on_mesh
 
 IMPLS = ("ref", "kernel")
 _F32 = torch.float32
@@ -127,13 +134,30 @@ def mlstm_cell_ref(q, k, v, ig, fg, state=None):
     return hs, state
 
 
+# local_call specs of the recurrences: heads over model, rows over the
+# batch axes
+_HEADS4, _HEADS3 = ("dp", None, "model", None), ("dp", None, "model")
+_MSTATE = {"C": ("dp", "model", None, None), "n": ("dp", "model", None),
+           "m": ("dp", "model")}
+_MLSTM_IN = (_HEADS4, _HEADS4, _HEADS4, _HEADS3, _HEADS3)
+_SSTATE = {k: ("dp", "model", None) for k in ("h", "c", "n", "m")}
+_SLSTM_IN = (_HEADS4, ("model", None, None), ("model", None))
+
+
+def _heads(x, w):
+    """einsum('bsd,dhk->bshk'); on DTensors ``attention._proj``, each
+    rank's rows and heads (DTensor's einsum cannot view a flat dim
+    sharded 16 ways as xlstm-1.3b's 4 heads)."""
+    if on_mesh(x, w):
+        return _proj(x, w)
+    return torch.einsum("bsd,dhk->bshk", x, w)
+
+
 def _mlstm_qkvg(p, x, cfg):
-    xz = x @ p["up"]
+    xz = constrain(x @ p["up"], (None, None, "model"))  # d_inner over model
     xm, z = torch.chunk(xz, 2, dim=-1)
-    q = torch.einsum("bsd,dhk->bshk", xm, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", xm, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", xm, p["wv"])
-    g = torch.einsum("bsd,dhg->bshg", xm.float(), p["w_if"]) + p["b_if"]
+    q, k, v = (_heads(xm, p[n]) for n in ("wq", "wk", "wv"))
+    g = _heads(xm.float(), p["w_if"]) + p["b_if"]
     return q, k, v, g[..., 0], g[..., 1], z
 
 
@@ -156,7 +180,8 @@ def mlstm_apply(p, x, cfg, impl="ref"):
     if impl == "kernel":
         h, _ = kops.mlstm(*(t.contiguous() for t in (q, k, v, ig, fg)))
     else:
-        h, _ = mlstm_cell_ref(q, k, v, ig, fg)
+        h, _ = local_call(mlstm_cell_ref, (q, k, v, ig, fg), _MLSTM_IN,
+                          (_HEADS4, _MSTATE))
     return _mlstm_out(p, h, z, x.dtype, cfg.norm_eps)
 
 
@@ -186,7 +211,8 @@ def mlstm_state_reset_(state):
 def mlstm_decode(p, x, cfg, state, pos):
     """x: (B,1,D); ``state`` is updated in place. Returns (y, state)."""
     q, k, v, ig, fg, z = _mlstm_qkvg(p, x, cfg)
-    h, state = mlstm_cell_ref(q, k, v, ig, fg, state)
+    h, _ = local_call(mlstm_cell_ref, (q, k, v, ig, fg, state),
+                      _MLSTM_IN + (_MSTATE,), (_HEADS4, False), inplace=(5,))
     return _mlstm_out(p, h, z, x.dtype, cfg.norm_eps), state
 
 
@@ -348,18 +374,19 @@ def slstm_apply(p, x, cfg, impl="ref"):
     ``"ref"`` through ``slstm_cell_ref``."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}; got {impl!r}")
-    wx = torch.einsum("bsd,dhg->bshg", x, p["w_in"])
+    wx = _heads(x, p["w_in"])
     if impl == "kernel" and not (
             wx.is_cuda and torch.cuda.is_current_stream_capturing()):
         h, _ = slstm_scan(wx, p["r"], p["b"])
     else:
-        st = slstm_state_init(cfg, x.shape[0], x.dtype, x.device)
-        h, _ = slstm_cell_ref(wx, p["r"], p["b"], st)
+        h, _ = local_call(_slstm_scan, (wx, p["r"], p["b"]), _SLSTM_IN,
+                          (_HEADS4, _SSTATE))
     return _slstm_out(p, h, x, cfg)
 
 
 def slstm_decode(p, x, cfg, state, pos):
     """x: (B,1,D); ``state`` is updated in place. Returns (y, state)."""
-    wx = torch.einsum("bsd,dhg->bshg", x, p["w_in"])
-    h, state = slstm_cell_ref(wx, p["r"], p["b"], state)
+    wx = _heads(x, p["w_in"])
+    h, _ = local_call(slstm_cell_ref, (wx, p["r"], p["b"], state),
+                      _SLSTM_IN + (_SSTATE,), (_HEADS4, False), inplace=(3,))
     return _slstm_out(p, h, x, cfg), state

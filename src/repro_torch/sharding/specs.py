@@ -1,5 +1,5 @@
-"""Partition specs for params, batches and decode caches, ported from
-``repro/sharding/specs.py``.
+"""Partition specs for params, batches and decode caches, and their
+DTensor placements, ported from ``repro/sharding/specs.py``.
 
 The same templates and rules as the reference, as pure functions: a spec
 is a plain tuple with one entry per dim, an axis name, a tuple of axis
@@ -11,17 +11,23 @@ dim the mesh axis does not divide is dropped (replicated); co-learning
 stacks a leading participant dim over ``pod``.
 
 Spec trees have the params' structure with tuples as leaves, so walk them
-with the params (:func:`check_pod_specs` only reads the axis names). This
-slice places only the ``pod`` axis: a spec that puts ``data`` or
-``model`` on an axis of size > 1 raises ``NotImplementedError`` in
-:func:`check_pod_specs`, which every pod aggregate calls (the DTensor
-placements are the next slice). ``named`` and ``sharding/compat.py``
-have no counterpart.
+with the params (:func:`map_with_specs`). :func:`placements` turns one
+spec into the DTensor placements of a ``DeviceMesh`` (one ``Shard(d)`` or
+``Replicate()`` per mesh dim; a tuple entry shards one tensor dim over
+several mesh dims, major to minor, which DTensor's left-to-right order of
+two ``Shard(d)`` on one dim gives when the tuple lists them in the mesh's
+order); :func:`distribute` lays a tree of full tensors out as DTensors
+(the reference's ``named`` plus ``device_put``) and :func:`gather` brings
+them back whole. On a mesh with pods a rank's trees live inside its pod
+(:func:`distribute`: the pod's block of every dim the spec puts on
+``pod``, the rest on :func:`pod_submesh`); the pods meet only in
+``core/collectives.PodAxis``.
+``sharding/compat.py`` (a jax version shim) has no counterpart.
 """
 from __future__ import annotations
 
-from repro_torch.core.collectives import axis_sizes, check_pod_only
-from repro_torch.tree import leaves_with_path, unflatten_like
+from repro_torch.core.collectives import axis_sizes
+from repro_torch.tree import leaves_with_path, tree_map, unflatten_like
 
 # trailing-dim templates per leaf name
 _TEMPLATES = {
@@ -194,24 +200,145 @@ def cache_specs(cache_shapes, mesh, batch_size, participant=False):
         for path, v in leaves_with_path(cache_shapes)])
 
 
-def _axis_names(spec_tree, out):
-    if isinstance(spec_tree, dict):
-        for v in spec_tree.values():
-            _axis_names(v, out)
-    elif isinstance(spec_tree, (list, tuple)):
-        for v in spec_tree:
-            _axis_names(v, out)
-    elif isinstance(spec_tree, str):
-        out.add(spec_tree)
-    return out
+def _is_spec(x):
+    return isinstance(x, tuple) and all(
+        e is None or isinstance(e, str) or (
+            isinstance(e, tuple) and all(isinstance(a, str) for a in e))
+        for e in x)
 
 
-def check_pod_specs(spec_tree, mesh, axis="pod"):
-    """Refuse a spec tree that places an intra-pod axis of size > 1 (the
-    pod path runs each rank's ``(1, ...)`` slice whole); returns it."""
-    if spec_tree is None:
+def map_with_specs(fn, tree, spec_tree):
+    """``fn(leaf, spec)`` over a tree and its spec tree (whose leaves are
+    spec tuples); containers are rebuilt as in ``tree_map``."""
+    if isinstance(tree, dict):
+        return {k: map_with_specs(fn, tree[k], spec_tree[k]) for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_with_specs(fn, t, s)
+                          for t, s in zip(tree, spec_tree))
+    if tree is None:
         return None
-    sizes = axis_sizes(mesh)
-    check_pod_only({n: sizes.get(n, 1) for n in _axis_names(spec_tree, set())},
-                   axis)
-    return spec_tree
+    if not _is_spec(spec_tree):
+        raise ValueError(f"expected a spec tuple for a leaf of shape "
+                         f"{tuple(tree.shape)}; got {spec_tree!r}")
+    return fn(tree, spec_tree)
+
+
+def placements(spec, mesh):
+    """The DTensor placements of ``spec`` on ``mesh`` (a ``DeviceMesh``):
+    one per mesh dim, ``Shard(d)`` where the spec puts tensor dim ``d`` on
+    that axis, else ``Replicate()``. A tuple entry must list its axes in
+    the mesh's order (major to minor): DTensor applies two ``Shard(d)`` of
+    one dim left to right. An axis the mesh lacks, or named twice, raises
+    ``ValueError``."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = tuple(mesh.mesh_dim_names)
+    out = [Replicate() for _ in names]
+    used = set()
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        idx = []
+        for a in axes:
+            if a not in names:
+                raise ValueError(f"spec {spec} names axis {a!r}; the mesh "
+                                 f"has {names}")
+            if a in used:
+                raise ValueError(f"spec {spec} names axis {a!r} twice")
+            used.add(a)
+            idx.append(names.index(a))
+        if idx != sorted(idx):
+            raise ValueError(
+                f"spec entry {axes} is not in the mesh's axis order {names}: "
+                "DTensor shards one dim over several mesh dims major to "
+                "minor in mesh order")
+        for i in idx:
+            out[i] = Shard(d)
+    return tuple(out)
+
+
+def distribute(tree, spec_tree, mesh, axis="pod"):
+    """A tree of full tensors (the same values on every rank) as DTensors
+    placed by ``spec_tree``. Each rank keeps its own chunks of its copy:
+    nothing crosses the wire.
+
+    On a mesh with an ``axis`` dim (the pods) every tree is placed inside
+    the rank's pod: a dim whose spec names ``axis`` (alone, or first of a
+    tuple: the pods are the major part) keeps this pod's block, and the
+    rest is placed on :func:`pod_submesh` by the spec without ``axis``. So
+    a stacked ``(K, ...)`` participant tree gives the pod's ``(1, ...)``
+    row, and a batch over ``("pod", "data")`` the pod's rows, split over
+    ``data``. A DTensor never spans pods: what crosses them goes through
+    ``core/collectives.PodAxis`` (Eq. 2, a step's gradient mean), and
+    DTensor's rule search stays on two mesh dims (on three it takes
+    minutes an op). On a pod-only mesh the rows stay plain tensors."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    names = tuple(mesh.mesh_dim_names)
+    sub = mesh
+    if axis in names:
+        sub = pod_submesh(mesh, axis)
+        K = int(mesh.size(names.index(axis)))
+        p = int(mesh.get_local_rank(axis))
+
+    def one(t, spec):
+        if axis in names:
+            for d, e in enumerate(spec):
+                axes = (e,) if isinstance(e, str) else tuple(e or ())
+                if axis not in axes:
+                    continue
+                if axes[0] != axis:
+                    raise ValueError(f"spec entry {e} puts {axis!r} inside "
+                                     "another axis; it must be the major "
+                                     "part")
+                n = t.shape[d] // K
+                t = t.narrow(d, p * n, n)
+            spec = row_specs(spec, axis)
+        if sub is None:
+            return t.clone()
+        pl = placements(spec, sub)
+        dt = distribute_tensor(t, sub, pl, src_data_rank=None)
+        mine = dt.to_local()
+        if mine.untyped_storage().data_ptr() != \
+                t.untyped_storage().data_ptr():
+            return dt
+        # a replicated (or leading-dim) chunk is a view of the caller's
+        # tensor: the steps write their params in place
+        return DTensor.from_local(mine.clone(), sub, pl, run_check=False)
+    return map_with_specs(one, tree, spec_tree)
+
+
+def gather(tree):
+    """DTensor leaves made whole inside their mesh (``full_tensor``, an
+    all-gather; a pod's rows on a mesh with pods); plain tensors pass
+    through."""
+    from torch.distributed.tensor import DTensor
+    return tree_map(lambda t: t.full_tensor() if isinstance(t, DTensor)
+                    else t, tree)
+
+
+def pod_submesh(mesh, axis="pod"):
+    """The mesh of ``mesh``'s axes other than ``axis``: one pod's ranks,
+    where a pod's DTensors live (None for a pod-only mesh)."""
+    names = tuple(n for n in mesh.mesh_dim_names if n != axis)
+    if not names:
+        return None
+    return mesh[names if len(names) > 1 else names[0]]
+
+
+def row_specs(spec_tree, axis="pod"):
+    """``spec_tree`` with ``axis`` taken out of every entry."""
+    def one(spec):
+        out = []
+        for e in spec:
+            if isinstance(e, tuple):
+                e = tuple(a for a in e if a != axis) or None
+                e = e[0] if e is not None and len(e) == 1 else e
+            elif e == axis:
+                e = None
+            out.append(e)
+        return tuple(out)
+    if _is_spec(spec_tree):
+        return one(spec_tree)
+    if isinstance(spec_tree, dict):
+        return {k: row_specs(v, axis) for k, v in spec_tree.items()}
+    return type(spec_tree)(row_specs(v, axis) for v in spec_tree)

@@ -47,7 +47,8 @@ def test_port_imports_no_jax_and_no_reference_package():
     for name in ("membership", "topology", "collectives"):
         assert ROOT / "src" / "repro_torch" / "core" / f"{name}.py" in files
     for rel in (("launch", "mesh.py"), ("launch", "steps.py"),
-                ("sharding", "specs.py")):
+                ("sharding", "specs.py"), ("sharding", "constrain.py"),
+                ("launch", "dryrun.py")):
         assert ROOT.joinpath("src", "repro_torch", *rel) in files
     assert ROOT / "src" / "repro_torch" / "data" / "stream.py" in files
     assert {f.name for f in files if f.parent.name == "examples"} == {
@@ -153,10 +154,19 @@ def test_unported_paths_raise_not_implemented(one_rank_mesh):
                                             spmd_axis_name="pod"))
     host = mesh.make_host_mesh("cpu")
     assert host.mesh_dim_names == ("data", "model") and host.size() == 1
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        mesh.make_sim_mesh((1, 2, 1), device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    # the intra-pod axes are ported too: a 3-axis mesh builds; the
+    # production mesh needs its world, and a DTensor never reaches a
+    # kernel as if its shard were the whole tensor
+    assert mesh.make_sim_mesh((1, 1, 1), device="cpu").mesh_dim_names == (
+        "pod", "data", "model")
+    with pytest.raises(ValueError, match="need a world of 512"):
         mesh.make_production_mesh(multi_pod=True)
+    from repro_torch.kernels import ops
+    from repro_torch.sharding import specs
+    dt = specs.distribute({"x": torch.ones(4, 256)}, {"x": ("data", None)},
+                          host)["x"]
+    with pytest.raises(TypeError, match="DTensor"):
+        ops.quantize_blockwise(dt)
     # (the live divergence no longer raises: one live row, drift 1)
     assert schedule.divergence({"w": torch.zeros((2, 256))},
                                {"w": torch.ones(256)}, [True, False]) == 1.0

@@ -873,16 +873,24 @@ def test_init_process_mesh_names_its_backend():
 
 
 def test_intra_pod_axes_and_the_production_mesh_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The intra-pod axes are ported (``tests/test_torch_intrapod.py``):
+    what still raises is a production mesh over a group too small for it
+    (no group here) and a spec the mesh cannot place."""
+    with pytest.raises(ValueError, match="need a world of 256"):
         tmesh.make_production_mesh()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="need a world of 512"):
         tmesh.make_production_mesh(multi_pod=True)
-    with pytest.raises(NotImplementedError, match="intra-pod"):
-        tmesh.make_sim_mesh((2, 2, 1), device="cpu")
     specs = tspecs.param_specs(
         tavg.stack_participants({"w": torch.zeros(4, 8)}, 2), None,
         {"pod": 2, "data": 2, "model": 1}, participant=True)
     assert specs == {"w": ("pod", "data", "model")}
-    with pytest.raises(NotImplementedError, match="intra-pod"):
-        tspecs.check_pod_specs(specs, {"pod": 2, "data": 2, "model": 1})
-    assert tspecs.check_pod_specs(specs, {"pod": 2, "data": 1}) is specs
+    assert tspecs.row_specs(specs) == {"w": (None, "data", "model")}
+
+    class Mesh:
+        mesh_dim_names = ("pod", "data", "model")
+    with pytest.raises(ValueError, match="axis order"):
+        tspecs.placements((("data", "pod"), None), Mesh())
+    with pytest.raises(ValueError, match="names axis 'x'"):
+        tspecs.placements(("x",), Mesh())
+    with pytest.raises(ValueError, match="twice"):
+        tspecs.placements(("data", "data"), Mesh())
