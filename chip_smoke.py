@@ -129,8 +129,9 @@ Phases:
      weighted mean of the sampled rows' roundtrip by the plain quantize
      and dequantize, the bill ``ceil(m·up/K) + raw``. The counters are
      zeroed just before each fused run and read after;
- 10. churn and gossip at internlm2-1.8b's full width, depth 4 of 24
-     (``LAYERS10``; 6 before phase 17), K = 5, leafwise int8, T fixed
+ 10. churn and gossip at internlm2-1.8b's full width, depth 2 of 24
+     (``LAYERS10``; 4 before, 6 before phase 17), K = 5, leafwise int8,
+     T fixed
      at 1: (a) slot 3
      crashes at round 1 and rejoins at round 3, FullAverage
      renormalised over the live set, 4 rounds fused, then the same under
@@ -221,8 +222,8 @@ Phases:
      sLSTM and selective-scan recurrences through ``layers.
      chunked_scan``: 256-step chunks recomputed in the backward pass),
      f32: (a) xlstm-1.3b at full width (d 2048, 4 heads of 1024, vocab
-     50,304), depth 48 -> 4 (3 mLSTM + 1 sLSTM), B 2 x S 512 (two
-     chunks a recurrence), K = 3, fused int8, T 1, one step an epoch:
+     50,304), depth 48 -> 2 (1 mLSTM + 1 sLSTM), B 2 x S 512 (two
+     chunks a recurrence), K = 2, fused int8, T 1, one step an epoch:
      without per-layer recomputation (``REMAT14``; 16(b) has it on), the
      python engine for 2 rounds, then the fused engine for 3 (one
      capture, two replays), the loss falling, the engines' first two
@@ -297,7 +298,7 @@ Phases:
      ``all_gather_into_tensor``, ``reduce_scatter_tensor``,
      ``all_to_all_single`` and ``all_reduce`` on CUDA tensors over a gloo
      pair, each result kept. (a) mesh (data 2, model 2), internlm2-1.8b
-     at full width, depth 2: a train step at B 8 x S 256, a prefill and 8
+     at full width, depth 2: a train step at B 8 x S 256, a prefill and 2
      decode steps on ``cache_specs``' placements, each held against the
      same step run unsharded on the card at 1e-5 (the prefill, where the
      unsharded f32 prefill is itself farther than 1e-5 from an f64 one,
@@ -2160,9 +2161,10 @@ def phase_partial_ragged(torch, dev, launches_out):
 # mix's temporaries (about three copies of the largest stacked leaf): at
 # 8 layers its peak was 51.57 GB (NVIDIA H100 80GB HBM3, 700 W); scaled
 # to 12 ≈ 63.4 GB, to 14 ≈ 71 GB (under 8 GB free), to 16 ≈ 78.5 GB.
-# Depth 6, for the script's clock: phase 10 took 98.0 s at depth 12 on a
-# host where the whole script took 1,435 s (with phase 16).
-LAYERS10 = 4
+# Depth 2, for the script's clock: phase 10 took 98.0 s at depth 12 on a
+# host where the whole script took 1,435 s (with phase 16), and 38.4 s at
+# depth 4 where it took 808.4 s (NVIDIA H100 80GB HBM3, 700 W).
+LAYERS10 = 2
 # slot 3 of the paper's five data centers crashes at round 1 and rejoins
 # at round 3
 CHURN10 = (("crash", 1, 3), ("rejoin", 3, 3))
@@ -2288,8 +2290,8 @@ def _run10(torch, dev, label, make, K, rounds, engine, launches_out,
         del bufs
     say("churn-gossip", run=label, engine=engine, K=K,
         codec=learner.codec.name, aggregator=learner.aggregator.name,
-        reduced=f"n_layers 24 -> {LAYERS10} (the script's clock, 6 before "
-                "phase 17 was added; 12 is "
+        reduced=f"n_layers 24 -> {LAYERS10} (the script's clock: 4 "
+                "before, 6 before phase 17 was added; 12 is "
                 "the most that leaves >= 8 GB of 80 free beside the D² "
                 "run's K params, K correction copies and the mix's "
                 "temporaries)",
@@ -2380,7 +2382,7 @@ EPS11 = 1e-6
 EXAMPLES11 = {"quickstart": ("--n-examples", "200"),
               "compressed_wan": ("--n-examples", "100"),
               "elastic_membership": ("--n-examples", "160"),
-              "graph_gossip": ("--n-examples", "320"),
+              "graph_gossip": ("--n-examples", "160"),
               "serve_decode": ("--n-examples", "90"),
               "continuous_serving": ()}
 
@@ -2689,7 +2691,7 @@ def phase_examples(torch, examples=EXAMPLES11, tag="11d"):
         out = buf.getvalue().splitlines()
         say("examples", part=tag, example=f"torch_{name}", args=args,
             reduced=("the example's defaults -> " + " ".join(args)
-                     if args else None),
+                     + " (the script's clock)" if args else None),
             rc=rc, seconds=seconds, launches=counts, tail=out[-8:])
         check(rc == 0, f"{tag}: torch_{name} returned {rc}")
         if name == "compressed_wan":
@@ -2727,7 +2729,7 @@ CODECS12 = {"fused": ("wire_quant_avg_dequant",),
 # 3,000 / 5: 54-85 s of the script)
 EXAMPLES12 = {"heterogeneous_shards": ("--n-examples", "1000", "--rounds",
                                        "2"),
-              "multidc_ablation": ("--n-examples", "1500", "--rounds", "3")}
+              "multidc_ablation": ("--n-examples", "1500", "--rounds", "2")}
 
 
 @contextlib.contextmanager
@@ -3824,7 +3826,7 @@ def phase_new_archs(torch, dev, launches_out, bw, mark):
 # depth 48 -> LAYERS14 (1 mLSTM + 1 sLSTM), B 2 x S 512 so
 # that every recurrence runs two 256-step chunks (``layers.chunked_scan``:
 # the backward pass keeps the carries at the chunk boundaries and
-# recomputes each chunk), K 3, fused int8, T 1, one step an epoch; (b) one
+# recomputes each chunk), K 2, fused int8, T 1, one step an epoch; (b) one
 # jamba-v0.1-52b ``mamba:dense`` layer at full width, B 4 x S 2048; (c)
 # the smoke configs card vs CPU at S 512; (d) the train CLI.
 # depth 2 (1 mLSTM + 1 sLSTM; 4 before phase 17 was added) of the
@@ -3833,7 +3835,11 @@ def phase_new_archs(torch, dev, launches_out, bw, mark):
 # 374.0 s at depth 8 on a host where the whole script took 1,435 s
 # (NVIDIA H100 80GB HBM3, 700 W); phase 16 took that time
 LAYERS14 = 2
-K14, B14, S14, STEPS14 = 3, 2, 512, 1
+# K 2 (3 before): the python engine's rounds are host-bound and grow
+# with K (the fused engine's capture does not: it batches the K rows;
+# 14(a) took 60.5 s at K 3 where the whole script took 808.4 s, NVIDIA
+# H100 80GB HBM3, 700 W)
+K14, B14, S14, STEPS14 = 2, 2, 512, 1
 PY_ROUNDS14, FUSED_ROUNDS14 = 2, 3
 B14B, S14B = 4, 2048
 S14C, K14C = 512, 2
@@ -4074,7 +4080,9 @@ def _phase14_xlstm(torch, dev, launches_out):
     say("recurrent-training", part="a", arch=cfg.name,
         reduced=f"n_layers 48 -> {LAYERS14} ({LAYERS14 - 1} mLSTM + 1 "
                 "sLSTM: the xLSTM[7:1] period cut from 8 layers for the "
-                "script's clock; 4 before phase 17 was added)",
+                "script's clock; 4 before phase 17 was added); K 3 -> "
+                f"{K14} for the script's clock (the python engine's rounds "
+                "are host-bound and grow with K)",
         d_model=cfg.d_model, heads=cfg.n_heads,
         head_dim=int(cfg.xlstm_proj_factor * cfg.d_model) // cfg.n_heads,
         vocab=cfg.vocab_size, K=K14, batch=B14, seq_len=S14,
@@ -4964,7 +4972,10 @@ def phase_remat(torch, dev, launches_out, smi, mark):
 # every collective's calls, bytes and seconds, and the phase's seconds.
 IP_RANKS = 4
 LAYERS17 = 2
-B17, S17, DEC17 = 8, 256, 8
+# 2 decode steps (8 before: 16.1 s of phase 17's 88.3 where the whole
+# script took 808.4 s, NVIDIA H100 80GB HBM3, 700 W; each step is host-
+# bound on the staged collectives)
+B17, S17, DEC17 = 8, 256, 2
 TOL17 = {"rtol": 1e-5, "atol": 1e-5}
 IP17_TIMEOUT = 900
 PROBE17 = ("all_gather_into_tensor", "reduce_scatter_tensor",
@@ -5331,7 +5342,9 @@ def phase_intrapod(torch, dev, launches_out, mark):
         "cuda:staged: collectives.StagedGroup)", probe=probe,
         reduced=f"n_layers 24 -> {LAYERS17} (four ranks share one card: "
                 "each holds the full f32 params to place them, rank 0 "
-                "the unsharded steps and the simulation path too)",
+                "the unsharded steps and the simulation path too); decode "
+                f"steps 8 -> {DEC17} for the script's clock (each a "
+                "host-bound step over the staged collectives)",
         d_model=cfg.d_model, vocab=cfg.vocab_size, batch=B17, seq_len=S17,
         decode_steps=DEC17, a=a, b=b, seconds=seconds,
         tolerance={"a": TOL17, "b": TOL15})

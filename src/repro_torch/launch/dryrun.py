@@ -34,12 +34,18 @@ around the DTensor program counts the whole mesh's work):
   included) and ``temp_bytes`` (the peak beyond arguments and outputs),
   judged against an H100's 80 GB of HBM3 (``fits_hbm``).
 
-Eager tracing runs every layer and every chunk-loop iteration, so the
-raw trace is already the full program: ``profile`` (the reference's
-depth differencing: reduced configs with every segment at one repeat,
-then one more per segment, extrapolated to the true depth) agrees with
-``scan_raw_cost``, and ``analytic.scan_correction_flops`` is 0 — the
-reference adds ``analytic.scan_corrections`` only because XLA counts a
+Eager tracing runs every layer. A loop whose trips run the same ops on
+the same shapes (the recurrences' steps, ``chunked_scan``'s chunks, the
+attention's query and key tiles: ``models/layers.trips``) is traced as
+its first trip, one trip booked as many times as the middle ones, and
+its last (:class:`CostMode`): on ``meta`` no trip has data, so the books
+equal those of every trip run, which a test holds against the eager
+trace of every trip. So the raw trace is the full program: ``profile``
+(the reference's depth differencing: reduced configs with every segment
+at one repeat, then one more per segment, extrapolated to the true
+depth) agrees with ``scan_raw_cost``, and
+``analytic.scan_correction_flops`` is 0: nothing is missed, where the
+reference adds ``analytic.scan_corrections`` because XLA counts a
 ``lax.scan`` body once. ``compile_s`` keeps its key and holds the trace's
 seconds. Every step takes ``impl="ref"`` (a DTensor never reaches a
 kernel); the round runs its epochs eagerly (``steps.
@@ -58,6 +64,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 import time
 import traceback
 import weakref
@@ -74,6 +81,7 @@ from repro_torch.sharding import specs as sp
 from repro_torch.tree import leaves, tree_map
 
 WORLD = 512
+_LEAF_SEQ = 2 ** 64 - 1         # an AccumulateGrad node's sequence number
 HBM_BYTES = 80e9                              # H100 80GB HBM3
 META = torch.device("meta")
 
@@ -169,13 +177,42 @@ _C10D = {"allreduce_": ("all-reduce", 1), "broadcast_": ("broadcast", 1),
          "recv_": ("send", 1)}
 
 
+def _propagating():
+    """DTensor is propagating a sharding through an op's decomposition
+    (the ``meta`` tensors it makes for it have no ``_spec`` yet)."""
+    f = sys._getframe(2)
+    while f is not None:
+        if f.f_code.co_name == "_propagate_through_decomp":
+            return True
+        f = f.f_back
+    return False
+
+
 class CostMode(TorchDispatchMode):
     """Counts the ops that run on plain ``meta`` tensors — a DTensor's
     local shards — and skips every op that has a DTensor argument (it
     returns ``NotImplemented``: DTensor then runs its local ops, which
-    come back here) or a tensor on another device (DTensor's shape
-    propagation). ``pod_ranks`` is the number of ranks of one pod: a group
-    whose ranks lie in two pods is cross-pod."""
+    come back here), a tensor on another device or a ``meta`` tensor that
+    carries a ``_spec`` (DTensor's shape propagation; an op it has no
+    rule for it propagates through the op's decomposition on ``meta``
+    tensors of the global shape, once per new shape: counting those ran
+    the op's whole global work on the device, and only the first time).
+    ``pod_ranks`` is the number of ranks of one pod: a group whose ranks
+    lie in two pods is cross-pod.
+
+    A loop of alike trips (``models/layers.trips``) runs three of them
+    under :meth:`trips`, and everything trip 1 costs is booked ``n - 2``
+    times: its ops as they run (a scale over the forward ops inside it),
+    and, in the backward pass, the ops of every autograd node made inside
+    it (the engine runs a node's backward and the accumulation of what it
+    returns with that node current), so the books equal the whole loop's
+    exactly. The storage trip 1 leaves live when its loop ends (saved
+    activations, outputs, the carries a checkpoint keeps) stands for
+    ``n - 2`` copies: the other ``n - 3`` are live beside it from then
+    on, and when it dies in a backward node outside trip 1's nodes (trip
+    1's output carry, saved by trip n - 1, whose backward runs first)
+    they live on until trip 1's nodes have run, as the whole loop's
+    middle trips keep theirs until their own backward."""
 
     def __init__(self, pod_ranks=None):
         super().__init__()
@@ -186,6 +223,46 @@ class CostMode(TorchDispatchMode):
         self.live = 0
         self.peak = 0
         self._refs = {}
+        self._scopes = []       # open trip 1s: [factor, storage born there]
+        self._born = []         # those sets, and those of closed trip 1s
+        self._windows = []      # the peaks of open trips n - 1
+        self._nodes = []        # (first, end, factor): autograd nodes made
+        self._node_factor = {}  # in a trip 1, by their sequence numbers
+        self._copies = {}       # storage -> [(bytes, owner)] of its copies
+        self._orphans = []      # [bytes, owner, entered] of dead storage
+
+    # --- repeated trips ------------------------------------------------------
+    def trips(self, n):
+        """The loop of ``n`` alike trips that ``layers.trips`` hands out
+        while this mode is active (``n > 3``)."""
+        return _Trips(self, n)
+
+    def _node_scale(self):
+        """The factor of the autograd node whose backward runs now (None
+        outside the backward pass and for a leaf's accumulation)."""
+        node = torch._C._current_autograd_node()
+        if node is None:
+            return None
+        s = node._sequence_nr()
+        if s == _LEAF_SEQ:
+            return None
+        g = self._node_factor.get(s)
+        if g is None:
+            g = 1
+            for first, end, k in self._nodes:
+                if first <= s < end:
+                    g *= k
+            self._node_factor[s] = g
+        return g
+
+    def _factor(self):
+        """How many times an op that runs now is booked."""
+        f = 1
+        for scope in self._scopes:
+            f *= scope[0]
+        if self._nodes:
+            f *= self._node_scale() or 1
+        return f
 
     # --- live storage ------------------------------------------------------
     def hold(self, tensors):
@@ -193,27 +270,78 @@ class CostMode(TorchDispatchMode):
         for t in tensors:
             self._track(t)
 
+    def _outside(self, owner):
+        """A backward node outside the nodes whose factor is ``owner``
+        runs now (not a recomputation, which runs with grad on)."""
+        g = self._node_scale()
+        return (g is not None and not torch.is_grad_enabled()
+                and g % owner != 0)
+
     def _release(self, key):
-        n, size = self._refs[key]
-        if n > 1:
-            self._refs[key] = (n - 1, size)
-        else:
-            del self._refs[key]
-            self.live -= size
+        ref = self._refs[key]
+        if ref[0] > 1:
+            ref[0] -= 1
+            return
+        del self._refs[key]
+        self.live -= ref[1]
+        for born in self._born:
+            born.discard(key)
+        for nbytes, owner in self._copies.pop(key, ()):
+            if self._outside(owner):
+                self._orphans.append([nbytes, owner, False])
+            else:
+                self.live -= nbytes
+
+    def _settle(self):
+        """Free the orphaned copies whose owners' nodes have run."""
+        g = self._node_scale()
+        if g is None or torch.is_grad_enabled():
+            return
+        keep = []
+        for o in self._orphans:
+            inside = g % o[1] == 0
+            if o[2] and not inside:
+                self.live -= o[0]
+                continue
+            o[2] = o[2] or inside
+            keep.append(o)
+        self._orphans = keep
+
+    def _peak(self, value):
+        self.peak = max(self.peak, value)
+        for w in self._windows:
+            w[0] = max(w[0], value)
 
     def _track(self, t):
         if not isinstance(t, torch.Tensor) or t.device.type != "meta":
             return
         key = _storage_key(t)
         if key in self._refs:
-            n, size = self._refs[key]
-            self._refs[key] = (n + 1, size)
+            self._refs[key][0] += 1
         else:
             size = t.untyped_storage().nbytes()
-            self._refs[key] = (1, size)
+            self._refs[key] = [1, size]
             self.live += size
-            self.peak = max(self.peak, self.live)
+            self._peak(self.live)
+            if self._scopes:
+                self._scopes[-1][1].add(key)
         weakref.finalize(t, self._release, key)
+
+    def _repeat(self, keys, f, window, owner):
+        """Storage ``keys`` born in a trip 1 and live at its loop's end
+        stand for ``f`` trips' copies from now on (``owner``: the factor
+        of that trip 1's nodes), and the peak of trip n - 1 (``window``)
+        had the other ``f - 1`` beside it."""
+        extra = 0
+        for k in keys:
+            copies = self._copies.setdefault(k, [])
+            nbytes = (f - 1) * (self._refs[k][1] + sum(b for b, _ in copies))
+            copies.append((nbytes, owner))
+            extra += nbytes
+        self.live += extra
+        self._peak(window + extra)
+        if self._scopes:
+            self._scopes[-1][1].update(keys)
 
     # --- the ops -------------------------------------------------------------
     def _group(self, pg):
@@ -228,19 +356,23 @@ class CostMode(TorchDispatchMode):
         return len(ranks), cross
 
     def _collective(self, kind, nbytes, g, cross):
-        self.colls.append({"op": kind, "link_bytes": link_bytes(kind, nbytes,
-                                                                g),
-                           "group": g, "cross_pod": cross})
+        f = self._factor()
+        self.colls.append({"op": kind,
+                           "link_bytes": f * link_bytes(kind, nbytes, g),
+                           "group": g, "cross_pod": cross, "n": f})
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
         kwargs = kwargs or {}
+        if self._orphans:
+            self._settle()
         ins = _flat((args, kwargs), [])
         if any(isinstance(a, DTensor) for a in ins):
             return NotImplemented
         out = func(*args, **kwargs)
         outs = _flat(out, [])
-        if any(t.device.type != "meta" for t in ins + outs):
+        if any(t.device.type != "meta" or hasattr(t, "_spec")
+               for t in ins + outs) or (not ins and _propagating()):
             return out
         name = func._overloadpacket.__name__
         ns = func.namespace
@@ -261,14 +393,15 @@ class CostMode(TorchDispatchMode):
 
     def _count(self, func, name, args, kwargs, ins, outs, out):
         from torch.utils.flop_counter import flop_registry
+        f = self._factor()
         fn = flop_registry.get(func._overloadpacket)
         if fn is not None:
-            self.flops += fn(*args, **kwargs, out_val=out)
+            self.flops += f * fn(*args, **kwargs, out_val=out)
         elif torch.Tag.pointwise in func.tags:
-            self.flops += sum(o.numel() for o in outs)
+            self.flops += f * sum(o.numel() for o in outs)
         elif name in _REDUCTIONS and ins:
-            self.flops += ins[0].numel()
-        self.bytes += sum(_nbytes(t) for t in ins + outs)
+            self.flops += f * ins[0].numel()
+        self.bytes += f * sum(_nbytes(t) for t in ins + outs)
 
     def summary(self):
         by_op = {}
@@ -279,7 +412,82 @@ class CostMode(TorchDispatchMode):
                 "cross_pod_link_bytes": sum(c["link_bytes"]
                                             for c in self.colls
                                             if c["cross_pod"]),
-                "by_op": by_op, "n_coll": len(self.colls)}
+                "by_op": by_op, "n_coll": sum(c["n"] for c in self.colls)}
+
+
+class _Trips:
+    """Trips 0, 1 and n - 1 of a loop of ``n`` alike trips, trip 1 booked
+    ``n - 2`` times by ``mode`` (:class:`CostMode`); ``pick`` and ``join``
+    give the ops ``layers._Loop``'s give on the whole loop."""
+
+    def __init__(self, mode, n):
+        self.mode, self.n = mode, n
+
+    def __iter__(self):
+        mode, f = self.mode, self.n - 2
+        yield 0
+        scope = [f, set()]
+        mode._born.append(scope[1])
+        first = torch._C._autograd._get_sequence_nr()
+        mode._scopes.append(scope)
+        owner = mode._factor()
+        try:
+            yield 1
+        finally:
+            mode._scopes = [x for x in mode._scopes if x is not scope]
+            mode._nodes.append((first, torch._C._autograd._get_sequence_nr(),
+                                f))
+        window = [mode.live]
+        mode._windows.append(window)
+        try:
+            yield self.n - 1
+        finally:
+            mode._windows = [w for w in mode._windows if w is not window]
+            mode._born = [b for b in mode._born if b is not scope[1]]
+            mode._repeat(scope[1], f, window[0], owner)
+
+    def pick(self, x):
+        return _Pick.apply(x, self.n)
+
+    def join(self, parts, dim=0, stack=False):
+        return _Join.apply(self.n, dim, stack, *parts)
+
+
+class _Pick(torch.autograd.Function):
+    """Trips 0, 1 and n - 1 of ``x.unbind(0)``. The backward pass stacks
+    the n gradients the whole loop's unbind stacks, trip 1's n - 2 times."""
+
+    @staticmethod
+    def forward(ctx, x, n):
+        ctx.n = n
+        return x[0], x[1], x[n - 1]
+
+    @staticmethod
+    def backward(ctx, g0, g1, g2):
+        return torch.stack([g0] + [g1] * (ctx.n - 2) + [g2]), None
+
+
+class _Join(torch.autograd.Function):
+    """The stack (or cat) along ``dim`` of trips 0, 1 and n - 1's parts,
+    trip 1's n - 2 times: the whole loop's op on its shapes. The backward
+    pass hands each part its slice, as a stack's or cat's does (views)."""
+
+    @staticmethod
+    def forward(ctx, n, dim, stack, *parts):
+        ctx.n, ctx.dim, ctx.stack = n, dim, stack
+        ctx.w = 1 if stack else parts[0].shape[dim]
+        whole = [parts[0]] + [parts[1]] * (n - 2) + [parts[2]]
+        return (torch.stack if stack else torch.cat)(whole, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        n, dim, w = ctx.n, ctx.dim, ctx.w
+        if ctx.stack:
+            gs = (g.select(dim, 0), g.select(dim, 1), g.select(dim, n - 1))
+        else:
+            gs = (g.narrow(dim, 0, w), g.narrow(dim, w, w),
+                  g.narrow(dim, (n - 1) * w, w))
+        return (None, None, None) + gs
 
 
 def _local_tensors(tree):

@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops as kops
-from repro_torch.models.layers import apply_rope, trunc_normal
+from repro_torch.models.layers import apply_rope, trips, trunc_normal
 from repro_torch.sharding.constrain import (axis_size, constrain, index_copy_,
                                            local_call, on_mesh)
 
@@ -126,14 +126,16 @@ def chunked_attention(q, k, v, *, n_kv_heads, window=0, q_offset=0,
     qh = constrain(q * scale, _HEADS).transpose(1, 2)       # (B,H,Sq,hd)
     kh = _repeat_heads(k, G).transpose(1, 2)                # (B,H,Sk,hd)
     vh = _repeat_heads(v, G).transpose(1, 2)                # (B,H,Sk,hd_v)
-    outs = []
-    for i0 in range(0, Sq, cq):
+    rows, outs = trips(Sq // cq, q), []
+    for i in rows:
+        i0 = i * cq
         qi = qh[:, :, i0:i0 + cq]
         q_pos = q_offset + i0 + torch.arange(cq, device=dev)
         m = torch.full((B, H, cq), NEG_INF, dtype=torch.float32, device=dev)
         l = torch.zeros((B, H, cq), dtype=torch.float32, device=dev)
         acc = torch.zeros((B, H, cq, hd_v), dtype=torch.float32, device=dev)
-        for j0 in range(0, Sk, ck):
+        for j in trips(Sk // ck, k):
+            j0 = j * ck
             kc, vc = kh[:, :, j0:j0 + ck], vh[:, :, j0:j0 + ck]
             k_pos = j0 + torch.arange(ck, device=dev)
             s = constrain((qi @ kc.transpose(-1, -2)).float(),
@@ -146,7 +148,7 @@ def chunked_attention(q, k, v, *, n_kv_heads, window=0, q_offset=0,
             acc = acc * corr[..., None] + (p.to(vc.dtype) @ vc).float()
             m = m_new
         outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
-    out = torch.cat(outs, dim=2).transpose(1, 2)            # (B,Sq,H,hd_v)
+    out = rows.join(outs, dim=2).transpose(1, 2)            # (B,Sq,H,hd_v)
     return out.to(q.dtype)
 
 
@@ -160,14 +162,16 @@ def _shared_kv_attention(q, k, v, window, q_offset, cq, ck):
     B, Sq, H, hd = q.shape
     Sk, hd_v = k.shape[1], v.shape[-1]
     dev = q.device
-    outs = []
-    for i0 in range(0, Sq, cq):
+    rows, outs = trips(Sq // cq, q), []
+    for i in rows:
+        i0 = i * cq
         qi = q[:, i0:i0 + cq].reshape(B, cq * H, hd)
         q_pos = q_offset + i0 + torch.arange(cq, device=dev)
         m = torch.full((B, cq, H), NEG_INF, dtype=torch.float32, device=dev)
         l = torch.zeros((B, cq, H), dtype=torch.float32, device=dev)
         acc = torch.zeros((B, cq, H, hd_v), dtype=torch.float32, device=dev)
-        for j0 in range(0, Sk, ck):
+        for j in trips(Sk // ck, k):
+            j0 = j * ck
             kc, vc = k[:, j0:j0 + ck], v[:, j0:j0 + ck]
             k_pos = j0 + torch.arange(ck, device=dev)
             s = (qi @ kc.transpose(-1, -2)).float().view(B, cq, H, ck)
@@ -180,7 +184,7 @@ def _shared_kv_attention(q, k, v, window, q_offset, cq, ck):
             acc = acc * corr[..., None] + pv.float().view(B, cq, H, hd_v)
             m = m_new
         outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
-    return torch.cat(outs, dim=1).to(q.dtype)               # (B,Sq,H,hd_v)
+    return rows.join(outs, dim=1).to(q.dtype)               # (B,Sq,H,hd_v)
 
 
 _ROWS_HEADS = ("dp", None, "model", None)

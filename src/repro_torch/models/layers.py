@@ -180,16 +180,53 @@ def _index(xs, i):
     return tuple(x[i] for x in xs) if isinstance(xs, tuple) else xs[i]
 
 
+class _Loop:
+    """The trips of a loop of ``n`` alike trips: ``range(n)``, ``pick``
+    the per-trip slices of a tensor (one unbind) and ``join`` the trips'
+    results (one stack or cat)."""
+
+    def __init__(self, n):
+        self.n = n
+
+    def __iter__(self):
+        return iter(range(self.n))
+
+    def pick(self, x):
+        return x.unbind(0)
+
+    def join(self, parts, dim=0, stack=False):
+        return (torch.stack if stack else torch.cat)(parts, dim)
+
+
+def trips(n, *tensors):
+    """The trips of a loop of ``n`` trips over ``tensors`` that run the
+    same ops on the same shapes. Outside a cost count it is a plain
+    :class:`_Loop`. While a dispatch mode that books repeated trips is
+    active (``launch/dryrun.CostMode``: its ``trips``) and the tensors
+    are on ``meta``, with ``n > 3``, the mode's loop runs trips 0, 1 and
+    n - 1 and books trip 1 as ``n - 2`` (``pick`` and ``join`` then give
+    the same ops as the whole loop's, on its full shapes)."""
+    if n > 3 and tensors and all(t.device.type == "meta" for t in tensors):
+        from torch.utils._python_dispatch import \
+            _get_current_dispatch_mode_stack
+        for mode in reversed(_get_current_dispatch_mode_stack()):
+            book = getattr(mode, "trips", None)
+            if book is not None:
+                return book(n)
+    return _Loop(n)
+
+
 def _scan(step, carry, xs):
     # one unbind per input: its backward is one stack, where indexing
     # each step would zero, copy and add a whole-length gradient a step
-    seq = (tuple(zip(*(x.unbind(0) for x in xs))) if isinstance(xs, tuple)
-           else xs.unbind(0))
+    ts = xs if isinstance(xs, tuple) else (xs,)
+    loop = trips(len(ts[0]), *ts)
+    seq = list(zip(*(loop.pick(x) for x in ts)))
     ys = []
-    for x_t in seq:
-        carry, y = step(carry, x_t)
+    for i, _ in enumerate(loop):
+        carry, y = step(carry, seq[i] if isinstance(xs, tuple) else seq[i][0])
         ys.append(y)
-    return carry, torch.stack(ys)
+    return carry, loop.join(ys, stack=True)
 
 
 def chunked_scan(step, carry, xs, chunk=256, remat=True):
@@ -204,18 +241,21 @@ def chunked_scan(step, carry, xs, chunk=256, remat=True):
     recomputes each chunk's steps: O(S/chunk) saved carries instead of
     O(S). ``c = min(chunk, S)``; when ``c`` does not divide S, when
     ``c == S`` or with ``remat=False`` it is a plain loop. ``step`` must
-    be functional: it writes nothing in place."""
-    S = len(xs[0] if isinstance(xs, tuple) else xs)
+    be functional: it writes nothing in place. Steps and chunks are
+    :func:`trips`."""
+    ts = xs if isinstance(xs, tuple) else (xs,)
+    S = len(ts[0])
     c = min(chunk, S)
     if S % c or c == S or not remat:
         return _scan(step, carry, xs)
+    loop = trips(S // c, *ts)
     ys = []
-    for lo in range(0, S, c):
+    for k in loop:
         carry, y = checkpoint(_scan, step, carry,
-                              _index(xs, slice(lo, lo + c)),
+                              _index(xs, slice(k * c, (k + 1) * c)),
                               use_reentrant=False, preserve_rng_state=False)
         ys.append(y)
-    return carry, torch.cat(ys)
+    return carry, loop.join(ys)
 
 
 # --------------------------------------------------------------------------

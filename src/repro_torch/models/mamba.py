@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
-from repro_torch.models.layers import (chunked_scan, needs_grad,
+from repro_torch.models.layers import (chunked_scan, needs_grad, trips,
                                        trunc_normal)
 from repro_torch.sharding.constrain import constrain, local_call
 
@@ -109,7 +109,7 @@ def selective_scan_ref(xc, dt, Bm, Cm, A, D, h0=None):
             t.transpose(0, 1) for t in (dt, Bm, Cm, xf)))
         return ys.transpose(0, 1) + xf * D, h
     ys = torch.empty((B, S, di), dtype=_F32, device=xc.device)
-    for t in range(S):
+    for t in trips(S, xc):
         dt_t = dt[:, t, :, None]                               # (B,di,1)
         # discretisation inside the step: (B,S,di,st) is never built
         dA = torch.exp(dt_t * A)                               # (B,di,st)

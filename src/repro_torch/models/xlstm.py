@@ -42,7 +42,7 @@ import torch.nn.functional as F
 from repro_torch.core.graphs import GraphSet
 from repro_torch.kernels import ops as kops
 from repro_torch.models.attention import _proj
-from repro_torch.models.layers import (chunked_scan, needs_grad,
+from repro_torch.models.layers import (chunked_scan, needs_grad, trips,
                                        trunc_normal)
 from repro_torch.sharding.constrain import constrain, local_call, on_mesh
 
@@ -119,7 +119,7 @@ def mlstm_cell_ref(q, k, v, ig, fg, state=None):
             tuple(t.transpose(0, 1) for t in (qf, kf, vf, igf, logf)))
         return hs.transpose(0, 1), {"C": C, "n": n, "m": m}
     hs = torch.empty((B, S, H, hd), dtype=_F32, device=q.device)
-    for t in range(S):
+    for t in trips(S, q):
         lf_t, i_t, q_t, k_t = logf[:, t], igf[:, t], qf[:, t], kf[:, t]
         m_new = torch.maximum(lf_t + m, i_t)
         i_p = torch.exp(i_t - m_new)
@@ -272,7 +272,7 @@ def slstm_cell_ref(wx, r, b, state):
         return hs.transpose(0, 1), {"h": h, "c": c, "n": n, "m": m}
     hs = torch.empty((*wx.shape[:3], r.shape[-2]), dtype=_F32,
                      device=wx.device)
-    for t in range(wx.shape[1]):
+    for t in trips(wx.shape[1], wx):
         pre = wxf[:, t] + torch.einsum("bhk,hkg->bhg", h, r) + b   # (B,H,4hd)
         zt, it, ft, ot = torch.chunk(pre, 4, dim=-1)
         zt = torch.tanh(zt)

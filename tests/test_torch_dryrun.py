@@ -129,36 +129,94 @@ from repro_torch.configs.base import InputShape
 from repro_torch.launch import dryrun as D
 from repro_torch.launch import mesh as M
 M.init_process_mesh(0, D.WORLD, "", "fake")
-meshes = {False: DeviceMesh("cpu", torch.arange(4).reshape(2, 2),
-                            mesh_dim_names=("data", "model")),
-          True: DeviceMesh("cpu", torch.arange(8).reshape(2, 2, 2),
-                           mesh_dim_names=("pod", "data", "model"))}
-shapes = {"train_vanilla": InputShape("t", 16, 8, "train"),
-          "serve": InputShape("d", 16, 8, "decode")}
+meshes = {"single": DeviceMesh("cpu", torch.arange(4).reshape(2, 2),
+                               mesh_dim_names=("data", "model")),
+          "multi": DeviceMesh("cpu", torch.arange(8).reshape(2, 2, 2),
+                              mesh_dim_names=("pod", "data", "model"))}
 out = {}
 for arch in ARCH_IDS:
     cfg = get_smoke_config(arch)
-    for variant, multi in (("train_vanilla", True), ("serve", False)):
-        costs, memory, _ = D._trace(cfg, shapes[variant], meshes[multi],
-                                    multi, variant)
-        out[f"{arch}/{variant}"] = [costs["flops"], costs["link_bytes"],
-                                    costs["cross_pod_link_bytes"],
-                                    memory["peak_bytes_per_device"]]
+    for kind, by_mesh in D.VARIANTS.items():
+        shape = InputShape(kind, 16, 8, kind)
+        for mesh, variants in by_mesh.items():
+            for variant in variants:
+                costs, memory, _ = D._trace(cfg, shape, meshes[mesh],
+                                            mesh == "multi", variant)
+                out[f"{arch}/{mesh}/{variant}"] = [
+                    costs["flops"], costs["link_bytes"],
+                    costs["cross_pod_link_bytes"],
+                    memory["peak_bytes_per_device"]]
 print("RESULT " + json.dumps(out))
 """
 
 
-def test_every_arch_smoke_config_traces():
-    """Every arch's smoke config: the training step on a (2, 2, 2) fake
-    mesh (its gradient mean crosses pods) and a decode step on a (2, 2)
-    one, with FLOPs, link bytes and a peak to show for it."""
+@pytest.fixture(scope="module")
+def smoke_traces():
+    """Every arch's smoke config, every variant of ``VARIANTS`` on a
+    (2, 2) and a (2, 2, 2) fake mesh, 8 rows of 16 tokens: one
+    subprocess (one fake world)."""
+    return _run(SMOKE, timeout=900)
+
+
+def _arch_ids():
     from repro_torch.configs import ARCH_IDS
-    got = _run(SMOKE, timeout=600)
-    for arch in ARCH_IDS:
-        flops, link, xpod, peak = got[f"{arch}/train_vanilla"]
-        assert flops > 0 and link > 0 and xpod > 0 and peak > 0, arch
-        flops, link, xpod, peak = got[f"{arch}/serve"]
-        assert flops > 0 and peak > 0 and xpod == 0, arch
+    return list(ARCH_IDS)
+
+
+@pytest.mark.parametrize("arch", _arch_ids())
+def test_every_arch_smoke_config_traces(smoke_traces, arch):
+    """Each arch's smoke config traces every variant of both meshes
+    (training, the pod variants, prefill, decode), with FLOPs and a peak
+    to show for each; the pods' traffic crosses pods where the reference
+    has them meet (the gradient mean, Eq. 2, the round) and nowhere else
+    (a co-learning step, a prefill, a decode: a pod holds its rows)."""
+    from repro_torch.launch import dryrun as D
+    for kind, by_mesh in D.VARIANTS.items():
+        for mesh, variants in by_mesh.items():
+            for variant in variants:
+                tag = f"{arch}/{mesh}/{variant}"
+                flops, link, xpod, peak = smoke_traces[tag]
+                assert flops > 0 and peak > 0, tag
+                crosses = mesh == "multi" and variant in (
+                    "train_vanilla", "average", "round_colearn")
+                assert (xpod > 0) == crosses, tag
+                if crosses:
+                    assert link >= xpod, tag
+
+
+DECOMP = r"""
+import json, torch
+import torch.nn.functional as F
+from torch.distributed.device_mesh import DeviceMesh
+from repro_torch.launch import dryrun as D
+from repro_torch.launch import mesh as M
+from repro_torch.sharding import specs as sp
+M.init_process_mesh(0, D.WORLD, "", "fake")
+mesh = DeviceMesh("cpu", torch.arange(4).reshape(2, 2),
+                  mesh_dim_names=("data", "model"))
+out = []
+for on_mesh in (True, True, False):
+    x = torch.empty((8, 16) if on_mesh else (4, 8), device="meta")
+    if on_mesh:
+        x = sp.distribute({"x": x}, {"x": ("data", "model")}, mesh)["x"]
+    x.requires_grad_(True)
+    mode = D.CostMode()
+    with mode:
+        y = F.softplus(x)
+        torch.autograd.backward(y, torch.ones_like(y))
+    out.append([mode.flops, mode.bytes, mode.peak])
+print("RESULT " + json.dumps(out))
+"""
+
+
+def test_dtensor_propagation_by_decomposition_is_not_counted():
+    """DTensor has no rule for ``softplus_backward`` and propagates its
+    sharding by running the op's decomposition on ``meta`` tensors of the
+    global (8, 16) shape: none of it is a device's work. A sharded
+    softplus and its backward cost a device what its (4, 8) shard's
+    program costs, the second time as the first."""
+    first, second, shard = _run(DECOMP, timeout=300)
+    assert first == second == shard
 
 
 LINEAR = r"""
