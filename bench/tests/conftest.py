@@ -1,0 +1,9 @@
+"""The benchmark's tests import ``bench`` and the program from the
+repository root."""
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+for p in (str(ROOT / "src"), str(ROOT)):
+    if p not in sys.path:
+        sys.path.insert(0, p)
