@@ -1691,51 +1691,48 @@ def phase_small_membership(torch, dev):
     gc.collect()
 
 
-def _round_events(torch, learner, wrap=None):
-    """CUDA events per round without a host sync: at the start of the
-    round's device work, before the aggregation and at the end. On the
-    fused engine the middle one is recorded inside the captured round
-    graph (an external event node); the outer two around the replay. On
-    the python engine all three are recorded between its eager calls.
-    Returns ``read()`` -> (epochs ms, aggregation ms) of the last round:
-    the fused engine's second part is its whole finalize (aggregation,
-    Eq. 4, optimizer reset), the python engine's the aggregation alone.
-    ``wrap`` (fused engine) wraps the captured round graph the timer
-    calls."""
-    ev = [torch.cuda.Event(enable_timing=True, external=True)
-          for _ in range(3)]
-    python = learner.round_engine.name == "python"
-    agg = learner._aggregate_fn
+def _round_events(torch, learner):
+    """The device split of each round without a host sync of its own.
+    On the fused engine (a round replayed as one graph) the round graph's
+    own marks, read with tracing on around each ``run_round``
+    (``RoundLog.epochs_ms`` / ``finalize_ms``): the second part is its
+    whole finalize (aggregation, Eq. 4, optimizer reset). On the python
+    engine three CUDA events recorded between its eager calls: at the
+    start of the round's device work, before the aggregation and after
+    it. Returns ``read()`` -> (epochs ms, aggregation ms) of the last
+    round."""
+    if learner.round_engine.name != "python":
+        from repro_torch import spans
+        run, last = learner.run_round, []
+
+        def traced(*a, **kw):
+            spans.enable()
+            try:
+                state = run(*a, **kw)
+            finally:
+                spans.disable()
+            last[:] = [state["log"][-1]]
+            return state
+        learner.run_round = traced
+        return lambda: (last[0].epochs_ms, last[0].finalize_ms)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    agg, epoch = learner._aggregate_fn, learner._epoch
 
     def marked(*a, **kw):
         ev[1].record()
         out = agg(*a, **kw)
-        if python:
-            ev[2].record()
+        ev[2].record()
         return out
     learner._aggregate_fn = marked
     learner._runner = learner.round_engine.bind(learner)
     round_start = [True]
-    if python:
-        epoch = learner._epoch
 
-        def timed(*a):
-            if round_start[0]:
-                ev[0].record()
-                round_start[0] = False
-            return epoch(*a)
-        learner._epoch = timed
-    else:
-        graph = learner._runner._round
-        if wrap is not None:
-            graph = wrap(graph)
-
-        def timed(*a):
+    def timed(*a):
+        if round_start[0]:
             ev[0].record()
-            out = graph(*a)
-            ev[2].record()
-            return out
-        learner._runner._round = timed
+            round_start[0] = False
+        return epoch(*a)
+    learner._epoch = timed
 
     def read():
         ev[2].synchronize()
@@ -3110,19 +3107,28 @@ def _per_layer(torch, cfg, params, xs, ys, tol, tag):
     return worst
 
 
+def _gaps(ms):
+    """A ``generate``'s token gaps (``step_ms``, device ms between
+    consecutive decode replays' ends): median, p95, max and count."""
+    return {"median": statistics.median(ms),
+            "p95": statistics.quantiles(ms, n=20)[-1], "max": max(ms),
+            "n": len(ms)}
+
+
 def _loop_swap(torch, dev, cfg, params, g, tol, tag, bound_ms,
                end_to_end=True, swap=True, batch=8):
     """(b)-(d) of the serving phases: the ``ServeLoop`` at ``batch`` (128 +
-    64 tokens, every ``generate`` under the sync guard), its decode step
-    captured once, when the loop is built, and replayed for every prompt
-    and decode token; (c) with ``swap``, a second model published to a
-    ``ModelBank`` and polled in (copied into the loop's params, no second
-    capture), whose tokens must equal an eager ``decode_step`` loop of it;
-    without (a model too large to hold twice), the loop's tokens from (b)
-    against an eager loop of the same model. The eager loop is timed
-    beside the captured one, and the decode ms a step stands beside
-    ``bound_ms``. (d) the token-by-token prefill of a second loop, built
-    with every layer's inputs and outputs recorded into its captured step,
+    64 tokens, every ``generate`` under the sync guard and with tracing on
+    for its token gaps), its decode step captured once, when the loop is
+    built, and replayed for every prompt and decode token; (c) with
+    ``swap``, a second model published to a ``ModelBank`` and polled in
+    (copied into the loop's params, no second capture), whose tokens must
+    equal an eager ``decode_step`` loop of it; without (a model too large
+    to hold twice), the loop's tokens from (b) against an eager loop of
+    the same model. The eager loop is timed beside the captured one, and
+    the decode ms a step stands beside ``bound_ms``. (d) the
+    token-by-token prefill of a second loop, built with every layer's
+    inputs and outputs recorded into its captured step,
     against the kernel prefill at ``tol``: every layer on the same inputs
     and, when ``end_to_end``, the last-prompt logits. Otherwise the
     logits' distance is recorded beside that of ``prefill(impl="ref")``,
@@ -3130,6 +3136,7 @@ def _loop_swap(torch, dev, cfg, params, g, tol, tag, bound_ms,
     least drop-free MoE capacity factor, ``ceil(n_experts / top_k)``, where
     the model has experts: which tokens a capacity drops depends on how
     many tokens a call sees. Returns the record."""
+    from repro_torch import spans
     from repro_torch.analysis import guards
     from repro_torch.models import transformer as tr
     from repro_torch.serving import ModelBank, ServeLoop
@@ -3147,8 +3154,12 @@ def _loop_swap(torch, dev, cfg, params, g, tol, tag, bound_ms,
 
     def served(prompts, new):
         before = loop.replay_count()
-        with guards.no_transfer(dev):
-            gen, st = loop.generate(prompts, new)
+        spans.enable()                  # generate's step_ms: the token gaps
+        try:
+            with guards.no_transfer(dev):
+                gen, st = loop.generate(prompts, new)
+        finally:
+            spans.disable()
         replays.append(loop.replay_count() - before)
         check(replays[-1] == prompts.shape[1] + new,
               f"{tag}b: {replays[-1]} replays in a generate of "
@@ -3250,6 +3261,7 @@ def _loop_swap(torch, dev, cfg, params, g, tol, tag, bound_ms,
                      "decode_s": [x["decode_s"] for x in stats],
                      "decode_ms_per_step": [1e3 * x["decode_s"] / new
                                             for x in stats],
+                     "token_gap_ms": [_gaps(x["step_ms"]) for x in stats],
                      "bound_ms_per_step": bound_ms,
                      "decode_tokens_per_s": [x["tokens_per_s"]
                                              for x in stats],
@@ -4295,16 +4307,16 @@ def _counts_since(before):
 
 
 def _round_record(torch, rf, dev, seconds, aux, counts):
-    """One pod round's numbers on this rank."""
-    ev = rf.events
+    """One pod round's numbers on this rank (the device split from aux:
+    tracing on, ``_pod15_full``)."""
     st = dict(rf.aggregate.pod.stats)
     split = {op: {part: st.get(f"{op}_{part}", 0.0)
                   for part in ("d2h_s", "wire_s", "h2d_s", "bytes",
                                "calls")}
              for op in ("all_reduce", "new_avg", "gather")}
     return {"seconds": seconds,
-            "epochs_ms": ev[0].elapsed_time(ev[1]) if ev else None,
-            "finalize_ms": ev[1].elapsed_time(ev[2]) if ev else None,
+            "epochs_ms": aux["epochs_ms"],
+            "finalize_ms": aux["finalize_ms"],
             "losses": aux["losses"].cpu().tolist(),
             "rel": float(aux["rel"]), "launches": counts,
             "collectives": split,
@@ -4316,6 +4328,7 @@ def _pod15_full(torch, rank, world, pmesh, dev, out_dir, cfg):
     """15(a) on one rank: fused int8, FullAverage, 2 rounds through
     ``make_fused_round_step(mesh=)``; rank 0 saves its params after each
     round for the parent's simulation."""
+    from repro_torch import spans
     from repro_torch.configs.base import CoLearnConfig
     from repro_torch.core import flatbuf
     from repro_torch.kernels import ops
@@ -4340,7 +4353,11 @@ def _pod15_full(torch, rank, world, pmesh, dev, out_dir, cfg):
         pod.reset_stats()
         before = ops.launch_counts()
         t0 = time.perf_counter()
-        local, _, aux = rf(local, (), batches, i)
+        spans.enable()              # the round's epochs / finalize split
+        try:
+            local, _, aux = rf(local, (), batches, i)
+        finally:
+            spans.disable()
         _sync(torch, dev)
         rec = _round_record(torch, rf, dev, time.perf_counter() - t0, aux,
                             _counts_since(before))
@@ -4746,7 +4763,8 @@ def _run16(torch, dev, cfg, remat, data, launches_out, models, compare):
                     torch.cuda.get_sync_debug_mode())
                 return held["guard"](*a)
         return call
-    split = _round_events(torch, learner, wrap=guarded)
+    split = _round_events(torch, learner)
+    learner._runner._round = guarded(learner._runner._round)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()

@@ -56,6 +56,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.core import averaging, compression, flatbuf
 from repro_torch.core import engine as engine_mod
 from repro_torch.core import topology as topo_mod
@@ -1573,10 +1574,12 @@ class _FusedRunner:
             load("wire")
         self.graphs = GraphSet(dev)
         lead = 3 if self._stateful else 2
+        # the round graph's epochs / finalize split (read while tracing)
+        self._marks = spans.marks(dev)
         rnd = engine_mod.make_fused_round(
             learner.loss_fn, learner.opt, lr_fn=self._traced_lr,
             aggregate_fn=learner._aggregate_fn, masked=self._masked,
-            live=self._live, stateful=self._stateful)
+            live=self._live, stateful=self._stateful, marks=self._marks)
         epochs = engine_mod.make_fused_epochs(
             learner.loss_fn, learner.opt, lr_fn=self._traced_lr,
             masked=self._masked, live=self._live)
@@ -1651,23 +1654,24 @@ class _FusedRunner:
                 [epoch_batches_fn(i, j) for j in range(j0, j0 + C)], dev)
 
         # the staging: every host-to-device transfer of the round
-        sched = learner.schedule.device_round_params(i, dev)
-        ints = engine_mod.stage(
-            [state["global_epoch"], learner.epochs_budget(state), T_i]
-            + [j0 for j0, _ in chunks], np.int32, dev)
-        delta = (engine_mod.stage(learner._round_delta(state), np.float32,
-                                  dev) if gated else None)
-        live_h = (engine_mod.stage(live_np, np.float32, dev) if self._live
-                  else None)
-        agg_w = learner.round_weights(i, state)
-        batches = staged(*chunks[0])
+        with spans.span("rt.round.stage"):
+            sched = learner.schedule.device_round_params(i, dev)
+            ints = engine_mod.stage(
+                [state["global_epoch"], learner.epochs_budget(state), T_i]
+                + [j0 for j0, _ in chunks], np.int32, dev)
+            delta = (engine_mod.stage(learner._round_delta(state),
+                                      np.float32, dev) if gated else None)
+            live_h = (engine_mod.stage(live_np, np.float32, dev)
+                      if self._live else None)
+            agg_w = learner.round_weights(i, state)
+            batches = staged(*chunks[0])
         # the batch mask and the liveness row follow the batches
         mask = (() if not self._masked else (learner.batch_mask,)) + (
             (self._live_row,) if self._live else ())
         live = (self._live_row,) if self._live else ()
         lead = ((state["params"], state["opt"], state["residual"])
                 if self._stateful else (state["params"], state["opt"]))
-        with self.graphs.no_sync():
+        with spans.span("rt.round.replay"), self.graphs.no_sync():
             self._sched["kind"].copy_(sched["kind"])
             self._sched["p"].copy_(sched["p"])
             for buf, k in ((self._ge0, 0), (self._total, 1), (self._T, 2)):
@@ -1700,7 +1704,10 @@ class _FusedRunner:
                 else:
                     last = self._finalize(*lead, prev_avg, *live, agg_w)
             fetch = torch.cat([losses.reshape(-1), lrs, last.reshape(-1)])
-        host = fetch.cpu().numpy()            # the round's (first) host sync
+        with spans.span("rt.round.fetch"):
+            host = fetch.cpu().numpy()        # the round's (first) host sync
+        # the graph's marks are done with the fetch: no sync of their own
+        split = spans.between(self._marks) if single else None
         losses = host[:T_i * K].reshape(T_i, K)
         lrs = host[T_i * K:T_i * K + T_i]
         synced = not gated or bool(host[-1])
@@ -1714,12 +1721,14 @@ class _FusedRunner:
             rel = float("inf") if first else rel_h
         else:
             rel = float("inf") if first else float(host[-1])
-        return learner._finish_round(
-            state, i, T_i, rel, _live_loss_means(losses, live_np),
-            float(lrs[0]),
-            float(lrs[-1]), state["params"], state["opt"], prev_avg,
-            synced=synced,
-            residual=state["residual"] if self._stateful else None)
+        with spans.span("rt.round.finish"):
+            return learner._finish_round(
+                state, i, T_i, rel, _live_loss_means(losses, live_np),
+                float(lrs[0]),
+                float(lrs[-1]), state["params"], state["opt"], prev_avg,
+                synced=synced,
+                residual=state["residual"] if self._stateful else None,
+                device_ms=split)
 
 
 # ---------------------------------------------------------------------------

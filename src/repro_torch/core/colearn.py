@@ -49,6 +49,11 @@ class RoundLog:
     comm_bytes: int          # 0 on rounds a gated sync policy skipped
     synced: bool = True
     live: int = -1           # live participants this round (K: static)
+    # device ms of the round's local epochs and of its finalize (Eq. 2,
+    # Eq. 4): a fused round replayed as one graph while tracing is on
+    # (``repro_torch.spans``); None otherwise
+    epochs_ms: float | None = None
+    finalize_ms: float | None = None
 
 
 @dataclass
@@ -310,14 +315,15 @@ class CoLearner:
 
     def _finish_round(self, state, i, T_i, rel, local_losses, lr_first,
                       lr_last, averaged, fresh_opt, new_avg, synced=True,
-                      residual=None):
+                      residual=None, device_ms=None):
         """The one round state transition (opt state is reset, not
         averaged: local training restarts from the shared model). On a
         round a gated policy skipped (``synced=False``) the runner passes
         the untouched local params and optimizer state, the unchanged
         sync reference and the divergence as ``rel``, and the round bills
         zero bytes. A round-independent bill is priced once per learner;
-        under active churn the live set moves the bill every round."""
+        under active churn the live set moves the bill every round.
+        ``device_ms``: the round's (epochs ms, finalize ms), or None."""
         state["params"], state["opt"] = averaged, fresh_opt
         state["prev_avg"] = new_avg
         if residual is not None:
@@ -344,9 +350,11 @@ class CoLearner:
         else:
             comm = self.aggregator.comm_bytes(self.codec, state["params"], i)
         state["round"] = i + 1
+        epochs_ms, finalize_ms = device_ms or (None, None)
         state["log"].append(RoundLog(i, T_i, lr_first, lr_last, rel,
                                      local_losses, comm, synced,
-                                     live=n_live))
+                                     live=n_live, epochs_ms=epochs_ms,
+                                     finalize_ms=finalize_ms))
         return state
 
     # handles on the fused engine's captured functions (their ``captures``

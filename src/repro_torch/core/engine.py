@@ -66,6 +66,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.core import averaging, flatbuf
 from repro_torch.core.collectives import PodAxis, plain
 from repro_torch.core.schedule import (divergence_sums, divergence_tensor,
@@ -562,7 +563,7 @@ def _bind_mask_live(body, masked, live, stateful=False):
 def make_fused_round(loss_fn, opt, *, lr_fn=None, compress_fn=None,
                      spmd_axis_name=None, average_fn=None, aggregate_fn=None,
                      gated=False, gate_fn=None, masked=False, live=False,
-                     stateful=False):
+                     stateful=False, marks=None):
     """The whole round: epoch loop + aggregation + Eq. 4.
 
     ``loss_fn(params, batch) -> (loss, aux)`` for ONE participant; ``opt``
@@ -602,7 +603,12 @@ def make_fused_round(loss_fn, opt, *, lr_fn=None, compress_fn=None,
     rank's ``(1, ...)`` slice, the liveness row and the mixing matrix the
     whole ``(K,)`` / ``(K, K)``; aux["losses"] is the whole ``(C, K)``, and
     ``new_avg`` (in ``old_avg``'s storage on every rank) the first live
-    rank's row. The collectives make this form eager."""
+    rank's row. The collectives make this form eager.
+
+    ``marks`` (ungated): ``spans.marks``' three events, recorded at the
+    round's start, after the epochs and after the finalize; captured into
+    the round's graph, every replay records them (``spans.between`` reads
+    the epochs / finalize split)."""
     scan_epochs = _make_epoch_scan(make_epoch_fn(loss_fn, opt, masked=masked,
                                                  live=live),
                                    lr_fn or switch_lr)
@@ -647,11 +653,14 @@ def make_fused_round(loss_fn, opt, *, lr_fn=None, compress_fn=None,
 
     def round_body(params, opt_state, residual, batches, mask, live_row,
                    old_avg, ge0, sched, total, agg_weights=None):
+        spans.record(marks, 0)
         (params, opt_state), (losses, lrs) = epochs_from_zero(
             params, opt_state, batches, mask, live_row, ge0, sched, total)
+        spans.record(marks, 1)
         res_in = (residual,) if stateful else ()
         out = finalize(params, opt_state, *res_in, old_avg,
                        *live_args(live_row), agg_weights)
+        spans.record(marks, 2)
         aux = {"losses": losses, "lrs": lrs, "rel": out[2],
                "new_avg": out[3]}
         if stateful:

@@ -33,6 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.configs.base import InputShape
 from repro_torch.core.collectives import PodAxis, axis_sizes, plain
 from repro_torch.models import transformer as tr
@@ -260,9 +261,12 @@ def make_fused_round_step(cfg, ccfg, *, optimizer="sgd", impl="ref",
     mask and liveness entry are copied in) and the finalize runs eagerly:
     a gloo collective goes through the host and cannot be recorded in a
     CUDA graph. ``round_fn.graphs`` is the step's ``GraphSet`` and
-    ``round_fn.aggregate`` its aggregate (``.pod.stats`` on the pod); on
-    the card ``round_fn.events`` holds the last round's three CUDA events
-    (start, epochs done, finalize done).
+    ``round_fn.aggregate`` its aggregate (``.pod.stats`` on the pod).
+    While tracing is on (``repro_torch.spans``) and on the card, aux
+    carries the round's ``epochs_ms`` and ``finalize_ms`` (device ms,
+    from ``spans.marks``' three events, the same fields as
+    ``RoundLog``'s; reading them waits for the round's end), None
+    otherwise.
 
     On a mesh with intra-pod axes (``("pod", "data", "model")`` with
     ``data`` or ``model`` > 1) a rank's rows, batches and round state are
@@ -308,6 +312,7 @@ def make_fused_round_step(cfg, ccfg, *, optimizer="sgd", impl="ref",
     finalize = eng.make_fused_finalize(opt, aggregate_fn=agg, live=live,
                                        stateful=stateful)
     graphs = GraphSet(dev)
+    marks = spans.marks(dev)
     copied = tuple(range(2, 3 + int(masked) + int(live)))
     intra = mesh is not None and any(
         s > 1 for n, s in axis_sizes(mesh).items() if n != pod.axis)
@@ -359,10 +364,8 @@ def make_fused_round_step(cfg, ccfg, *, optimizer="sgd", impl="ref",
             old_avg = tree_map(lambda t: t[0].clone() if first
                                else torch.empty_like(t[0]), params)
             own = pod.local(live_row)
-        events = ([torch.cuda.Event(enable_timing=True) for _ in range(3)]
-                  if dev.type == "cuda" else None)
-        if events:
-            events[0].record()
+        timed = marks if spans.enabled() else None
+        spans.record(timed, 0)
         with (allow_sync() if intra else graphs.no_sync()):
             for buf, x in ((ge0_buf, ge0), (total_buf, total), (T, T_i)):
                 buf.copy_(x)
@@ -373,22 +376,24 @@ def make_fused_round_step(cfg, ccfg, *, optimizer="sgd", impl="ref",
                 *((own,) if live else ()), j0, T, ge0_buf, sched_buf,
                 total_buf)
             losses, lrs = losses.clone(), lrs.clone()
-            if events:
-                events[1].record()
+            spans.record(timed, 1)
         if pod is not None:
             losses = pod.gather_columns(losses)
         out = finalize(params, opt_state, *((residual,) if stateful else ()),
                        old_avg, *((live_row,) if live else ()), agg_w)
-        if events:
-            events[2].record()
-        round_fn.events = events
+        spans.record(timed, 2)
+        split = (None, None)
+        if timed is not None:
+            timed[2].synchronize()
+            split = spans.between(timed)
         aux = {"losses": losses, "lrs": lrs, "rel": out[2],
-               "new_avg": out[3]}
+               "new_avg": out[3], "epochs_ms": split[0],
+               "finalize_ms": split[1]}
         if stateful:
             aux["residual"] = out[4]
         return out[0], out[1], aux
 
-    round_fn.graphs, round_fn.aggregate, round_fn.events = graphs, agg, None
+    round_fn.graphs, round_fn.aggregate = graphs, agg
     return round_fn
 
 

@@ -14,13 +14,16 @@ k = 2 weighted rows, whose sum does not depend on their order). The router
 runs in f32; the aux loss is the Switch E * sum f_e P_e. The expert
 products are plain batched matmuls (``torch.einsum``), as the reference
 leaves them to XLA; the sharding hints are ``constrain`` at the
-reference's four sites.
+reference's four sites. Spans (``repro_torch.spans``): ``rt.moe.route``
+(the router and the dispatch), ``rt.moe.experts`` (the expert products),
+``rt.moe.combine``.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import spans
 from repro_torch.models.layers import trunc_normal
 from repro_torch.sharding.constrain import constrain, dp_size, local_call
 
@@ -129,45 +132,49 @@ def moe_apply(p, x, cfg):
     E, k = cfg.n_experts, cfg.top_k
     xt = x.reshape(T, D)
 
-    logits = xt.float() @ p["router"]
-    probs = torch.softmax(logits, dim=-1)                       # (T,E)
-    top_p, top_i = torch.topk(probs, k, dim=-1)                 # (T,k)
-    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+    with spans.span("rt.moe.route"):
+        logits = xt.float() @ p["router"]
+        probs = torch.softmax(logits, dim=-1)                   # (T,E)
+        top_p, top_i = torch.topk(probs, k, dim=-1)             # (T,k)
+        top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
 
-    # ---- grouped sort-based dispatch ---------------------------------------
-    G = n_groups(T, E)
-    Tg = T // G
-    cap = capacity(Tg, cfg)
-    if G % dp_size(xt):
-        # fewer groups than the batch axes hold row shards (a decode
-        # step's few tokens): DTensor cannot cut sharded rows into them
-        xt, top_i, top_p = (constrain(t, ("r", None))
-                            for t in (xt, top_i, top_p))
-    xg = constrain(xt.reshape(G, Tg, D), ("dp", None, None))
-    ge = top_i.reshape(G, Tg * k)                               # expert ids
-    gp = top_p.reshape(G, Tg * k)
-    grp, grp4 = ("dp", None), ("dp", None, None, None)
-    buf, order, dest, keep = local_call(
-        lambda a, b: _dispatch(a, b, E, cap, k), (xg, ge),
-        (("dp", None, None), grp), (grp4, grp, grp, grp))
-    buf = constrain(buf, ("dp", "model", None, None))
+        # ---- grouped sort-based dispatch -----------------------------------
+        G = n_groups(T, E)
+        Tg = T // G
+        cap = capacity(Tg, cfg)
+        if G % dp_size(xt):
+            # fewer groups than the batch axes hold row shards (a decode
+            # step's few tokens): DTensor cannot cut sharded rows into them
+            xt, top_i, top_p = (constrain(t, ("r", None))
+                                for t in (xt, top_i, top_p))
+        xg = constrain(xt.reshape(G, Tg, D), ("dp", None, None))
+        ge = top_i.reshape(G, Tg * k)                           # expert ids
+        gp = top_p.reshape(G, Tg * k)
+        grp, grp4 = ("dp", None), ("dp", None, None, None)
+        buf, order, dest, keep = local_call(
+            lambda a, b: _dispatch(a, b, E, cap, k), (xg, ge),
+            (("dp", None, None), grp), (grp4, grp, grp, grp))
+        buf = constrain(buf, ("dp", "model", None, None))
 
     # ---- expert compute (G on the batch axes, E on model) -------------------
-    grp_e, per_e = ("dp", "model", None, None), ("model", None, None)
-    h = local_call(_expert_up, (buf, p["wi"], p["wg"]),
-                   (grp_e, per_e, per_e), grp_e)
-    del buf
-    h = constrain(h, grp_e)
-    out = local_call(_expert_down, (h, p["wo"]), (grp_e, per_e), grp_e)
-    del h
-    # gather experts per group (before E and cap merge: a DTensor view
-    # cannot merge a sharded dim)
-    out = constrain(out, ("dp", "r", None, None)).reshape(G, E * cap, D)
+    with spans.span("rt.moe.experts"):
+        grp_e, per_e = ("dp", "model", None, None), ("model", None, None)
+        h = local_call(_expert_up, (buf, p["wi"], p["wg"]),
+                       (grp_e, per_e, per_e), grp_e)
+        del buf
+        h = constrain(h, grp_e)
+        out = local_call(_expert_down, (h, p["wo"]), (grp_e, per_e), grp_e)
+        del h
+        # gather experts per group (before E and cap merge: a DTensor view
+        # cannot merge a sharded dim)
+        out = constrain(out, ("dp", "r", None, None)).reshape(G, E * cap, D)
 
     # ---- combine (group-local gather + weighted scatter-add) ----------------
-    y = local_call(lambda *a: _combine(*a, k), (out, gp, order, dest, keep),
-                   (("dp", None, None), grp, grp, grp, grp),
-                   ("dp", None, None)).reshape(B, S, D)
+    with spans.span("rt.moe.combine"):
+        y = local_call(lambda *a: _combine(*a, k),
+                       (out, gp, order, dest, keep),
+                       (("dp", None, None), grp, grp, grp, grp),
+                       ("dp", None, None)).reshape(B, S, D)
 
     # ---- shared experts (always-on, DeepSeek-style) --------------------------
     if "shared" in p:

@@ -28,12 +28,17 @@ xLSTM. The cache is a list of segments, each
 allocated for real (JAX broadcasts one layer's zeros) because
 ``decode_step`` updates it in place; ``reset_cache_`` gives it back its
 initial values in place.
+
+Spans (``repro_torch.spans``, off by default): ``rt.embed``, each layer's
+``rt.mixer.<kind>`` (its norm, mixer and residual) and ``rt.ffn.<kind>``
+(its FFN half), ``rt.head``, and ``rt.prefill`` around a prefill.
 """
 from __future__ import annotations
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import spans
 from repro_torch.device import MetaGenerator, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mam
@@ -61,6 +66,10 @@ _MIXER_CACHE_RESET = {"gqa": attn.attn_cache_reset_,
                       "mamba": mam.mamba_state_reset_,
                       "mlstm": xl.mlstm_state_reset_,
                       "slstm": xl.slstm_state_reset_}
+_MIXER_SPAN = {"gqa": "rt.mixer.attention", "mla": "rt.mixer.mla",
+               "mamba": "rt.mixer.mamba", "mlstm": "rt.mixer.mlstm",
+               "slstm": "rt.mixer.slstm"}
+_FFN_SPAN = {f: "rt.ffn." + f for f in ("dense", "moe", "moe_dense")}
 
 
 def _check_kind(kind):
@@ -98,8 +107,10 @@ def layer_init(gen, kind, cfg, dtype, stack=()):
 def _ffn_residual(p, kind, x, cfg):
     """The FFN half of a layer -> (x, the MoE aux loss or None)."""
     ffn = kind.split(":")[1]
+    if ffn == "-":
+        return x, None
     aux = None
-    if ffn != "-":
+    with spans.span(_FFN_SPAN[ffn]):
         h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
         if ffn == "dense":
             y = ffn_apply(p["ffn"], h)
@@ -108,25 +119,26 @@ def _ffn_residual(p, kind, x, cfg):
         else:
             y, aux = moe_mod.moe_apply(p["ffn"]["moe"], h, cfg)
             y = y + ffn_apply(p["ffn"]["dense"], h)
-        x = x + y
-    return x, aux
+        return x + y, aux
 
 
 def layer_apply(p, kind, x, cfg, positions, impl="ref"):
     """One layer over a whole sequence -> (x, aux loss)."""
     mixer = kind.split(":")[0]
-    h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
-    if mixer == "gqa":
-        y, _ = attn.attn_apply(p["mixer"], h, cfg, positions, impl)
-    elif mixer == "mla":
-        y, _ = mla_mod.mla_apply(p["mixer"], h, cfg, positions, impl)
-    elif mixer == "mamba":
-        y = mam.mamba_apply(p["mixer"], h, cfg, impl)
-    elif mixer == "mlstm":
-        y = xl.mlstm_apply(p["mixer"], h, cfg, impl)
-    else:
-        y = xl.slstm_apply(p["mixer"], h, cfg, impl)
-    x, aux = _ffn_residual(p, kind, x + y, cfg)
+    with spans.span(_MIXER_SPAN[mixer]):
+        h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
+        if mixer == "gqa":
+            y, _ = attn.attn_apply(p["mixer"], h, cfg, positions, impl)
+        elif mixer == "mla":
+            y, _ = mla_mod.mla_apply(p["mixer"], h, cfg, positions, impl)
+        elif mixer == "mamba":
+            y = mam.mamba_apply(p["mixer"], h, cfg, impl)
+        elif mixer == "mlstm":
+            y = xl.mlstm_apply(p["mixer"], h, cfg, impl)
+        else:
+            y = xl.slstm_apply(p["mixer"], h, cfg, impl)
+        x = x + y
+    x, aux = _ffn_residual(p, kind, x, cfg)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return constrain(x, ("dp", "r", "r")), aux
@@ -152,10 +164,12 @@ def layer_decode(p, kind, x, cfg, cache, pos):
     """One token through one layer; ``cache`` is updated in place. The
     MoE aux loss is dropped, as in the reference."""
     _check_kind(kind)
-    h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
-    y, cache = _MIXER_DECODE[kind.split(":")[0]](p["mixer"], h, cfg, cache,
-                                                 pos)
-    x, _ = _ffn_residual(p, kind, x + y, cfg)
+    mixer = kind.split(":")[0]
+    with spans.span(_MIXER_SPAN[mixer]):
+        h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
+        y, cache = _MIXER_DECODE[mixer](p["mixer"], h, cfg, cache, pos)
+        x = x + y
+    x, _ = _ffn_residual(p, kind, x, cfg)
     return x, cache
 
 
@@ -255,7 +269,8 @@ def forward(params, cfg, batch, impl="ref", remat=True, return_hidden=False,
     ``jax.checkpoint`` does nothing outside differentiation. With
     ``remat=False`` every layer's activations are kept."""
     _check_supported(cfg)
-    x = embed_inputs(params, cfg, batch)
+    with spans.span("rt.embed"):
+        x = embed_inputs(params, cfg, batch)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
@@ -274,8 +289,9 @@ def forward(params, cfg, batch, impl="ref", remat=True, return_hidden=False,
     h = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     logits = None
     if apply_head:
-        logits = lm_head_apply(params["embed"], params.get("head"), h,
-                               cfg.tie_embeddings)
+        with spans.span("rt.head"):
+            logits = lm_head_apply(params["embed"], params.get("head"), h,
+                                   cfg.tie_embeddings)
         logits = constrain(logits, ("dp", "r", "model"))  # vocab sharded
     if return_hidden:
         return logits, aux, h
@@ -380,11 +396,13 @@ def prefill(params, cfg, batch, impl="ref"):
     """Full-sequence forward -> last-position logits (B, V). The LM head
     is applied to the last position only, as in the JAX package: the
     whole (B, S, V) logits would dominate a long prefill."""
-    _, _, h = forward(params, cfg, batch, impl, remat=False,
-                      return_hidden=True, apply_head=False)
-    logits = lm_head_apply(params["embed"], params.get("head"), h[:, -1:],
-                           cfg.tie_embeddings)
-    return constrain(logits, ("dp", "r", "model"))[:, 0]
+    with spans.span("rt.prefill"):
+        _, _, h = forward(params, cfg, batch, impl, remat=False,
+                          return_hidden=True, apply_head=False)
+        with spans.span("rt.head"):
+            logits = lm_head_apply(params["embed"], params.get("head"),
+                                   h[:, -1:], cfg.tie_embeddings)
+        return constrain(logits, ("dp", "r", "model"))[:, 0]
 
 
 def count_params(params):

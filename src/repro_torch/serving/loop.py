@@ -30,6 +30,13 @@ returns a clone, and ``generate`` takes the argmax before the next
 replay. On the CPU (only when asked for) the same step runs uncaptured
 through ``GraphSet``'s CPU path. ``generate`` synchronises once, at its
 end, for its timing (where JAX calls ``block_until_ready``).
+
+Spans (``repro_torch.spans``, off by default): ``rt.serve.prefill`` and
+``rt.serve.decode`` around ``generate``'s two phases and ``rt.serve.step``
+around each replay. While tracing is on, ``generate`` records one CUDA
+event after each decode replay and its stats carry ``step_ms``: the
+device ms between consecutive decode replays' ends (``new_tokens - 1``
+gaps).
 """
 from __future__ import annotations
 
@@ -37,6 +44,7 @@ import time
 
 import torch
 
+from repro_torch import spans
 from repro_torch.analysis import guards
 from repro_torch.core.graphs import GraphSet
 from repro_torch.device import resolve_device
@@ -104,7 +112,9 @@ class ServeLoop:
         self.batches_served = 0
 
     def _run_step(self):
-        return self._step(self.params, self._cache, self._token, self._pos)
+        with spans.span("rt.serve.step"):
+            return self._step(self.params, self._cache, self._token,
+                              self._pos)
 
     # -- hot swap ------------------------------------------------------------
     def compile_count(self) -> int:
@@ -176,7 +186,10 @@ class ServeLoop:
         """Greedy-decode ``new_tokens`` continuations for a prompt batch.
 
         Returns ``(tokens (B, new_tokens), stats)`` where stats carries
-        prefill/decode wall seconds, tokens/s, and the served version.
+        prefill/decode wall seconds, tokens/s, and the served version;
+        while tracing is on (``repro_torch.spans``) and on a card, also
+        ``step_ms``, the device ms between consecutive decode replays'
+        ends.
         """
         prompts = torch.as_tensor(prompts, device=self.device)
         B, P = prompts.shape
@@ -189,16 +202,22 @@ class ServeLoop:
                 "past the cache")
         self._sync()
         t0 = time.perf_counter()
-        logits, _ = self.prefill(prompts)
+        with spans.span("rt.serve.prefill"):
+            logits, _ = self.prefill(prompts)
         self._sync()
         t1 = time.perf_counter()
-        out = []
+        out, ends = [], []
+        stamped = spans.enabled() and self.device.type == "cuda"
         tok = torch.argmax(logits, -1)
-        for i in range(new_tokens):
-            out.append(tok)
-            self._token.copy_(tok)
-            self._pos.copy_(self._positions[P + i])
-            tok = torch.argmax(self._run_step(), -1)
+        with spans.span("rt.serve.decode"):
+            for i in range(new_tokens):
+                out.append(tok)
+                self._token.copy_(tok)
+                self._pos.copy_(self._positions[P + i])
+                logits = self._run_step()
+                if stamped:
+                    ends.append(spans.stamp(self.device))
+                tok = torch.argmax(logits, -1)
         gen = torch.cat(out, dim=1)
         self._sync()
         t2 = time.perf_counter()
@@ -210,6 +229,9 @@ class ServeLoop:
                  "tokens_per_s": B * new_tokens / decode_s,
                  "version": self.version,
                  "compile_count": self.compile_count()}
+        if stamped:
+            stats["step_ms"] = [a.elapsed_time(b)
+                                for a, b in zip(ends, ends[1:])]
         return gen, stats
 
 

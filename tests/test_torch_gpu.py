@@ -1601,3 +1601,111 @@ def test_gpu_remat_nests_with_chunked_scan(cuda):
                                atol=1e-5)
     for a, b in zip(res[True][1], res[False][1]):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# Program spans on the card (repro_torch.spans): the device clocks.
+# ---------------------------------------------------------------------------
+@pytest.mark.gpu
+def test_gpu_round_marks_split_the_replay(cuda):
+    """A replayed round's ``epochs_ms + finalize_ms`` (the marks captured
+    inside its graph) lies within 2% of CUDA events around the whole
+    replay; with tracing off the log carries None, and a round captured
+    with tracing on reads its split too. A spin kernel runs before the
+    first outer event, so the host has launched the graph by the time the
+    device reaches it: the outer events then hold the replay's device
+    time, not the launch's host latency."""
+    from repro_torch import spans
+    from repro_torch.configs.base import CoLearnConfig
+    from repro_torch.core import api
+    from repro_torch.core.colearn import CoLearner
+    from repro_torch.launch.train import (build_data, epoch_batches_fn,
+                                          make_loss_fn)
+    cfg, _, params = _fused_setup()
+    data = build_data(cfg, 3, 8, 128, 3 * 8 * 4, seed=0)
+    learner = CoLearner(
+        CoLearnConfig(n_participants=3, T0=1, eta0=0.05, epochs_rule="fle",
+                      max_rounds=4),
+        make_loss_fn(cfg), codec=api.get_codec("fused"),
+        round_engine="fused", device=cuda)
+    state = learner.init(params)
+    batches = epoch_batches_fn(data, cuda, 4)
+    spans.enable()
+    try:
+        state = learner.run_round(state, batches)       # the capture
+    finally:
+        spans.disable()
+    log = state["log"][-1]
+    assert log.epochs_ms > 0 and log.finalize_ms > 0
+    state = learner.run_round(state, batches)
+    assert state["log"][-1].epochs_ms is None
+    runner = learner._runner
+    graph = runner._round
+    outer = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+    def timed(*a):
+        torch.cuda._sleep(10_000_000)
+        outer[0].record()
+        out = graph(*a)
+        outer[1].record()
+        return out
+    runner._round = timed
+    spans.enable()
+    try:
+        for _ in range(2):
+            state = learner.run_round(state, batches)
+    finally:
+        spans.disable()
+        runner._round = graph
+    log = state["log"][-1]
+    whole = outer[0].elapsed_time(outer[1])
+    assert log.epochs_ms > 0 and log.finalize_ms > 0
+    assert abs(log.epochs_ms + log.finalize_ms - whole) <= 0.02 * whole, (
+        log.epochs_ms, log.finalize_ms, whole)
+    assert graph.replays == 3
+
+
+@pytest.mark.gpu
+def test_gpu_generate_step_ms_and_timed_prefill_spans(cuda):
+    """While tracing, ``generate``'s stats carry ``new - 1`` positive
+    token gaps, and under a profiler kineto mirrors a prefill's spans on
+    the device's timeline, which times them: one ``rt.prefill`` mirror,
+    a positive ``rt.mixer.*`` and ``rt.ffn.*`` mirror per layer, each
+    inside it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import spans
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.serving import ServeLoop
+    cfg, params, prompts = _serve_setup(cuda, "jamba-v0.1-52b")
+    loop = ServeLoop(cfg, params, batch=2, max_seq=16, device=cuda)
+    new = 5
+    _, off = loop.generate(prompts, new)
+    assert "step_ms" not in off
+    step = make_prefill_step(cfg, impl="kernel")
+    step(params, {"tokens": prompts})                   # warm-up
+    torch.cuda.synchronize()
+    spans.enable()
+    try:
+        _, on = loop.generate(prompts, new)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step(params, {"tokens": prompts})
+            torch.cuda.synchronize()
+    finally:
+        spans.disable()
+    assert len(on["step_ms"]) == new - 1 and min(on["step_ms"]) > 0
+    def ns(e):
+        if hasattr(e, "start_ns"):
+            return e.start_ns(), e.start_ns() + e.duration_ns()
+        return 1000 * e.start_us(), 1000 * (e.start_us() + e.duration_us())
+    mirrors = [(e.name(), *ns(e))
+               for e in prof.profiler.kineto_results.events()
+               if e.device_type() != DeviceType.CPU
+               and e.name().startswith("rt.")]
+    (lo, hi), = [(a, b) for n, a, b in mirrors if n == "rt.prefill"]
+    n_layers = sum(len(p) * n for p, n in cfg.segments)
+    for part in ("rt.mixer.", "rt.ffn."):
+        mine = [(a, b) for n, a, b in mirrors if n.startswith(part)]
+        assert len(mine) == n_layers, (part, mirrors)
+        assert all(lo <= a < b <= hi for a, b in mine)
