@@ -8,7 +8,7 @@ Phases:
   1. device: name, capability (must be 9.0), power limit, versions;
   2. build the kernels from ``src/repro_torch/kernels/csrc`` (one nvcc per
      source, all started together);
-  3. each kernel (K1-K7) against its plain PyTorch version on the card
+  3. each kernel (K1-K8) against its plain PyTorch version on the card
      at small odd shapes and at the main path's shapes (K5 at
      internlm2-1.8b's and jamba-v0.1-52b's attention and at phase 13's:
      arctic-480b's 56 / 8 heads, qwen1.5-32b's MHA 40 / 40 and
@@ -28,7 +28,13 @@ Phases:
      three ways (``SS_REGIMES``) and reports its registers, its SASS
      instructions per state update (``cuobjdump``), the share of its exps
      on the SFU (MUFU.EX2 in that loop), and the SFU's exp time beside its
-     byte bound;
+     byte bound. K8 (decode attention) is held at 1e-5 for G 1-8 and hd
+     32 / 64 / 128 around its 64-slot chunks and a wrapped window, and
+     timed at the decode cell's shape (B 32, S 512, 16 / 8 heads of 128)
+     at positions 127, 256 and 511 with the L2 cache refilled before
+     each run, beside its byte bound, the plain version and
+     ``F.scaled_dot_product_attention(enable_gqa=True)`` over the valid
+     slots (the library yardstick);
   4. a small Algorithm 1 run (smoke config, K=3, 3 rounds, fused codec)
      through the fused engine: the card's captured rounds (one capture,
      two replays, each window under ``set_sync_debug_mode("error")``, K3
@@ -342,6 +348,7 @@ WIRE_SRC = "src/repro_torch/kernels/csrc/wire.cu"
 FLASH_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
 MLSTM_SRC = "src/repro_torch/kernels/csrc/mlstm.cu"
 SCAN_SRC = "src/repro_torch/kernels/csrc/selective_scan.cu"
+DECODE_SRC = "src/repro_torch/kernels/csrc/decode_attention.cu"
 # name in ops.KERNELS: (tag, TPU kernel it replaces, source)
 KERNEL_META = {
     "wire_quantize": ("K1", "repro/kernels/quantize.py:99", WIRE_SRC),
@@ -354,6 +361,8 @@ KERNEL_META = {
     "selective_scan": ("K6", "repro/kernels/selective_scan.py:62",
                        SCAN_SRC),
     "mlstm": ("K7", "repro/kernels/mlstm.py:61", MLSTM_SRC),
+    "decode_attention": ("K8", "none (repro/models/attention.py "
+                         "decode_attend is plain jnp)", DECODE_SRC),
 }
 # K5 against its plain version: the JAX suite's tolerances
 # (tests/test_kernels.py: f32 2e-5, bf16 2e-2)
@@ -412,6 +421,18 @@ SS_SMALL = [(1, 64, 128, 8), (2, 128, 256, 16), (1, 256, 128, 4),
 SS_REGIMES = ("jax", "mamba_init", "strong")
 # K6 at the serving path's shape: jamba's d_inner and state, 8 x 2048
 SS_PATH = (8, 2048, 8192, 16)
+# K8 against its plain version (tests/test_torch_gpu.py). Small cases:
+# G 1-8 query heads a KV head at hd 32 / 64 / 128, S = 100 (not a multiple
+# of the 64-slot chunk), pos at 0, a chunk's last and the next chunk's first
+# slot, S - 1, and a sliding window's ring of 100 slots after it wraps
+DA_TOL = {"rtol": 1e-5, "atol": 1e-5}
+DA_SMALL = [(3, 100, G * 2, 2, hd) for G in (1, 2, 3, 4, 7, 8)
+            for hd in (32, 64, 128)]
+DA_POS = (0, 63, 64, 99)
+# K8 at the decode cell's shape (internlm2-1.8b, batch 32, max_seq 512:
+# B, S, H, KV, hd) at three positions
+DA_PATH = (32, 512, 16, 8, 128)
+DA_PATH_POS = (127, 256, 511)
 # depth of the full-width model: 16 of internlm2-1.8b's 24 layers. The
 # wire step at K=5 holds 12 model copies (5 stacked, the 5-row flat
 # buffer, the mean, prev_avg): 12 x 5.54 GB = 66.5 GB of the card's 80.
@@ -899,6 +920,104 @@ def phase_scan_small(torch, dev, errs):
                                    if k.endswith("float32")))
     say("kernels-small", kernel="selective_scan", shapes=SS_SMALL,
         max_abs_err=worst, tol=SS_TOL)
+
+
+def phase_decode_small(torch, dev, errs):
+    """K8 at small shapes against its plain version (``DA_SMALL`` at every
+    ``DA_POS``, then a wrapped sliding window)."""
+    from repro_torch.kernels import decode_attention as da, ref
+    g = torch.Generator(device=dev).manual_seed(17)
+    worst = 0.0
+    for B, S, H, KV, hd in DA_SMALL:
+        q = torch.randn((B, 1, H, hd), generator=g, device=dev)
+        k, v = (torch.randn((B, S, KV, hd), generator=g, device=dev)
+                for _ in range(2))
+        for p, window in [(p, 0) for p in DA_POS] + [(3 * S + 5, S)]:
+            pos = torch.tensor(p, dtype=torch.int32, device=dev)
+            kw = {"window": window, "softmax_scale": hd ** -0.5}
+            worst = max(worst, _close(
+                torch, da.decode_attention_fwd(q, k, v, pos, **kw),
+                ref.decode_attention_ref(q, k, v, pos, **kw), DA_TOL,
+                f"K8 {(B, S, H, KV, hd)} pos {p} window {window}"))
+    torch.cuda.synchronize()
+    errs["decode_attention"] = max(errs["decode_attention"], worst)
+    say("kernels-small", kernel="decode_attention", shapes=DA_SMALL,
+        positions=DA_POS, max_abs_err=worst, tol=DA_TOL)
+
+
+def cold_ms(torch, fn, reps=10, warmup=2):
+    """``cuda_ms`` with the L2 cache refilled before each timed run (a 256
+    MB read): in a decode step the other layers' weights pass through L2
+    between two calls of one layer's attention."""
+    flush = torch.zeros(1 << 26, dtype=torch.float32, device="cuda")
+
+    def run():
+        flush.sum()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b)
+    for _ in range(warmup):
+        run()
+    return statistics.median(run() for _ in range(reps))
+
+
+def phase_decode_full(torch, dev, errs, bw):
+    """K8 at the decode cell's shape (``DA_PATH``) at ``DA_PATH_POS``,
+    f32: against the plain version, timed (``cold_ms``) beside its byte bound
+    (the valid K and V rows read once, q read and the output written once),
+    the plain version (which repeats K and V over the whole cache) and the
+    library yardstick ``F.scaled_dot_product_attention(enable_gqa=True)``
+    over the valid slots, which the port never calls. Returns the record
+    at the middle position, with every position under ``positions``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da, ref
+    B, S, H, KV, hd = DA_PATH
+    g = torch.Generator(device=dev).manual_seed(19)
+    q = torch.randn((B, 1, H, hd), generator=g, device=dev)
+    k, v = (torch.randn((B, S, KV, hd), generator=g, device=dev)
+            for _ in range(2))
+    kw = {"window": 0, "softmax_scale": hd ** -0.5}
+    rows, worst = [], 0.0
+    for p in DA_PATH_POS:
+        pos = torch.tensor(p, dtype=torch.int32, device=dev)
+        got = da.decode_attention_fwd(q, k, v, pos, **kw)
+        err = _close(torch, got, ref.decode_attention_ref(q, k, v, pos, **kw),
+                     DA_TOL, f"K8 at {DA_PATH} pos {p}")
+        worst = max(worst, err)
+        qt = q.transpose(1, 2)
+        kt, vt = (t[:, :p + 1].transpose(1, 2) for t in (k, v))
+        lib_err = float((F.scaled_dot_product_attention(
+            qt, kt, vt, scale=kw["softmax_scale"],
+            enable_gqa=True).transpose(1, 2) - got).abs().max())
+        ms = cold_ms(torch, lambda: da.decode_attention_fwd(q, k, v, pos,
+                                                            **kw))
+        plain = cold_ms(torch, lambda: ref.decode_attention_ref(q, k, v, pos,
+                                                                **kw))
+        lib = cold_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, scale=kw["softmax_scale"], enable_gqa=True))
+        nbytes = 4 * (2 * B * (p + 1) * KV * hd + 2 * B * H * hd)
+        flops = 4 * B * H * (p + 1) * hd
+        bound = 1e3 * nbytes / bw
+        rows.append({"pos": p, "ms": ms, "plain_ms": plain,
+                     "library_ms": lib, "bytes": nbytes, "flops": flops,
+                     "bound_ms": bound, "bound_by": "bytes",
+                     "roofline_pct": 100 * bound / ms,
+                     "GB_per_s": nbytes / ms / 1e6, "max_abs_err": err,
+                     "library_max_abs_diff": lib_err})
+    errs["decode_attention"] = max(errs["decode_attention"], worst)
+    mid = {k: x for k, x in rows[len(rows) // 2].items()
+           if k != "max_abs_err"}
+    out = {"shape": list(DA_PATH), "dtype": "float32", **mid,
+           "positions": rows,
+           "ptxas": ptxas_lines("decode_attention")}
+    say("kernels-full", kernel="decode_attention", **out, max_abs_err=worst)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return out
 
 
 def scan_chunk(src=ROOT / SCAN_SRC):
@@ -5443,6 +5562,7 @@ def main(argv=None):
     phase_flash_small(torch, dev, errs)
     phase_mlstm_small(torch, dev, errs)
     phase_scan_small(torch, dev, errs)
+    phase_decode_small(torch, dev, errs)
     mark("3 small shapes")
     if args.quick:
         return 0
@@ -5457,6 +5577,7 @@ def main(argv=None):
             torch, dev, errs, name, bw, shape, seed)
     timing["mlstm"] = phase_mlstm_full(torch, dev, errs, name, bw)
     timing["selective_scan"] = phase_scan_full(torch, dev, errs, name, bw)
+    timing["decode_attention"] = phase_decode_full(torch, dev, errs, bw)
     mark("3 path shapes")
     phase_small_round(torch, dev)
     phase_small_strategies(torch, dev)

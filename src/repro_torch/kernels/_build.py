@@ -9,7 +9,8 @@ path, and its own C entry points (``API``): the wire kernels build with
 ``-fmad=false``, which keeps every multiply and add separately rounded as
 XLA's dequantize-then-sum is; flash attention (held to 2e-5), the
 mLSTM recurrence (2e-4) and the selective scan (1e-5) keep fused
-multiply-adds. Flash attention and the mLSTM share ``csrc/tf32_mma.cuh``
+multiply-adds, as does decode attention (K8, held to 1e-5). Flash
+attention and the mLSTM share ``csrc/tf32_mma.cuh``
 (the 3xTF32 tensor-core products and cp.async staging): every ``*.cuh``
 there is hashed into each library's path and ``csrc/`` is on the include
 path. Nothing here runs at import time.
@@ -31,7 +32,8 @@ _BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 NVCC_FLAGS = {"wire": _BASE_FLAGS + ("-fmad=false",),
               "flash_attention": _BASE_FLAGS,
               "mlstm": _BASE_FLAGS,
-              "selective_scan": _BASE_FLAGS}
+              "selective_scan": _BASE_FLAGS,
+              "decode_attention": _BASE_FLAGS}
 
 _P, _I64, _I32, _F32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
                         ctypes.c_float)
@@ -55,8 +57,13 @@ SCAN_API = {
     # xc, dt, Bm, Cm, A, D, y, h, x_dtype, B, S, di, st, stream
     "selective_scan_fwd": (*(_P,) * 8, _I32, *(_I64,) * 4, _P),
 }
+DECODE_API = {
+    # q, k, v, pos, pos64, o, part, B, S, H, KV, hd, scale, stream
+    "decode_attention_fwd": (*(_P,) * 4, _I32, _P, _P, *(_I64,) * 5, _F32,
+                             _P),
+}
 API = {"wire": WIRE_API, "flash_attention": FLASH_API, "mlstm": MLSTM_API,
-       "selective_scan": SCAN_API}
+       "selective_scan": SCAN_API, "decode_attention": DECODE_API}
 
 #: compiler output (``-Xptxas -v``) of the builds this process ran
 BUILD_LOGS = {}

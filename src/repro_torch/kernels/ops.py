@@ -1,10 +1,11 @@
 """Dispatch for the wire kernels K1-K4, flash attention K5, the selective
-scan K6 and mLSTM K7.
+scan K6, mLSTM K7 and decode attention K8.
 
 There is no ``impl`` knob: a tensor on the CPU goes to the plain version
-(``ref.py``), a CUDA tensor to the hand-written kernel's wrapper
-(``quantize.py`` / ``comm.py`` / ``flash_attention.py`` /
-``selective_scan.py`` / ``mlstm.py``), which launches it or raises.
+(``ref.py``), as does one on ``meta`` (the dry run's shapes), a CUDA
+tensor to the hand-written kernel's wrapper (``quantize.py`` /
+``comm.py`` / ``flash_attention.py`` / ``selective_scan.py`` /
+``mlstm.py`` / ``decode_attention.py``), which launches it or raises.
 Nothing falls back from the kernel to the plain version. A DTensor
 raises ``TypeError``: a kernel never runs on a local shard as if it were
 the whole tensor.
@@ -15,6 +16,7 @@ the whole tensor.
 from __future__ import annotations
 
 from repro_torch.kernels import comm as _comm
+from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import mlstm as _ml
 from repro_torch.kernels import quantize as _qz
@@ -29,6 +31,7 @@ KERNELS = {
     "flash_attention": _fa.flash_attention_fwd,                  # K5
     "selective_scan": _ss.selective_scan_fwd,                    # K6
     "mlstm": _ml.mlstm_fwd,                                      # K7
+    "decode_attention": _da.decode_attention_fwd,                # K8
 }
 
 
@@ -51,10 +54,10 @@ def _on_cuda(*tensors):
     kinds = {t.device.type for t in tensors}
     if kinds == {"cuda"}:
         return True
-    if kinds == {"cpu"}:
+    if kinds in ({"cpu"}, {"meta"}):
         return False
-    raise ValueError(f"the kernels take tensors on one device, cuda or "
-                     f"cpu; got {sorted(kinds)}")
+    raise ValueError(f"the kernels take tensors on one device, cuda, cpu "
+                     f"or meta; got {sorted(kinds)}")
 
 
 def quantize_blockwise(x, *, block=256, bits=8):
@@ -117,3 +120,15 @@ def mlstm(q, k, v, ig, fg):
         return _ml.mlstm_fwd(q, k, v, ig, fg), None
     h, _ = _ref.mlstm_ref(q, k, v, ig, fg)
     return h, None
+
+
+def decode_attention(q, ck, cv, pos, *, window, softmax_scale):
+    """Single-token attention against a KV cache, forward only. q:
+    (B,1,H,hd), ck/cv: (B,S,KV,hd), pos: 0-d int tensor, the position of
+    the token (the slots after it are not read; with ``window`` the cache
+    is a ring of S slots) -> (B,1,H,hd)."""
+    if _on_cuda(q, ck, cv, pos):
+        return _da.decode_attention_fwd(q, ck, cv, pos, window=window,
+                                        softmax_scale=softmax_scale)
+    return _ref.decode_attention_ref(q, ck, cv, pos, window=window,
+                                     softmax_scale=softmax_scale)

@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the wire kernels K1-K4, flash attention K5,
-the Mamba selective scan K6 and the mLSTM recurrence K7.
+the Mamba selective scan K6, the mLSTM recurrence K7 and decode
+attention K8.
 
 The wire versions repeat ``repro/kernels/ref.py`` (``_code_blocks_ref`` ..
 ``quant_avg_dequant_ef_ref``) op for op: absmax or mean-|x| per 256-wide
@@ -16,7 +17,11 @@ width needs one temporary of its size instead of four.
 
 ``flash_attention_ref`` repeats ``repro/kernels/ref.py``
 ``flash_attention_ref``: it materialises the whole score matrix.
-``selective_scan_ref`` and ``mlstm_ref`` name
+``decode_attention_ref`` is the JAX package's ``decode_attend``
+(``repro/models/attention.py``) op for op: K and V repeated to every
+query head (``repeat_kv``) over the whole cache, scores masked past the
+position, a softmax and a product, so the CPU parity tests see the JAX
+package's numbers. ``selective_scan_ref`` and ``mlstm_ref`` name
 ``models.mamba.selective_scan_ref`` and ``models.xlstm.mlstm_cell_ref``,
 as the reference's do, so each plain recurrence exists once.
 """
@@ -150,6 +155,35 @@ def flash_attention_ref(q, k, v, *, n_kv_heads, window=0, softmax_scale=None):
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", w, v.float())
     return o.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
+
+
+def repeat_kv(k, n_heads):
+    """(B,S,KV,hd) -> (B,S,H,hd), kv head ``h // (H/KV)`` for head h."""
+    B, S, KV, hd = k.shape
+    if KV == n_heads:
+        return k
+    G = n_heads // KV
+    return k[:, :, :, None, :].expand(B, S, KV, G, hd).reshape(
+        B, S, n_heads, hd)
+
+
+def decode_attention_ref(q, ck, cv, pos, *, window, softmax_scale):
+    """q: (B,1,H,hd); ck/cv: (B,S,KV,hd); pos: 0-d int tensor. Single-token
+    attention over the slots up to ``pos`` (every slot once a sliding
+    window's ring has wrapped) -> (B,1,H,hd_v)."""
+    H = q.shape[2]
+    S = ck.shape[1]
+    qh = q[:, 0] * softmax_scale                           # (B,H,hd)
+    k2 = repeat_kv(ck, H)                                  # (B,S,H,hd)
+    v2 = repeat_kv(cv, H)
+    dt = torch.promote_types(qh.dtype, k2.dtype)
+    s = torch.einsum("bhd,bshd->bhs", qh.to(dt), k2.to(dt)).float()
+    idx = torch.arange(S, device=q.device)
+    valid = ((idx <= pos) | (pos >= S)) if window else (idx <= pos)
+    s = torch.where(valid[None, None, :], s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhs,bshd->bhd", w.to(v2.dtype), v2)
+    return out[:, None]                                    # (B,1,H,hd_v)
 
 
 def selective_scan_ref(xc, dt, Bm, Cm, A, D, h0=None):

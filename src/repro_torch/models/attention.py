@@ -16,8 +16,11 @@ S = ``min(window, max_seq)`` under a sliding window (a ring buffer, slot
 ``pos % S``) and ``max_seq`` otherwise. Where JAX returns an updated copy
 (``dynamic_update_slice``), ``attn_decode`` writes the new key and value
 into the given cache IN PLACE (``index_copy_``) and returns it. ``pos`` is
-a 0-d tensor on the model's device and the validity mask is built from it
-on the device, so a decode step never waits for the host.
+a 0-d tensor on the model's device, read there, so a decode step never
+waits for the host. ``decode_attend`` runs through
+``kernels.ops.decode_attention``: on the card K8, which reads the cache in
+place up to the position; on the CPU its plain version, the JAX
+package's arithmetic (K and V repeated to every head, a mask, a softmax).
 """
 from __future__ import annotations
 
@@ -248,16 +251,6 @@ def attn_apply(p, x, cfg, positions, impl="ref"):
 # --------------------------------------------------------------------------
 # Decode (one token, KV cache; ring buffer when cfg.window > 0)
 # --------------------------------------------------------------------------
-def repeat_kv(k, n_heads):
-    """(B,S,KV,hd) -> (B,S,H,hd), kv head ``h // (H/KV)`` for head h."""
-    B, S, KV, hd = k.shape
-    if KV == n_heads:
-        return k
-    G = n_heads // KV
-    return constrain(k[:, :, :, None, :].expand(B, S, KV, G, hd).reshape(
-        B, S, n_heads, hd), _HEADS)
-
-
 def attn_cache_init(cfg, batch, seq_len, dtype, device, stack=()):
     """Zeros ``{"k", "v"}`` of shape (*stack, B, S, KV, hd)."""
     S = min(cfg.window, seq_len) if cfg.window else seq_len
@@ -277,28 +270,19 @@ def attn_cache_reset_(cache):
 
 def decode_attend(q, ck, cv, pos, *, window, softmax_scale):
     """q: (B,1,H,hd); ck/cv: (B,S,KV,hd); pos: 0-d tensor. Single-token
-    attention -> (B,1,H,hd_v). On DTensors each rank's rows and heads
-    (``local_call``: DTensor's einsum cannot flatten a head-sharded cache
-    under torch 2.11), the cache's heads laid out as q's."""
+    attention -> (B,1,H,hd_v) through ``kernels.ops.decode_attention``:
+    K8 over the cache in place on the card, the plain version (the JAX
+    package's arithmetic) on the CPU. On DTensors each rank's rows and
+    heads (``local_call``: DTensor's einsum cannot flatten a head-sharded
+    cache under torch 2.11), the cache's heads laid out as q's."""
     if on_mesh(q, ck, cv):
         k, v, kv_spec = _local_kv(q, ck, cv, ck.shape[2])
         return local_call(
             lambda a, b, c: decode_attend(a, b, c, pos, window=window,
                                           softmax_scale=softmax_scale),
             (q, k, v), (_ROWS_HEADS, kv_spec, kv_spec), _ROWS_HEADS)
-    H = q.shape[2]
-    S = ck.shape[1]
-    qh = q[:, 0] * softmax_scale                           # (B,H,hd)
-    k2 = repeat_kv(ck, H)                                  # (B,S,H,hd)
-    v2 = repeat_kv(cv, H)
-    dt = torch.promote_types(qh.dtype, k2.dtype)
-    s = torch.einsum("bhd,bshd->bhs", qh.to(dt), k2.to(dt)).float()
-    idx = torch.arange(S, device=q.device)
-    valid = ((idx <= pos) | (pos >= S)) if window else (idx <= pos)
-    s = torch.where(valid[None, None, :], s, NEG_INF)
-    w = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhs,bshd->bhd", w.to(v2.dtype), v2)
-    return out[:, None]                                    # (B,1,H,hd_v)
+    return kops.decode_attention(q, ck, cv, pos, window=window,
+                                 softmax_scale=softmax_scale)
 
 
 def attn_decode(p, x, cfg, cache, pos):

@@ -1,4 +1,4 @@
-"""On the card: each hand-written CUDA kernel (K1-K7) against its plain
+"""On the card: each hand-written CUDA kernel (K1-K8) against its plain
 PyTorch version on the same CUDA inputs, at the JAX suite's tolerances
 (tests/test_kernels.py), and the MoE FFN on the card under the sync guard
 against the same call on the CPU. Every test is marked ``gpu`` and skips without a
@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import comm as tcomm
+from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import quantize as tqz
@@ -116,6 +117,88 @@ def test_gpu_k5_matches_plain(cuda, dtype, B, Sq, Sk, H, KV, hd, hd_v,
     assert tfa.flash_attention_fwd.launches == before + 1
     torch.cuda.synchronize()
 
+
+
+def _k8(dev, B, S, H, KV, hd, seed=21):
+    """q (B,1,H,hd) and a cache (B,S,KV,hd) of keys and values, unit
+    normals."""
+    return (torch.tensor(_x((B, 1, H, hd), seed, 1.0), device=dev),
+            torch.tensor(_x((B, S, KV, hd), seed + 1, 1.0), device=dev),
+            torch.tensor(_x((B, S, KV, hd), seed + 2, 1.0), device=dev))
+
+
+def _k8_check(q, k, v, pos, window, tol=1e-5):
+    """K8 against its plain version at ``tol``; one launch counted."""
+    before = tda.decode_attention_fwd.launches
+    kw = {"window": window, "softmax_scale": q.shape[-1] ** -0.5}
+    got = tda.decode_attention_fwd(q, k, v, pos, **kw)
+    want = tref.decode_attention_ref(q, k, v, pos, **kw)
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    assert tda.decode_attention_fwd.launches == before + 1
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G", [1, 2, 3, 4, 7, 8])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_gpu_k8_matches_plain(cuda, G, hd):
+    """K8 against its plain version at 1e-5: B odd, S = 100 (not a multiple
+    of the 64-slot chunk), pos at 0, at the first chunk's last slot, the
+    next chunk's first and S - 1, as int32 and int64."""
+    KV = 2
+    q, k, v = _k8(cuda, 3, 100, G * KV, KV, hd, seed=G * 1000 + hd)
+    for p in (0, 63, 64, 99):
+        for dt in (torch.int32, torch.int64):
+            _k8_check(q, k, v, torch.tensor(p, dtype=dt, device=cuda), 0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [64, 100])
+def test_gpu_k8_sliding_window_ring(cuda, S):
+    """A sliding window's ring of S slots: before it wraps only the slots
+    up to pos are read, after it (pos >= S) every slot."""
+    q, k, v = _k8(cuda, 3, S, 8, 2, 128, seed=S)
+    for p in (S - 2, S - 1, S, S + 17, 5 * S + 3):
+        _k8_check(q, k, v, torch.tensor(p, dtype=torch.int32, device=cuda),
+                  S)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_gpu_k8_captured_replays_follow_pos(cuda):
+    """K8 captured once in a CUDA graph reads pos from the card: replays
+    with pos changed between them, under the sync guard, equal eager
+    launches at those positions bit for bit (the same inputs give the same
+    bits), and the plain version at 1e-5."""
+    B, S, H, KV, hd = 5, 200, 16, 8, 128
+    q, k, v = _k8(cuda, B, S, H, KV, hd)
+    kw = {"window": 0, "softmax_scale": hd ** -0.5}
+    pos = torch.zeros((), dtype=torch.int32, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                 # build, first launch
+        tda.decode_attention_fwd(q, k, v, pos, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tda.decode_attention_fwd(q, k, v, pos, **kw)
+    order = (0, 63, 64, 199, 127, 63, 0)
+    replays = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for p in order:
+            pos.fill_(p)
+            graph.replay()
+            replays.append(out.clone())
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for p, got in zip(order, replays):
+        eager = _k8_check(q, k, v, torch.tensor(p, dtype=torch.int32,
+                                                device=cuda), 0)
+        assert torch.equal(got, eager), p
+    assert not torch.equal(replays[0], replays[3])
+    torch.cuda.synchronize()
 
 
 # gate regimes: (ig shift, fg shift, q and k drawn >= 0)
@@ -594,7 +677,7 @@ def test_gpu_fused_capture_failure_raises(cuda):
 # deepseek's loop decodes over the MLA latent cache, arctic's through
 # the MoE beside a dense FFN
 SERVE_ARCHS = ["internlm2-1.8b", "xlstm-1.3b", "jamba-v0.1-52b",
-               "deepseek-v3-671b", "arctic-480b"]
+               "deepseek-v3-671b", "arctic-480b", "qwen1.5-32b"]
 
 
 def _serve_setup(dev, arch, seed=0):
@@ -628,12 +711,17 @@ def _eager_tokens(cfg, params, prompts, new, max_seq):
 def test_gpu_serveloop_tokens_equal_eager_across_a_swap(cuda, arch):
     """The captured loop's tokens equal an eager decode loop's before and
     after a ModelBank swap; one capture, ``P + new`` replays a
-    ``generate``, and every ``generate`` passes under the sync guard."""
+    ``generate``, and every ``generate`` passes under the sync guard. K8
+    runs once per attention layer a step: in the capture's first run and
+    in every replay."""
     from repro_torch.models import transformer as tr
     from repro_torch.serving import ModelBank, ServeLoop
     cfg, params, prompts = _serve_setup(cuda, arch)
     new, max_seq = 8, 16
+    n_attn = sum(r for pattern, r in cfg.segments for kind in pattern
+                 if kind.startswith("gqa:"))
     want0 = _eager_tokens(cfg, params, prompts, new, max_seq)
+    k8 = tda.decode_attention_fwd.launches
     loop = ServeLoop(cfg, params, batch=2, max_seq=max_seq, device=cuda)
     assert (loop.compile_count(), loop.replay_count()) == (1, 0)
     p1 = tr.init_params(1, cfg, torch.float32, device=cuda)
@@ -649,6 +737,8 @@ def test_gpu_serveloop_tokens_equal_eager_across_a_swap(cuda, arch):
         replays.append(loop.replay_count())
     finally:
         torch.cuda.set_sync_debug_mode(0)
+    assert tda.decode_attention_fwd.launches - k8 == n_attn * (
+        1 + loop.replay_count())
     assert torch.equal(gen0, want0)
     assert torch.equal(gen1, _eager_tokens(cfg, p1, prompts, new, max_seq))
     assert not torch.equal(gen1, gen0)

@@ -1,5 +1,5 @@
-"""Wire kernels K1-K4, flash attention K5, the selective scan K6 and mLSTM
-K7 of the PyTorch port against the JAX package.
+"""Wire kernels K1-K4, flash attention K5, the selective scan K6, mLSTM K7
+and decode attention K8 of the PyTorch port against the JAX package.
 
 CPU half: the port's plain versions (``repro_torch/kernels/ref.py``) are
 held against the JAX oracles (``repro/kernels/ref.py``, ``impl="ref"``)
@@ -39,6 +39,11 @@ every exp), (dt·B)·x as the plain version forms it, h and y_t by fused
 multiply-adds, y_t summed in one chain — against the JAX
 oracle at 1e-5 in three regimes (the JAX suite's draw, Mamba's
 initialisation, strong decay).
+
+K8's plain version (``ref.decode_attention_ref``, the JAX package's
+``decode_attend`` op for op) is held against the JAX package at 1e-6 and
+against K8's split (64-slot chunks of the valid slots, merged in order) in
+plain torch, around chunk boundaries and a wrapped sliding window.
 
 The card half — each hand-written CUDA kernel against its plain version
 on the same CUDA inputs — is ``tests/test_torch_gpu.py``, which imports no
@@ -276,21 +281,178 @@ def test_k5_wrapper_refuses_cpu_tensors_and_grad():
     assert tops.launch_counts()["flash_attention"] == 0
 
 
+# ---------------------------------------------------------------------------
+# K8: decode attention, plain version against the JAX package's decode and
+# the kernel's split order; the wrapper's refusals; the ServeLoop's count
+# ---------------------------------------------------------------------------
+def _k8_inputs(B, S, H, KV, hd, seed=11):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, 1, H, hd)).astype(np.float32),
+            rng.standard_normal((B, S, KV, hd)).astype(np.float32),
+            rng.standard_normal((B, S, KV, hd)).astype(np.float32))
+
+
+def _k8_split(q, ck, cv, pos, scale, chunk=64):
+    """K8's split in plain torch (``csrc/decode_attention.cu``): the
+    ``min(pos + 1, S)`` valid slots in chunks of ``chunk``, each chunk's
+    max, sum and unnormalised P·V per head, the chunks merged in order."""
+    B, _, H, hd = q.shape
+    S, KV = ck.shape[1], ck.shape[2]
+    n = min(int(pos) + 1, S)
+    qg = (q[:, 0] * scale).view(B, KV, H // KV, hd)
+    ms, ls, accs = [], [], []
+    for s0 in range(0, n, chunk):
+        s = torch.einsum("bkgd,bckd->bkgc", qg, ck[:, s0:min(n, s0 + chunk)])
+        m = s.amax(-1)
+        p = torch.exp(s - m[..., None])
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bkgc,bckd->bkgd", p,
+                                 cv[:, s0:min(n, s0 + chunk)]))
+    M = torch.stack(ms).amax(0)
+    w = [torch.exp(m - M) for m in ms]
+    L = sum(wi * li for wi, li in zip(w, ls))
+    o = sum(wi[..., None] * a for wi, a in zip(w, accs)) / L[..., None]
+    return o.reshape(B, 1, H, hd)
+
+
+# (B, S, H, KV, hd, window, pos): G 1, 2, 3 and 8; B odd; S not a multiple
+# of K8's 64-slot chunk; pos at 0, a chunk's last slot, the next chunk's
+# first, S - 1; a sliding window's ring before and after it wraps
+K8_CASES = [(3, 100, 4, 4, 64, 0, 0), (3, 100, 8, 4, 32, 0, 63),
+            (1, 100, 6, 2, 32, 0, 64), (2, 100, 16, 2, 128, 0, 99),
+            (3, 100, 8, 4, 32, 100, 99), (3, 100, 8, 4, 32, 100, 100),
+            (2, 70, 6, 2, 64, 70, 250)]
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,window,pos", K8_CASES)
+def test_k8_decode_attention_plain_matches_jax(B, S, H, KV, hd, window, pos):
+    """``ops.decode_attention`` on CPU tensors is ``decode_attend``'s
+    output bit for bit, the JAX package's ``decode_attend`` at 1e-6, and
+    K8's split over 64-slot chunks (valid slots ``min(pos + 1, S)``,
+    window or not) at 1e-6."""
+    from repro.models import attention as jattn
+    from repro_torch.models import attention as tattn
+    q, k, v = _k8_inputs(B, S, H, KV, hd)
+    tq, tk, tv = (torch.tensor(a) for a in (q, k, v))
+    kw = {"window": window, "softmax_scale": hd ** -0.5}
+    got = tops.decode_attention(tq, tk, tv, torch.tensor(pos), **kw)
+    assert got.shape == (B, 1, H, hd)
+    assert torch.equal(got, tattn.decode_attend(tq, tk, tv,
+                                                torch.tensor(pos), **kw))
+    want = jattn.decode_attend(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               jnp.int32(pos), **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+    split = _k8_split(tq, tk, tv, pos, hd ** -0.5)
+    np.testing.assert_allclose(split.numpy(), got.numpy(), rtol=1e-6,
+                               atol=1e-6)
+    assert tops.launch_counts()["decode_attention"] == 0
+
+
+def test_k8_wrapper_refuses_what_it_cannot_take(tmp_path):
+    """K8's wrapper raises on grad, wrong dtypes and shapes, G > 8, hd >
+    128 or not a multiple of 4, a bad ``pos`` and CPU tensors; the
+    dispatcher raises on a DTensor and never falls back."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    from repro_torch.kernels import decode_attention as tda
+    from repro_torch.launch import mesh
+    fwd = tda.decode_attention_fwd
+    kw = {"window": 0, "softmax_scale": 0.125}
+    pos = torch.tensor(3)
+
+    def qkv(B=2, S=16, H=8, KV=4, hd=32):
+        return tuple(torch.tensor(a) for a in _k8_inputs(B, S, H, KV, hd))
+    q, k, v = qkv()
+    with pytest.raises(RuntimeError, match="forward only"):
+        fwd(q.clone().requires_grad_(), k, v, pos, **kw)
+    with pytest.raises(ValueError, match="float32"):
+        fwd(q.bfloat16(), k, v, pos, **kw)
+    with pytest.raises(ValueError, match="float32"):
+        fwd(q[:, 0], k, v, pos, **kw)
+    for bad in ((q.expand(2, 2, 8, 32), k, v), (q, k, v[:, :8]),
+                (q[:, :, :6], k, v), (q, k[:, :0], v[:, :0])):
+        with pytest.raises(ValueError, match="shapes"):
+            fwd(*bad, pos, **kw)
+    for bad in (torch.tensor([3]), torch.tensor(3.0)):
+        with pytest.raises(ValueError, match="pos"):
+            fwd(q, k, v, bad, **kw)
+    for shape in ({"H": 18, "KV": 2}, {"hd": 256}, {"hd": 30}):
+        with pytest.raises(ValueError, match="outside this kernel"):
+            fwd(*qkv(**shape), pos, **kw)
+    with pytest.raises(ValueError, match="window"):
+        fwd(q, k, v, pos, window=-1, softmax_scale=0.125)
+    with pytest.raises(ValueError, match="CUDA"):
+        fwd(q, k, v, pos, **kw)
+    with pytest.raises(ValueError, match="one device"):
+        tops.decode_attention(q, k.to("meta"), v, pos, **kw)
+    mesh.init_process_mesh(0, 1, f"file://{tmp_path}/rdv", "gloo", "cpu")
+    try:
+        dm = mesh.make_sim_mesh((1,), ("model",), "cpu")
+        dq = distribute_tensor(q, dm, [Replicate()])
+        with pytest.raises(TypeError, match="DTensor"):
+            tops.decode_attention(dq, k, v, pos, **kw)
+    finally:
+        dist.destroy_process_group()
+    assert fwd.launches == 0
+
+
+def test_k8_counts_one_launch_per_attention_layer_a_step(monkeypatch):
+    """Through the card's dispatch (the wrapper stood in for by its plain
+    version, counting as it does): building a ServeLoop runs its step once
+    (the capture), one K8 launch per attention layer, and every prompt and
+    decode step adds one a layer, so the counter over the replays says how
+    often K8 ran. MLA and recurrent layers never reach it."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import decode_attention as tda
+    from repro_torch.models import transformer as ttr
+    from repro_torch.serving import ServeLoop
+    real = tda.decode_attention_fwd
+
+    def stand_in(q, ck, cv, pos, *, window, softmax_scale):
+        real.launches += 1
+        return tref.decode_attention_ref(q, ck, cv, pos, window=window,
+                                         softmax_scale=softmax_scale)
+    monkeypatch.setattr(tops, "_on_cuda", lambda *t: True)
+    monkeypatch.setattr(tda, "decode_attention_fwd", stand_in)
+    monkeypatch.setattr(real, "launches", 0)
+    P, new = 3, 2
+    for arch, n_attn in (("internlm2-1.8b", None), ("jamba-v0.1-52b", None),
+                         ("deepseek-v3-671b", 0)):
+        cfg = get_smoke_config(arch)
+        if n_attn is None:
+            n_attn = sum(r for pat, r in cfg.segments for kind in pat
+                         if kind.startswith("gqa:"))
+            assert n_attn >= 1
+        real.launches = 0
+        params = ttr.init_params(0, cfg, torch.float32, device="cpu")
+        loop = ServeLoop(cfg, params, batch=2, max_seq=8, device="cpu")
+        assert real.launches == n_attn * loop.compile_count() == n_attn
+        prompts = torch.zeros((2, P), dtype=torch.int64)
+        loop.generate(prompts, new)
+        assert real.launches == n_attn * (1 + P + new)
+
+
 def test_build_tables_are_per_library(monkeypatch, tmp_path):
     """Each library gets its own entry points and flags: the wire kernels
     keep -fmad=false, flash attention and mLSTM do not, and the flags are
     part of the library's path."""
     from repro_torch.kernels import _build
     assert set(_build.API) == set(_build.NVCC_FLAGS) == {
-        "wire", "flash_attention", "mlstm", "selective_scan"}
+        "wire", "flash_attention", "mlstm", "selective_scan",
+        "decode_attention"}
     assert "-fmad=false" in _build.NVCC_FLAGS["wire"]
-    for name in ("flash_attention", "mlstm", "selective_scan"):
+    for name in ("flash_attention", "mlstm", "selective_scan",
+                 "decode_attention"):
         assert "-fmad=false" not in _build.NVCC_FLAGS[name]
     assert set(_build.API["flash_attention"]) == {"flash_attention_fwd"}
     assert set(_build.API["mlstm"]) == {"mlstm_fwd"}
     assert len(_build.API["mlstm"]["mlstm_fwd"]) == 15
     assert set(_build.API["selective_scan"]) == {"selective_scan_fwd"}
     assert len(_build.API["selective_scan"]["selective_scan_fwd"]) == 14
+    assert set(_build.API["decode_attention"]) == {"decode_attention_fwd"}
+    assert len(_build.API["decode_attention"]["decode_attention_fwd"]) == 14
     path = _build.lib_path("flash_attention")
     assert path.name == "libflash_attention.so"
     monkeypatch.setitem(_build.NVCC_FLAGS, "flash_attention",
